@@ -1,0 +1,203 @@
+"""PyTorch port, the inference slice end to end against the JAX package:
+a checkpoint written by `xflow_tpu.train.checkpoint.save` restores in the
+port (digests verified, walk-back past a silently corrupted step), the
+port's sorted-window `evaluate` gives the JAX trainer's AUC and logloss
+on the same checkpoint and libffm shard, and `ServeRunner.predict_rows`
+gives the port's evaluate pctrs (the serve == evaluate pin).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import xflow_tpu.ops.sorted_table as jst
+from xflow_tpu.config import Config as JConfig
+from xflow_tpu.config import override as joverride
+from xflow_tpu.data.synth import generate_shards as jgenerate_shards
+from xflow_tpu.serve.runner import parse_rows as jparse_rows
+from xflow_tpu.testing.faults import bitflip_npz_array
+from xflow_tpu.train import checkpoint as jckpt
+from xflow_tpu.train.state import TrainState
+from xflow_tpu.train.trainer import Trainer
+from xflow_tpu_torch.config import Config, override
+from xflow_tpu_torch.data.synth import generate_shards
+from xflow_tpu_torch.evaluate import evaluate, predict_batches
+from xflow_tpu_torch.serve.runner import BadRequest, ServeRunner, parse_rows
+from xflow_tpu_torch.train import checkpoint as tckpt
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOG2_S, B, NNZ, V, NF = 14, 64, 8, 4, 8
+S, K = 1 << LOG2_S, 1 + V
+ROWS = 200  # three full batches and a padded one
+
+
+def _pairs(ckpt_dir):
+    return {
+        "model.name": "fm", "model.v_dim": V, "model.num_fields": NF,
+        "data.log2_slots": LOG2_S, "data.batch_size": B, "data.max_nnz": NNZ,
+        "train.checkpoint_dir": str(ckpt_dir),
+    }
+
+
+def _wv(seed):
+    rng = np.random.default_rng(seed)
+    wv = (rng.normal(size=(S, K)) * 0.3).astype(np.float32)
+    return wv
+
+
+def _jax_save(ckpt_dir, wv, step):
+    packed = jst.pack_table(jnp.asarray(wv))
+    zeros = jnp.zeros_like(packed)
+    state = TrainState(
+        tables={"wv": packed},
+        opt_state={"wv": {"n": zeros, "z": zeros}},
+        step=jnp.asarray(step, jnp.int32),
+    )
+    return jckpt.save(str(ckpt_dir), state, logical_widths={"wv": K})
+
+
+@pytest.fixture(scope="module")
+def slice_case(tmp_path_factory):
+    work = tmp_path_factory.mktemp("torch_slice")
+    (path,) = jgenerate_shards(str(work / "test"), 1, ROWS, num_fields=NF,
+                               ids_per_field=40, seed=3)
+    ck = work / "ck"
+    _jax_save(ck, _wv(10), 3)
+    _jax_save(ck, _wv(11), 7)
+    jcfg = joverride(JConfig(), **_pairs(ck), **{"train.pred_dump": False})
+    t = Trainer(jcfg)
+    assert t._sorted, "the JAX evaluate must run the sorted-window engine"
+    assert t.maybe_restore()
+    jauc, jll = t.evaluate(test_path=path, dump=False)
+    return {"work": work, "path": path, "ck": ck, "jauc": jauc, "jll": jll}
+
+
+def test_synth_shard_matches_jax(tmp_path):
+    (mine,) = generate_shards(str(tmp_path / "a"), 1, 50, num_fields=NF,
+                              ids_per_field=40, seed=3)
+    (theirs,) = jgenerate_shards(str(tmp_path / "b"), 1, 50, num_fields=NF,
+                                 ids_per_field=40, seed=3)
+    assert open(mine, "rb").read() == open(theirs, "rb").read()
+
+
+def test_restore_jax_checkpoint_with_digests(slice_case):
+    ck = str(slice_case["ck"])
+    assert tckpt.committed_steps(ck) == [7, 3]
+    assert tckpt.latest_step(ck) == 7
+    meta = tckpt.read_meta(ck, 7)
+    assert meta["version"] == tckpt.CHECKPOINT_VERSION
+    tables, step = tckpt.restore_tables(ck, {"wv": (S, K)})
+    assert step == 7
+    np.testing.assert_array_equal(tables["wv"], _wv(11))
+    # the digests the JAX writer recorded are the port's digests too
+    assert meta["digests"]["tables/wv"] == tckpt.array_digest(_wv(11))
+
+
+def test_bitflipped_newest_step_walks_back(tmp_path, capsys):
+    ck = tmp_path / "ck"
+    _jax_save(ck, _wv(20), 3)
+    _jax_save(ck, _wv(21), 7)
+    bitflip_npz_array(str(ck / "step_7" / "state.npz"), member="tables/wv.npy")
+    with pytest.raises(tckpt.CheckpointDigestError):
+        tckpt.restore_step_tables(str(ck), 7, {"wv": (S, K)})
+    tables, step = tckpt.restore_tables(str(ck), {"wv": (S, K)})
+    assert step == 3
+    np.testing.assert_array_equal(tables["wv"], _wv(20))
+    assert "digest mismatch" in capsys.readouterr().err
+    runner = ServeRunner(override(Config(), **_pairs(ck)), device="cpu")
+    assert runner.load().step == 3
+
+
+def test_port_written_checkpoint_restores_in_jax(tmp_path):
+    ck = tmp_path / "ck"
+    tckpt.save_tables(str(ck), {"wv": _wv(30)}, 5)
+    like = TrainState(tables={"wv": jnp.zeros((S // 8, 8 * K))}, opt_state={},
+                      step=jnp.zeros((), jnp.int32))
+    state = jckpt.restore(str(ck), like)
+    np.testing.assert_array_equal(np.asarray(state.tables["wv"]).reshape(S, K), _wv(30))
+    assert int(state.step) == 5
+
+
+def test_evaluate_matches_jax_sorted_engine(slice_case):
+    cfg = override(Config(), **_pairs(slice_case["ck"]))
+    runner = ServeRunner(cfg, device="cpu")
+    gen = runner.load()
+    assert gen.step == 7
+    auc, ll = evaluate(cfg, gen.tables, slice_case["path"], device="cpu")
+    assert auc == slice_case["jauc"]
+    assert abs(ll - slice_case["jll"]) <= 1e-6
+
+
+def test_serve_matches_evaluate(slice_case):
+    cfg = override(Config(), **_pairs(slice_case["ck"]), **{"serve.max_batch": 32})
+    runner = ServeRunner(cfg, device="cpu")
+    gen = runner.load()
+    pctrs = np.concatenate([
+        p[b.row_mask > 0]
+        for b, p in predict_batches(cfg, gen.tables, slice_case["path"], device="cpu")
+    ])
+    rows = [line.split("\t", 1)[1].strip()
+            for line in open(slice_case["path"]).read().splitlines()[:96]]
+    got, served = runner.predict_rows(rows)
+    assert served is gen
+    np.testing.assert_allclose(got, pctrs[:96], atol=1e-5, rtol=0)
+
+
+def test_parse_rows_hashing_matches_jax():
+    rows = ["0:tok1 1:tok2", "1\t3:abc:0.5 7:xyz", "2:1234 junk 5:é"]
+    for pairs in ({}, {"data.hash_salt": 77, "data.log2_slots": 18}):
+        tcfg, jcfg = override(Config(), **pairs), joverride(JConfig(), **pairs)
+        tf, ts = parse_rows(rows, tcfg.data)
+        jf, js = jparse_rows(rows, jcfg.data)
+        for a, b in zip(tf + ts, jf + js):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    with pytest.raises(BadRequest, match="no parseable"):
+        parse_rows(["nothing here"], Config().data)
+    with pytest.raises(BadRequest, match="expected a string"):
+        parse_rows([42], Config().data)
+
+
+_NO_JAX = (
+    "import sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['xflow_tpu'] = None\n"
+)
+
+
+def _run_without_jax(code, *args):
+    return subprocess.run(
+        [sys.executable, "-c", _NO_JAX + code, *args],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=240,
+    )
+
+
+def test_port_imports_without_jax():
+    r = _run_without_jax(
+        "import xflow_tpu_torch, xflow_tpu_torch.evaluate, xflow_tpu_torch.weights\n"
+        "import xflow_tpu_torch.serve.runner, xflow_tpu_torch.data.synth\n"
+        "import xflow_tpu_torch.ops.kernels, xflow_tpu_torch.__main__\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_cli_evaluate_without_jax(slice_case):
+    r = _run_without_jax(
+        "from xflow_tpu_torch.__main__ import main\n"
+        "sys.exit(main(sys.argv[1:]))\n",
+        "evaluate", "--checkpoint-dir", str(slice_case["ck"]),
+        "--test", slice_case["path"], "--device", "cpu",
+        "--batch-size", str(B), "--log2-slots", str(LOG2_S),
+        "--set", f"model.v_dim={V}", "--set", f"data.max_nnz={NNZ}",
+    )
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["step"] == 7 and out["device"] == "cpu"
+    assert out["auc"] == slice_case["jauc"]
+    assert abs(out["logloss"] - slice_case["jll"]) <= 1e-6

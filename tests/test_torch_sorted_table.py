@@ -1,0 +1,212 @@
+"""PyTorch port, sorted-window engine (xflow_tpu_torch/ops/sorted_table.py)
+held against the JAX package on the same numpy inputs:
+
+- the host planner, bitwise;
+- the gather's plain version, bitwise against `_gather_xla`,
+  `table_gather_sorted` and the Pallas kernel in interpret mode;
+- the row sum's plain version against `row_sums_sorted` and the Pallas
+  kernel, within kernel_parity's reduction tolerance (1e-4 relative over
+  a 1e-2 floor: the two sum in different orders).
+
+Small shapes: S = 2^14, B = 64 rows of 8 occurrences, v_dim = 4.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import xflow_tpu.ops.sorted_table as jst
+from xflow_tpu_torch.config import Config, override
+from xflow_tpu_torch.ops import sorted_table as tst
+from xflow_tpu_torch.weights import tables_from_jax
+
+S = 1 << 14
+B, F = 64, 8
+K = 5  # fused FM row at v_dim = 4
+K8 = tst._k8(K)
+RTOL, FLOOR = 1e-4, 1e-2  # xflow_tpu/tools/kernel_parity.py reductions
+CHUNK_N = tst.CHUNK
+
+
+def _case(seed, mask_p=0.7):
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, S, (B, F)).astype(np.int32)
+    slots[:4] = slots[4:8]  # repeated slots inside one window
+    mask = (rng.random((B, F)) < mask_p).astype(np.float32)
+    table = rng.normal(size=(S, K)).astype(np.float32)
+    return slots, mask, table
+
+
+def _jax_plan(monkeypatch, slots, mask, fields=None):
+    monkeypatch.setattr(jst, "_NATIVE_PLAN", None)
+    monkeypatch.setenv("XFLOW_NO_NATIVE_PLAN", "1")
+    plan = jst.plan_sorted_batch(slots, mask, S, fields=fields)
+    monkeypatch.delenv("XFLOW_NO_NATIVE_PLAN")
+    monkeypatch.setattr(jst, "_NATIVE_PLAN", None)
+    return plan
+
+
+def _cfg():
+    return override(Config(), **{
+        "model.name": "fm", "model.v_dim": K - 1, "data.log2_slots": 14,
+        "data.batch_size": B, "data.max_nnz": F,
+    })
+
+
+def _close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    assert np.all(err <= RTOL * np.maximum(np.abs(want), FLOOR)), err.max()
+
+
+@pytest.mark.parametrize("seed, with_fields", [(0, False), (1, True), (2, False)])
+def test_plan_bitwise_equal_to_jax_numpy_planner(monkeypatch, seed, with_fields):
+    slots, mask, _ = _case(seed)
+    fields = (
+        np.random.default_rng(seed).integers(0, 18, (B, F)).astype(np.int32)
+        if with_fields else None
+    )
+    want = _jax_plan(monkeypatch, slots, mask, fields)
+    got = tst.plan_sorted_batch(slots, mask, S, fields=fields)
+    for name in ("sorted_slots", "sorted_row", "sorted_mask", "win_off", "sorted_fields"):
+        a, b = getattr(got, name), getattr(want, name)
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+
+
+def test_plan_rejects_out_of_range_slot():
+    slots, mask, _ = _case(3)
+    slots[0, 0] = S
+    with pytest.raises(ValueError, match="out of range"):
+        tst.plan_sorted_batch(slots, mask, S)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_gather_plain_bitwise_equal_to_jax(monkeypatch, packed):
+    slots, mask, table = _case(4)
+    plan = _jax_plan(monkeypatch, slots, mask)
+    jtab = jst.pack_table(jnp.asarray(table)) if packed else jnp.asarray(table)
+    pack = jst.pack_of(jtab, K)
+    jss, joff = jnp.asarray(plan.sorted_slots), jnp.asarray(plan.win_off)
+    want_xla = np.asarray(jst._gather_xla(jtab, jss, joff, pack))
+    want_op = np.asarray(jst.table_gather_sorted(jtab, jss, joff, False, pack))
+    ttab = tables_from_jax({"wv": np.asarray(jtab)}, _cfg(), device="cpu")["wv"]
+    assert tuple(ttab.shape) == (S, K)
+    got = tst.table_gather_sorted(
+        ttab, torch.from_numpy(plan.sorted_slots), torch.from_numpy(plan.win_off)
+    ).numpy()
+    assert got.shape == (K8, plan.sorted_slots.shape[0])
+    np.testing.assert_array_equal(got, want_xla)
+    np.testing.assert_array_equal(got, want_op)
+
+
+def test_gather_plain_zero_rows_and_out_of_range_slots():
+    _, _, table = _case(5)
+    ss = torch.tensor([0, 3, S - 1, S, S + 7], dtype=torch.int32)
+    got = tst.gather_sorted_plain(torch.from_numpy(table), ss)
+    want = jst._gather_xla(jnp.asarray(table), jnp.asarray(ss.numpy()), None)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.all(got[K:] == 0) and torch.all(got[:, 3:] == 0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_plain_matches_pallas_interpret(monkeypatch, bf16):
+    pltpu = pytest.importorskip("jax.experimental.pallas.tpu")
+    if not hasattr(pltpu, "force_tpu_interpret_mode"):
+        pytest.skip("pallas TPU interpret mode unavailable in this jax build")
+    slots, mask, table = _case(6)
+    plan = _jax_plan(monkeypatch, slots, mask)
+    n = slots.size
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jst._gather_pallas(
+            jnp.asarray(table), jnp.asarray(plan.sorted_slots),
+            jnp.asarray(plan.win_off), bf16,
+        ))
+    got = tst.gather_sorted_plain(
+        torch.from_numpy(table), torch.from_numpy(plan.sorted_slots), bf16
+    ).numpy()
+    np.testing.assert_array_equal(got[:, :n], want[:, :n])
+
+
+def _rowsum_inputs(monkeypatch, seed, wire):
+    slots, mask, table = _case(seed)
+    plan = _jax_plan(monkeypatch, slots, mask)
+    rng = np.random.default_rng(seed + 100)
+    ch = tst._k8(2 * K - 1)
+    vals = rng.normal(size=(ch, plan.sorted_slots.shape[0])).astype(np.float32)
+    vals *= plan.sorted_mask[None, :]  # pads and masked occurrences add 0
+    rows = plan.sorted_row
+    if wire:
+        rows = jst.compact_plan_wire({"sorted_row": rows}, rows_bound=B)["sorted_row"]
+        assert rows.dtype == np.uint16
+    return vals, rows
+
+
+@pytest.mark.parametrize("wire", [False, True])
+def test_row_sums_plain_matches_jax(monkeypatch, wire):
+    vals, rows = _rowsum_inputs(monkeypatch, 7, wire)
+    want = np.asarray(jst.row_sums_sorted(
+        jnp.asarray(vals), jst.wire_rows(jnp.asarray(rows)), B
+    ))
+    got = tst.row_sums_sorted(
+        torch.from_numpy(vals), tst.wire_rows(torch.from_numpy(rows)), B
+    ).numpy()
+    assert got.shape == (B, vals.shape[0])
+    _close(got, want)
+
+
+def test_row_sums_plain_matches_pallas_interpret(monkeypatch):
+    pltpu = pytest.importorskip("jax.experimental.pallas.tpu")
+    if not hasattr(pltpu, "force_tpu_interpret_mode"):
+        pytest.skip("pallas TPU interpret mode unavailable in this jax build")
+    vals, rows = _rowsum_inputs(monkeypatch, 8, False)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jst._rowsum_pallas(jnp.asarray(vals), jnp.asarray(rows), B))
+    got = tst.row_sums_plain(torch.from_numpy(vals), torch.from_numpy(rows), B).numpy()
+    _close(got, want)
+
+
+def test_wire_compaction_matches_jax_and_widens(monkeypatch):
+    slots, mask, _ = _case(9)
+    plan = _jax_plan(monkeypatch, slots, mask)
+    arrays = {"sorted_row": plan.sorted_row, "sorted_mask": plan.sorted_mask,
+              "sorted_slots": plan.sorted_slots}
+    want = jst.compact_plan_wire(arrays, rows_bound=B)
+    got = tst.compact_plan_wire(arrays, rows_bound=B)
+    for k in arrays:
+        assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
+    assert got["sorted_mask"].dtype == np.uint8
+    assert torch.equal(tst.wire_mask(torch.from_numpy(got["sorted_mask"])),
+                       torch.from_numpy(plan.sorted_mask))
+    assert torch.equal(tst.wire_rows(torch.from_numpy(got["sorted_row"])),
+                       torch.from_numpy(plan.sorted_row))
+    with pytest.raises(ValueError, match="0/1"):
+        tst.compact_plan_wire({"sorted_mask": np.full(4, 0.5, np.float32)}, rows_bound=B)
+
+
+def test_plain_versions_only_on_cpu_tensors():
+    """A wrapper takes the plain version because its tensors lie on the
+    CPU; tensors elsewhere go to the kernel wrapper, which checks them."""
+    table = torch.zeros((S, K))
+    ss = torch.zeros(CHUNK_N, dtype=torch.int32)
+    before = dict(tst.LAUNCHES)
+    tst.table_gather_sorted(table, ss, torch.zeros(9, dtype=torch.int32))
+    tst.row_sums_sorted(torch.zeros((16, CHUNK_N)), ss, 4)
+    assert tst.LAUNCHES == before  # no kernel launched on the CPU
+    with pytest.raises(ValueError, match="CUDA"):
+        tst.gather_sorted_cuda(table, ss)
+    with pytest.raises(ValueError, match="CUDA"):
+        tst.row_sums_cuda(torch.zeros((16, CHUNK_N)), ss, 4)
+
+
+def test_backward_not_ported_yet():
+    table = torch.zeros((S, K), requires_grad=True)
+    ss = torch.zeros(CHUNK_N, dtype=torch.int32)
+    out = tst.table_gather_sorted(table, ss, torch.zeros(9, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+

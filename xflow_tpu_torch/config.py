@@ -1,0 +1,102 @@
+"""Configuration tree of the PyTorch port: the fields the inference slice
+reads, with the JAX package's names and defaults (`xflow_tpu/config.py`),
+so a `--set section.key=value` override means the same in both.
+
+Sections and fields not listed here belong to paths the port has not
+taken over yet (training, the optimizers, multi-device engines, the
+serving fleet); an override naming one raises KeyError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Model selection and dims. `fm_standard` selects the textbook FM
+    second-order term (per latent dim, with the 1/2 when `fm_half`);
+    False reproduces the reference's coupled form. `fm_fused` keeps w
+    and v in one ``wv [S, 1+k]`` table."""
+
+    name: str = "lr"
+    v_dim: int = 10
+    num_fields: int = 18
+    fm_standard: bool = True
+    fm_half: bool = True
+    fm_fused: bool = True
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Input: libffm shards hashed into a dense ``2**log2_slots`` table,
+    batched to ``[batch_size, max_nnz]`` padded blocks.
+
+    `sorted_layout` ("auto"|"on"|"off") picks the sorted-window engine
+    for the fused FM table; `sorted_bf16` rounds gathered table values
+    to bf16."""
+
+    test_path: str = ""
+    batch_size: int = 1024
+    max_nnz: int = 32
+    log2_slots: int = 22
+    hash_salt: int = 0
+    sorted_layout: str = "auto"
+    sorted_bf16: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The checkpoint fields the slice reads: where checkpoints live,
+    their format ("npz" is the one the port reads and writes) and digest
+    verification on restore ("auto"|"off")."""
+
+    checkpoint_dir: str = ""
+    checkpoint_format: str = "npz"
+    checkpoint_verify: str = "auto"
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Rows per serving device batch (the per-request row cap too)."""
+
+    max_batch: int = 256
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+    @property
+    def num_slots(self) -> int:
+        return 1 << self.data.log2_slots
+
+
+def _replace_nested(obj: Any, path: list[str], value: Any) -> Any:
+    if len(path) == 1:
+        fields = {f.name for f in dataclasses.fields(obj)}
+        if path[0] not in fields:
+            raise KeyError(f"unknown config key {path[0]!r} in {type(obj).__name__}")
+        cur = getattr(obj, path[0])
+        if isinstance(cur, bool):
+            if isinstance(value, str):
+                value = value.lower() in ("1", "true", "yes", "on")
+        elif isinstance(cur, int):
+            value = int(value)
+        elif isinstance(cur, float):
+            value = float(value)
+        return dataclasses.replace(obj, **{path[0]: value})
+    child = getattr(obj, path[0])
+    return dataclasses.replace(obj, **{path[0]: _replace_nested(child, path[1:], value)})
+
+
+def override(cfg: Config, **dotted: Any) -> Config:
+    """Apply dotted-path overrides: override(cfg, **{"model.name": "fm"})."""
+    for key, value in dotted.items():
+        cfg = _replace_nested(cfg, key.split("."), value)
+    return cfg

@@ -1,0 +1,87 @@
+"""Offline evaluation on one device: the exact single-device path of the
+JAX trainer's `evaluate` (`xflow_tpu/train/trainer.py`).
+
+Each batch of the libffm file is planned on the host (slot-sorted plan,
+compact wire format) when the sorted layout is on, shipped to the
+device, and run through the shared `predict_fn`; the pCTRs of real rows
+feed the rank-sum AUC and the mean log-likelihood.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from xflow_tpu_torch.config import Config
+from xflow_tpu_torch.data.libffm import iter_batches
+from xflow_tpu_torch.data.schema import SparseBatch
+from xflow_tpu_torch.metrics import auc_logloss
+from xflow_tpu_torch.models import get_model
+from xflow_tpu_torch.models.predict import make_predict_fn
+from xflow_tpu_torch.ops.sorted_table import (
+    WINDOW,
+    compact_plan_wire,
+    plan_sorted_batch,
+)
+
+
+def sorted_layout_on(cfg: Config) -> bool:
+    """Whether batches ship as sorted plans: the JAX trainer's
+    single-device rule (fused FM, S a multiple of WINDOW) under
+    data.sorted_layout "auto", forced by "on", never under "off"."""
+    mode = cfg.data.sorted_layout
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"data.sorted_layout={mode!r}: expected auto|on|off")
+    supported = cfg.model.name == "fm" and cfg.model.fm_fused
+    if mode == "on" and not (supported and cfg.num_slots % WINDOW == 0):
+        raise ValueError(
+            "sorted_layout=on needs model.name=fm with model.fm_fused=true and "
+            f"num_slots divisible by {WINDOW}"
+        )
+    return mode == "on" or (mode == "auto" and supported and cfg.num_slots % WINDOW == 0)
+
+
+def batch_arrays(batch: SparseBatch, cfg: Config) -> dict:
+    """Host arrays the forward consumes: the sorted plan (compacted wire
+    dtypes) plus labels/row_mask, or the row-major arrays."""
+    arrays = {"labels": batch.labels, "row_mask": batch.row_mask}
+    if not sorted_layout_on(cfg):
+        arrays.update(slots=batch.slots, fields=batch.fields, mask=batch.mask)
+        return arrays
+    plan = plan_sorted_batch(batch.slots, batch.mask, cfg.num_slots)
+    arrays.update(
+        sorted_slots=plan.sorted_slots,
+        sorted_row=plan.sorted_row,
+        sorted_mask=plan.sorted_mask,
+        win_off=plan.win_off,
+    )
+    return compact_plan_wire(arrays, rows_bound=cfg.data.batch_size)
+
+
+def to_device(arrays: dict, device) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
+
+
+def predict_batches(cfg: Config, tables: dict, path: str,
+                    device="cuda") -> Iterator[tuple[SparseBatch, np.ndarray]]:
+    """(batch, pctr [B] on the host) for every batch of libffm file `path`,
+    predicted on `device` with `tables` (already on that device)."""
+    step = make_predict_fn(get_model(cfg.model.name)(cfg))
+    for batch in iter_batches(path, cfg.data):
+        p = step(tables, to_device(batch_arrays(batch, cfg), device))
+        yield batch, p.cpu().numpy()
+
+
+def evaluate(cfg: Config, tables: dict, path: str, device="cuda") -> tuple[float, float]:
+    """(auc, logloss) of `tables` on libffm file `path`; logloss keeps the
+    reference's sign (a mean log-likelihood)."""
+    pctrs, labels = [], []
+    for batch, p in predict_batches(cfg, tables, path, device):
+        rm = batch.row_mask > 0
+        pctrs.append(p[rm])
+        labels.append(batch.labels[rm])
+    if not pctrs:
+        return float("nan"), float("nan")
+    return auc_logloss(np.concatenate(pctrs), np.concatenate(labels))

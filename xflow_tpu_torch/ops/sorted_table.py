@@ -1,0 +1,315 @@
+"""Sorted-window table engine: host-side plans and the two table kernels
+of the inference path.
+
+The host sorts each batch's feature occurrences by table slot
+(`plan_sorted_batch`, bit-identical to the JAX package's numpy planner)
+and ships `sorted_slots [Np]`, `sorted_row [Np]`, `sorted_mask [Np]` and
+`win_off [S/WINDOW + 1]`. On the device:
+
+- `table_gather_sorted` returns each occurrence's table row, transposed:
+  `occ_t [K8, Np]`, rows K..K8 zero, pad columns holding row S-1;
+- `row_sums_sorted` reduces per-occurrence channels into per-row sums:
+  `out [B, ch]`.
+
+Each op has a hand-written CUDA kernel (`csrc/gather_sorted.cu`,
+`csrc/row_sums.cu`) and a plain PyTorch version beside it. A wrapper
+takes the plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises. `LAUNCHES` counts kernel launches, so a
+run can show that it went through the kernels.
+
+Tables are logical `[S, K]` here (see the package docstring); `pack_of`
+recognises the JAX package's packed `[S/8, 8K]` layout so
+`weights.tables_from_jax` can unpack it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+WINDOW = 2048  # table slots per window of the plan's win_off
+CHUNK = 512  # plan arrays are padded to a multiple of this
+PACK = 8  # slots per packed table row in the JAX package's layout
+
+LAUNCHES = {"gather_sorted": 0, "row_sums": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _k8(k: int) -> int:
+    return max(8, ((k + 7) // 8) * 8)
+
+
+def padded_len(n: int) -> int:
+    return (n // CHUNK + 2) * CHUNK
+
+
+class SortedPlan(NamedTuple):
+    """Host-computed slot-sorted layout of one batch's occurrences,
+    padded to `padded_len`; pads sit at slot S-1 with row 0 and mask 0."""
+
+    sorted_slots: np.ndarray  # int32 [Np]
+    sorted_row: np.ndarray  # int32 [Np]
+    sorted_mask: np.ndarray  # float32 [Np]
+    win_off: np.ndarray  # int32 [S/WINDOW + 1]
+    sorted_fields: Optional[np.ndarray] = None  # int32 [Np]
+
+
+def plan_sorted_batch(
+    slots: np.ndarray,
+    mask: np.ndarray,
+    num_slots: int,
+    fields: Optional[np.ndarray] = None,
+) -> SortedPlan:
+    """Sort a [B, F] batch's occurrences by table slot (stable), pad to
+    `padded_len`, and record each WINDOW's first position in `win_off`.
+    Masked occurrences keep their slot; their mask zeroes them later."""
+    flat_slots = np.ascontiguousarray(slots, np.int32).ravel()
+    flat_mask = np.ascontiguousarray(mask, np.float32).ravel()
+    if flat_slots.size and (
+        int(flat_slots.min()) < 0 or int(flat_slots.max()) >= num_slots
+    ):
+        raise ValueError(
+            f"slot out of range [0, {num_slots}): "
+            f"min={int(flat_slots.min())} max={int(flat_slots.max())}"
+        )
+    n = flat_slots.shape[0]
+    pad = padded_len(n) - n
+    order = np.argsort(flat_slots, kind="stable").astype(np.int32)
+    ss = np.concatenate([flat_slots[order], np.full(pad, num_slots - 1, np.int32)])
+    win_off = np.searchsorted(ss, np.arange(0, num_slots + 1, WINDOW)).astype(np.int32)
+    sorted_fields = None
+    if fields is not None:
+        flat_fields = np.ascontiguousarray(fields, np.int32).ravel()
+        sorted_fields = np.concatenate([flat_fields[order], np.zeros(pad, np.int32)])
+    return SortedPlan(
+        sorted_slots=ss,
+        sorted_row=np.concatenate(
+            [(order // slots.shape[1]).astype(np.int32), np.zeros(pad, np.int32)]
+        ),
+        sorted_mask=np.concatenate([flat_mask[order], np.zeros(pad, np.float32)]),
+        win_off=win_off,
+        sorted_fields=sorted_fields,
+    )
+
+
+def compact_plan_wire(arrays: dict, rows_bound: int, fields_bound: int = 0) -> dict:
+    """Shrink the plan's host-to-device wire format: row ids to uint16
+    (when `rows_bound` <= 2^16), fields to uint8 (when `fields_bound` <=
+    2^8), the 0/1 mask to uint8. The device side widens them with
+    `wire_rows` / `wire_mask`. Raises on a mask that is not 0/1."""
+    out = dict(arrays)
+    if rows_bound <= (1 << 16) and _dtype(out, "sorted_row") == np.int32:
+        out["sorted_row"] = np.asarray(out["sorted_row"]).astype(np.uint16)
+    if 0 < fields_bound <= (1 << 8) and _dtype(out, "sorted_fields") == np.int32:
+        out["sorted_fields"] = np.asarray(out["sorted_fields"]).astype(np.uint8)
+    if _dtype(out, "sorted_mask") == np.float32:
+        m = np.asarray(out["sorted_mask"])
+        u8 = m.astype(np.uint8)
+        if not (m == u8).all():
+            raise ValueError("sorted_mask carries non-0/1 values: the mask is a presence mask")
+        out["sorted_mask"] = u8
+    return out
+
+
+def _dtype(arrays: dict, key: str):
+    return np.asarray(arrays[key]).dtype if key in arrays else None
+
+
+def wire_rows(sorted_row: torch.Tensor) -> torch.Tensor:
+    """Widen a possibly compacted row-id tensor to int32."""
+    return sorted_row.to(torch.int32)
+
+
+def wire_mask(sorted_mask: torch.Tensor) -> torch.Tensor:
+    """Widen a possibly compacted mask tensor to float32."""
+    return sorted_mask.to(torch.float32)
+
+
+def pack_of(table, K: int) -> int:
+    """Layout of `table` given its logical row width K: 1 = logical
+    [S, K] (or a 1-D scalar table), PACK = packed [S/PACK, PACK*K]."""
+    if table.ndim != 2 or table.shape[1] == K:
+        return 1
+    if table.shape[1] == PACK * K:
+        return PACK
+    raise ValueError(
+        f"table shape {tuple(table.shape)} is neither logical [S, {K}] nor "
+        f"packed [S/{PACK}, {PACK * K}]"
+    )
+
+
+def table_rows(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[slots]`` of a logical table."""
+    return table[slots.long()]
+
+
+def batch_rows(table: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Per-occurrence rows of a row-major batch: the two-level gather when
+    the host attached (unique_slots, inverse), else the direct one."""
+    if "unique_slots" in batch:
+        return table_rows(table, batch["unique_slots"])[batch["inverse"].long()]
+    return table_rows(table, batch["slots"])
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _require_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            "kernel inputs must all lie on one CUDA device, got "
+            + ", ".join(str(t.device) for t in tensors)
+        )
+
+
+# ------------------------------------------------------------ windowed gather
+
+def gather_sorted_plain(table: torch.Tensor, sorted_slots: torch.Tensor,
+                        bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the gather: [K8, Np], rows K..K8 zero,
+    out-of-range slots give 0, `bf16` rounds values to bfloat16."""
+    S, K = table.shape
+    valid = (sorted_slots >= 0) & (sorted_slots < S)
+    rows = table[sorted_slots.clamp(0, S - 1).long()]
+    occ = torch.where(valid[:, None], rows, torch.zeros((), dtype=table.dtype, device=table.device))
+    if bf16:
+        occ = occ.to(torch.bfloat16).to(torch.float32)
+    out = torch.zeros((_k8(K), sorted_slots.shape[0]), dtype=table.dtype, device=table.device)
+    out[:K] = occ.T
+    return out
+
+
+def gather_sorted_cuda(table: torch.Tensor, sorted_slots: torch.Tensor,
+                       bf16: bool = False) -> torch.Tensor:
+    """Launch `csrc/gather_sorted.cu` on CUDA tensors.
+
+    Replaces `_gather_pallas` (xflow_tpu/ops/sorted_table.py). Bound by
+    bytes on the H100: a 4 B slot and one K-float row read per
+    occurrence, K8 floats written. One thread per occurrence copies its
+    row down an output column; stores coalesce along the occurrence
+    axis and the slot order keeps row reads in shared L2 sectors."""
+    from xflow_tpu_torch.ops import kernels
+
+    _require_cuda(table, sorted_slots)
+    _check(table, "table", torch.float32, 2)
+    _check(sorted_slots, "sorted_slots", torch.int32, 1)
+    S, K = table.shape
+    np_ = sorted_slots.shape[0]
+    out = torch.empty((_k8(K), np_), dtype=torch.float32, device=table.device)
+    lib = kernels.load("gather_sorted")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xf_gather_sorted(
+            table.data_ptr(), sorted_slots.data_ptr(), out.data_ptr(),
+            S, K, _k8(K), np_, int(bool(bf16)), stream,
+        )
+    kernels.check(err, "gather_sorted")
+    LAUNCHES["gather_sorted"] += 1
+    return out
+
+
+def _gather_forward(table, sorted_slots, bf16):
+    if table.device.type == "cpu" and sorted_slots.device.type == "cpu":
+        return gather_sorted_plain(table, sorted_slots, bf16)
+    return gather_sorted_cuda(table, sorted_slots, bf16)
+
+
+class TableGatherSorted(torch.autograd.Function):
+    """Differentiable in `table`; the backward (the windowed scatter-add,
+    `_scatter_pallas` in the JAX package) comes with the training slice."""
+
+    @staticmethod
+    def forward(ctx, table, sorted_slots, win_off, bf16):
+        return _gather_forward(table, sorted_slots, bf16)
+
+    @staticmethod
+    def backward(ctx, d_occ_t):
+        raise NotImplementedError(
+            "table_gather_sorted backward (the windowed scatter-add) is not ported yet"
+        )
+
+
+def table_gather_sorted(table: torch.Tensor, sorted_slots: torch.Tensor,
+                        win_off: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Per-occurrence rows of logical `table [S, K]`, transposed:
+    [K8, Np]. Pad columns hold row S-1 (multiply by the plan's mask
+    before use). `win_off` is the plan's window index; the CUDA kernel
+    does not need it, it is taken for the JAX signature."""
+    return TableGatherSorted.apply(table, sorted_slots, win_off, bf16)
+
+
+# ------------------------------------------------------------------- row sums
+
+def row_sums_plain(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of the row sum: [num_rows, ch]."""
+    out = torch.zeros((num_rows, vals_t.shape[0]), dtype=torch.float32, device=vals_t.device)
+    return out.index_add_(0, rows.long(), vals_t.T)
+
+
+def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Launch `csrc/row_sums.cu` on CUDA tensors.
+
+    Replaces `_rowsum_pallas` (xflow_tpu/ops/sorted_table.py). Bound by
+    bytes on the H100: (ch + 1) * 4 B read per occurrence. A block reads
+    a [ch, 128] slab of vals with coalesced loads into shared memory and
+    adds it into the rows channel-fastest with float atomics, so the
+    order of the adds, and the last bits of a sum, vary from run to run
+    (tolerance: 1e-4 relative over a 1e-2 floor)."""
+    from xflow_tpu_torch.ops import kernels
+
+    _require_cuda(vals_t, rows)
+    _check(vals_t, "vals_t", torch.float32, 2)
+    _check(rows, "rows", torch.int32, 1)
+    ch, np_ = vals_t.shape
+    if rows.shape[0] != np_:
+        raise ValueError(f"rows has {rows.shape[0]} entries, vals_t {np_} columns")
+    lib = kernels.load("row_sums")
+    if lib.xf_row_sums_smem_bytes(ch) > 48 * 1024:
+        raise ValueError(f"row_sums: ch={ch} needs more than 48 KB of shared memory")
+    out = torch.zeros((num_rows, ch), dtype=torch.float32, device=vals_t.device)
+    with torch.cuda.device(vals_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xf_row_sums(
+            vals_t.data_ptr(), rows.data_ptr(), out.data_ptr(), ch, np_, num_rows, stream
+        )
+    kernels.check(err, "row_sums")
+    LAUNCHES["row_sums"] += 1
+    return out
+
+
+def _row_sums_forward(vals_t, rows, num_rows):
+    if vals_t.device.type == "cpu" and rows.device.type == "cpu":
+        return row_sums_plain(vals_t, rows, num_rows)
+    return row_sums_cuda(vals_t, rows, num_rows)
+
+
+class RowSumsSorted(torch.autograd.Function):
+    """Differentiable in `vals_t`; the backward is the row gather
+    ``d_out.T[:, rows]``, ported with the training slice."""
+
+    @staticmethod
+    def forward(ctx, vals_t, rows, num_rows):
+        return _row_sums_forward(vals_t, rows, num_rows)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        raise NotImplementedError("row_sums_sorted backward is not ported yet")
+
+
+def row_sums_sorted(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """out[r, c] = sum of vals_t[c, j] over occurrences j with rows[j] = r.
+    Pads carry row 0 and value 0. No cap on `num_rows`."""
+    return RowSumsSorted.apply(vals_t, rows, num_rows)

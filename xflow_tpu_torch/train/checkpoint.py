@@ -1,0 +1,227 @@
+"""npz checkpoints in the JAX package's format (`xflow_tpu/train/checkpoint.py`,
+meta.json version 3): read side plus a minimal writer.
+
+A step lives in ``<dir>/step_<N>/``:
+
+- ``state.npz`` — ``tables/<name>`` in the logical layout (plus optimizer
+  state and ``step`` when the trainer wrote it);
+- ``meta.json`` — version 3: the stored layout and a crc32 digest of
+  every array's raw bytes;
+- ``COMMITTED`` — written last; a step dir without it is partial.
+
+`restore_tables` reads the tables only (serving and evaluation never
+read optimizer state), verifies their digests, and walks back to the
+previous committed step when the newest one fails to load.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import sys
+import zlib
+from typing import Optional
+
+import numpy as np
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+CHECKPOINT_VERSION = 3
+PACK = 8
+
+
+class CheckpointDigestError(RuntimeError):
+    """A stored array's bytes no longer match the digest meta.json
+    recorded at save: silent corruption. Restore walks back past it."""
+
+
+def array_digest(arr: np.ndarray) -> str:
+    """crc32 of an array's raw bytes, as meta.json records it."""
+    arr = np.ascontiguousarray(arr)
+    return "crc32:%08x" % (zlib.crc32(arr.tobytes()) & 0xFFFFFFFF)
+
+
+def verify_digest(label: str, arr: np.ndarray, digests: Optional[dict], source: str) -> None:
+    """Raise CheckpointDigestError when `arr` does not match its recorded
+    digest; arrays without one (pre-v3 checkpoints) pass."""
+    if not digests:
+        return
+    want = digests.get(label)
+    if not want:
+        return
+    got = array_digest(np.asarray(arr))
+    if got != want:
+        raise CheckpointDigestError(
+            f"checkpoint {source!r}: array {label!r} digest mismatch "
+            f"(stored {want}, read {got})"
+        )
+
+
+def committed_steps(ckpt_dir: str) -> list[int]:
+    """All committed npz checkpoint steps, newest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        m = _STEP_RE.match(name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name, "COMMITTED")):
+            steps.append(int(m.group(1)))
+    return sorted(steps, reverse=True)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = committed_steps(ckpt_dir)
+    return steps[0] if steps else None
+
+
+def read_meta(ckpt_dir: str, step: int) -> Optional[dict]:
+    """meta.json of checkpoint `step`, or None (with a note on stderr)
+    when it is missing or unreadable: the restore then runs unverified."""
+    path = os.path.join(ckpt_dir, f"step_{step}", "meta.json")
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            meta = json.load(f)
+        if not isinstance(meta, dict):
+            raise ValueError(f"expected a JSON object, got {type(meta).__name__}")
+    except (OSError, ValueError) as e:
+        print(
+            f"# checkpoint: step {step} meta unreadable ({type(e).__name__}: {e}); "
+            "restoring without digest verification",
+            file=sys.stderr,
+        )
+        return None
+    return meta
+
+
+def _logical(arr: np.ndarray, label: str, shape: tuple, source: str) -> np.ndarray:
+    """`arr` in the expected logical `shape`; a packed [S/8, 8K] array is
+    reshaped, anything else is a model/config mismatch."""
+    if arr.shape == shape:
+        return arr
+    packed = len(shape) == 2 and arr.shape == (shape[0] // PACK, shape[1] * PACK)
+    if not packed:
+        raise RuntimeError(
+            f"checkpoint {source!r}: {label} stored shape {arr.shape} does not "
+            f"match the config's {shape} (did model dims or log2_slots change?)"
+        )
+    return arr.reshape(shape)
+
+
+def restore_step_tables(ckpt_dir: str, step: int, shapes: dict, verify: str = "auto") -> dict:
+    """Tables {name: float32 array in logical shape} of one committed
+    step, digest-verified unless `verify` is "off"."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    meta = read_meta(ckpt_dir, step) if verify != "off" else None
+    digests = meta.get("digests") if isinstance(meta, dict) else None
+    out = {}
+    with np.load(os.path.join(path, "state.npz")) as data:
+        for name, shape in shapes.items():
+            label = f"tables/{name}"
+            if label not in data.files:
+                stored = sorted(k for k in data.files if k.startswith("tables/"))
+                raise RuntimeError(f"checkpoint {path!r} has no {label!r} (stored: {stored})")
+            arr = data[label]
+            verify_digest(label, arr, digests, path)
+            out[name] = np.ascontiguousarray(_logical(arr, label, tuple(shape), path), np.float32)
+    return out
+
+
+def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[dict, int]:
+    """Tables of the newest committed step that loads, walking back past
+    steps that fail (digest mismatch, damaged or missing file, wrong
+    shapes), each logged. Returns (tables, step). Raises
+    FileNotFoundError when no committed step exists, RuntimeError
+    listing every failure when none loads."""
+    steps = committed_steps(ckpt_dir)
+    if not steps:
+        raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir!r}")
+    errors = []
+    for step in steps:
+        try:
+            tables = restore_step_tables(ckpt_dir, step, shapes, verify=verify)
+        except Exception as e:  # noqa: BLE001 — every way a stored step can
+            # be damaged (BadZipFile, zlib.error, OSError, ValueError,
+            # digest or shape mismatch) takes the walk-back, logged below
+            print(
+                f"# checkpoint: step {step} failed to load ({type(e).__name__}: {e}); "
+                "trying the previous committed step",
+                file=sys.stderr,
+            )
+            errors.append((step, e))
+            continue
+        return tables, step
+    raise RuntimeError(
+        f"no loadable checkpoint under {ckpt_dir!r}: "
+        + "; ".join(f"step {s}: {type(e).__name__}: {e}" for s, e in errors)
+    )
+
+
+def _write_atomic(path: str, writer) -> None:
+    """Write through a temp name, fsync, rename, fsync the directory."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        writer(tmp)
+        fd = os.open(tmp, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        os.replace(tmp, path)
+        dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def write_flat(ckpt_dir: str, flat: dict, step: int) -> str:
+    """Write host arrays `flat` ({"tables/wv": ..., "step": ...}) as
+    committed step `step`: state.npz, meta.json v3 with digests, then the
+    COMMITTED marker. A leftover uncommitted dir of the same step is
+    removed first. Returns the step dir."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.isdir(path) and not os.path.exists(os.path.join(path, "COMMITTED")):
+        shutil.rmtree(path)
+    os.makedirs(path, exist_ok=True)
+
+    def write_npz(p):
+        with open(p, "wb") as f:
+            np.savez(f, **flat)
+
+    _write_atomic(os.path.join(path, "state.npz"), write_npz)
+    meta = {
+        "step": step,
+        "tables": sorted(k.split("/", 1)[1] for k in flat if k.startswith("tables/")),
+        "format": "npz",
+        "version": CHECKPOINT_VERSION,
+        "world_size": 1,
+        "layout": {k: list(np.asarray(v).shape) for k, v in flat.items()},
+        "digests": {k: array_digest(v) for k, v in flat.items()},
+    }
+
+    def write_json(p):
+        with open(p, "w") as f:
+            json.dump(meta, f)
+
+    _write_atomic(os.path.join(path, "meta.json"), write_json)
+
+    def write_marker(p):
+        with open(p, "w") as f:
+            f.write("ok\n")
+
+    _write_atomic(os.path.join(path, "COMMITTED"), write_marker)
+    return path
+
+
+def save_tables(ckpt_dir: str, tables: dict, step: int) -> str:
+    """Commit `tables` ({name: host array}, logical layout) as a
+    tables-only checkpoint at `step`."""
+    flat = {f"tables/{n}": np.asarray(t, np.float32) for n, t in tables.items()}
+    flat["step"] = np.asarray(step, np.int32)
+    return write_flat(ckpt_dir, flat, step)
