@@ -6,23 +6,47 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card: name and power limit as nvidia-smi reports them;
-2. build every CUDA kernel of the inference path from `xflow_tpu_torch/csrc/`
-   (one nvcc per source, started together);
-3. write the slice's inputs from a seed at the FM headline's full width
-   (fused `wv [2^22, 11]`, 18 fields, 65,536-row batches): a committed
-   npz checkpoint and a libffm shard of 2 x 65,536 rows;
-4. load the checkpoint with `ServeRunner.load()` and hold each kernel
-   against its plain PyTorch version on the main path's own inputs
-   (the first batch's plan and gathered rows): the gather bit-exact with
-   bf16 off and on, the row sum within 1e-4 relative over a 1e-2 floor
-   (|got - want| <= 1e-4 * (|want| + 1e-2), float atomics reorder the
-   sum); CUDA-event times of the kernel, the plain version and one
-   PyTorch library call computing the same function;
-5. the main path: `evaluate` over the shard on the card with the launch
-   counts set to 0 just before and read just after (each kernel must have
-   launched), the first batch's pCTRs held against the same evaluate on
-   the CPU, and `predict_rows` on 8 rows held against their evaluate
-   pCTRs (atol 1e-5).
+2. build every CUDA kernel from `xflow_tpu_torch/csrc/` (one nvcc per
+   source, started together);
+3. write the inputs from a seed at the FM headline's full width (fused
+   `wv [2^22, 11]`, 18 fields, 65,536-row batches): a committed full
+   training checkpoint (tables, FTRL n and z with the upper half of the
+   slots never touched) and a libffm shard of 2 x 65,536 rows;
+4. inference kernels on the evaluate path's own inputs (the first
+   batch's plan and gathered rows): the gather bit-exact with bf16 off
+   and on, the row sum within 1e-4 relative over a 1e-2 floor
+   (|got - want| <= 1e-4 * (|want| + 1e-2): float atomics reorder the
+   sum);
+5. training kernels on the training path's own inputs (the first batch's
+   plan and the occurrence cotangent the fused step's backward produces
+   on the restored state), bf16 off and on: the scatter bitwise equal to
+   its plain version on the CPU and across two launches; the fused
+   scatter+FTRL within 1e-3 over 1e-4 for w, n and z, within 1e-3 over a
+   floor of 1e-2 of its largest magnitude for the gradient z' implies,
+   and the new w within 1e-3 of the FTRL rule on (z', n') (the gradient
+   is far under the fixed floor; see `ftrl_errs`), and w of
+   never-touched slots bitwise kept. Then one fused train step from that
+   state on the card and on the CPU: loss within 1e-5 relative, w, n, z
+   as for the fused kernel. For every kernel, CUDA-event times of the
+   kernel, its plain version and one PyTorch library call (or
+   composition) computing the same function;
+6. the evaluate path: `evaluate` over the shard on the card, the first
+   batch's pCTRs against the CPU's, `predict_rows` against evaluate;
+7. the training main path: `python -m xflow_tpu_torch train` (in
+   process) on the card, 2 epochs over the shard (4 fused steps); then
+   one epoch of the two-pass step (`optim.fused_scatter=off`). Each run
+   has the launch counts set to 0 just before and read just after, and
+   each kernel of its path must have launched;
+8. train -> serve: the trained checkpoint loads in `ServeRunner` at the
+   trained step and evaluates to a finite AUC above 0.5 on its own
+   training shard; one more fused step from that checkpoint on the card
+   and on the CPU agrees as in phase 5 (at the default FTRL
+   hyperparameters and 65,536-row batches nearly every trained w stays
+   0, so the end-to-end checks alone would pass a wrong w);
+9. where the time goes: host clock per stage of an evaluate batch and of
+   a train step, CUDA-event times of the forward and of the step (with
+   the non-finite guard on and off), and the step's device busy time by
+   `torch.profiler`.
 
 The last three lines of standard output: the card line, the kernels
 JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -31,6 +55,8 @@ run outside a checkout of the repository, it fails before printing any.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -48,8 +74,12 @@ LOG2_SLOTS, V_DIM, NUM_FIELDS, BATCH = 22, 10, 18, 65536
 SHARD_ROWS = 2 * BATCH
 IDS_PER_FIELD = 200_000  # bench.py's end-to-end FM data
 SEED = 0
-RTOL, FLOOR = 1e-4, 1e-2
+DEVICE = "cuda"
+RTOL, FLOOR = 1e-4, 1e-2  # gather / row sum / scatter (kernel_parity's reductions)
+FTRL_RTOL, FTRL_FLOOR = 1e-3, 1e-4  # kernel_parity's scatter_ftrl_*
+LOSS_RTOL = 1e-5
 PCTR_ATOL = 1e-5
+FTRL_OPS_PER_ELEMENT = 16  # update_one's float ops, sqrt and division as one each
 
 
 def fail(msg: str) -> None:
@@ -87,6 +117,54 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rel_err(got, want, floor: float) -> float:
+    """Max of |got - want| / (|want| + floor), elementwise."""
+    return ((got - want).abs() / (want.abs() + floor)).max().item()
+
+
+def ftrl_errs(got, want, prev, hp, what: str) -> dict:
+    """Errors of an FTRL step's (w', n', z') against a reference, from the
+    pre-step (w, n, z); all must be within FTRL_RTOL. Each leaf over the
+    fixed FTRL_FLOOR; but the gradient of a mean over 65,536 rows is
+    about 1e-5 a slot, far under that floor, and n moves by g², which no
+    f32 n near 0.1 holds, so n is no witness of g. Two more checks are:
+
+    - `g`: the gradient each side's z' implies, z' - z + (√n' - √n) /
+      alpha * w, over a floor of 1e-2 of its largest magnitude. Each
+      side's own n' and own device's sqrt enter: where g² is far under
+      an ulp of n, √n' - √n is 0 or an ulp of √n, so a last bit of n'
+      or of sqrt (torch's CPU sqrt is not always correctly rounded)
+      moves z' by an ulp of √n over alpha times w, which is no error of
+      g and cancels here;
+    - `w_rule`: the new w against the FTRL rule on the same side's own
+      (z', n'), with the lazy-init guard, over 1e-2 of the largest |w|
+      the rule gives off the guard."""
+    import torch
+
+    from xflow_tpu_torch.optim.ftrl import weight_of
+
+    errs = {name: rel_err(a.to(b.device), b, FTRL_FLOOR) for name, a, b in zip("wnz", got, want)}
+
+    def implied_g(out):
+        w, n, z = (p.to(out[2].device) for p in prev)
+        return (out[2] - z) + (torch.sqrt(out[1]) - torch.sqrt(n)) / hp.alpha * w
+
+    g_want = implied_g(want)
+    scale = g_want.abs().max().item()
+    if not scale > 0:
+        fail(f"{what}: the FTRL step moved no z: the gradient is all zero")
+    errs["g"] = rel_err(implied_g(got).to(g_want.device), g_want, 1e-2 * scale)
+    w_new, n_new, z_new = got
+    w, n = (p.to(w_new.device) for p in prev[:2])
+    lazy = (n == 0) & (n_new == 0)
+    rule = weight_of(z_new, n_new, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
+    floor = max(1e-2 * rule[~lazy].abs().max().item(), 1e-30)
+    errs["w_rule"] = rel_err(w_new, torch.where(lazy, w, rule), floor)
+    if not all(e <= FTRL_RTOL for e in errs.values()):
+        fail(f"{what}: {errs} beyond {FTRL_RTOL} relative")
+    return errs
+
+
 def gather_bytes(sorted_slots, K: int, K8: int) -> float:
     """Bytes the gather must move for this plan: each slot read once, the
     32 B sectors that hold the distinct rows it touches, the output
@@ -104,39 +182,53 @@ def gather_bytes(sorted_slots, K: int, K8: int) -> float:
 
 
 def make_inputs(work: str, cfg):
+    """The full training checkpoint (step 1) and the shard `<work>/data-00000`."""
     import numpy as np
 
     from xflow_tpu_torch.data.synth import generate_shards
-    from xflow_tpu_torch.train.checkpoint import save_tables
+    from xflow_tpu_torch.train.checkpoint import save_state
 
     rng = np.random.default_rng(SEED)
     S, K = cfg.num_slots, 1 + V_DIM
-    wv = (rng.standard_normal((S, K), dtype=np.float32) * np.float32(0.05))
+    wv = rng.standard_normal((S, K), dtype=np.float32) * np.float32(0.05)
+    # FTRL state as a run that has touched the lower half of the slots:
+    # the upper half keeps n = z = 0, so the lazy-init guard runs there
+    n = np.abs(rng.standard_normal((S, K), dtype=np.float32)) * np.float32(0.1)
+    z = rng.standard_normal((S, K), dtype=np.float32) * np.float32(1e-4)
+    n[S // 2:] = 0.0
+    z[S // 2:] = 0.0
     t0 = time.perf_counter()
-    save_tables(cfg.train.checkpoint_dir, {"wv": wv}, step=1)
+    save_state(cfg.train.checkpoint_dir, {"wv": wv}, {"wv": {"n": n, "z": z}}, step=1)
     t_ck = time.perf_counter() - t0
     t0 = time.perf_counter()
     (path,) = generate_shards(
-        os.path.join(work, "test"), 1, SHARD_ROWS, num_fields=NUM_FIELDS,
+        os.path.join(work, "data"), 1, SHARD_ROWS, num_fields=NUM_FIELDS,
         ids_per_field=IDS_PER_FIELD, seed=SEED,
     )
-    print(f"# inputs: checkpoint {wv.nbytes / 1e6:.1f} MB in {t_ck:.1f} s, "
+    print(f"# inputs: checkpoint {3 * wv.nbytes / 1e6:.1f} MB in {t_ck:.1f} s, "
           f"shard {os.path.getsize(path) / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return path
 
 
-def check_kernels(cfg, gen, path) -> list:
-    """Each kernel against its plain version on the main path's inputs."""
-    import torch
-
+def first_arrays(cfg, path, device):
     from xflow_tpu_torch.data.libffm import iter_batches
     from xflow_tpu_torch.evaluate import batch_arrays, to_device
+
+    batch = next(iter_batches(path, cfg.data))
+    host = batch_arrays(batch, cfg)
+    return host, to_device(host, device)
+
+
+def check_kernels(cfg, gen, path) -> list:
+    """The inference kernels against their plain versions on the
+    evaluate path's inputs."""
+    import torch
+
     from xflow_tpu_torch.models.fm import stack_channels
     from xflow_tpu_torch.ops import sorted_table as st
 
-    batch = next(iter_batches(path, cfg.data))
-    arrays = to_device(batch_arrays(batch, cfg), "cuda")
+    _, arrays = first_arrays(cfg, path, DEVICE)
     table = gen.tables["wv"]
     ss = arrays["sorted_slots"]
     S, K = table.shape
@@ -176,8 +268,7 @@ def check_kernels(cfg, gen, path) -> list:
     got = st.row_sums_cuda(vals, rows, BATCH)
     want = st.row_sums_plain(vals, rows, BATCH)
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    rel = (err / (want.abs() + FLOOR)).max().item()
+    rel = rel_err(got, want, FLOOR)
     if not rel <= RTOL:
         fail(f"row_sums differs from its plain version: {rel} > {RTOL} (over a {FLOOR} floor)")
     print(f"# row_sums: max err {rel:.3g} relative over a {FLOOR} floor "
@@ -185,16 +276,161 @@ def check_kernels(cfg, gen, path) -> list:
     r_ms = cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))
     r_plain = cuda_ms(lambda: st.row_sums_plain(vals, rows, BATCH))
     rows_l = rows.long()
-    r_lib = cuda_ms(lambda: torch.zeros((BATCH, ch), device="cuda").index_add_(0, rows_l, vals.T))
+    r_lib = cuda_ms(lambda: torch.zeros((BATCH, ch), device=DEVICE).index_add_(0, rows_l, vals.T))
     r_bound, r_by = bound_ms(ch * np_ * 4 + np_ * 4 + BATCH * ch * 4, ch * np_)
     results.append({
         "name": "row_sums", "route": "cuda",
         "source": "xflow_tpu_torch/csrc/row_sums.cu",
         "replaces": "xflow_tpu/ops/sorted_table.py:1162",
-        "max_abs_err": err.max().item(), "ms": r_ms, "plain_ms": r_plain,
+        "max_abs_err": (got - want).abs().max().item(), "ms": r_ms, "plain_ms": r_plain,
         "bound_ms": r_bound, "bound_by": r_by, "library_ms": r_lib,
     })
     return results
+
+
+def restored_state(cfg, device):
+    """The step-1 training checkpoint as a TrainState on `device`."""
+    import torch
+
+    from xflow_tpu_torch.train.checkpoint import restore_state
+    from xflow_tpu_torch.train.state import TrainState
+    from xflow_tpu_torch.weights import table_shapes
+
+    tables, opt, step = restore_state(cfg.train.checkpoint_dir, table_shapes(cfg), ("n", "z"))
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return TrainState(
+        {k: put(v) for k, v in tables.items()},
+        {k: {leaf: put(v) for leaf, v in d.items()} for k, d in opt.items()},
+        step,
+    )
+
+
+def check_train_kernels(cfg, path) -> list:
+    """The training kernels against their plain versions on the training
+    path's inputs, and one fused step on the card against the CPU's."""
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.optim.ftrl import update_one
+    from xflow_tpu_torch.train.step import fused_cotangent
+
+    state = restored_state(cfg, DEVICE)
+    _, arrays = first_arrays(cfg, path, DEVICE)
+    w, n, z = state.tables["wv"], state.opt_state["wv"]["n"], state.opt_state["wv"]["z"]
+    ss, wo = arrays["sorted_slots"], arrays["win_off"]
+    S, K = w.shape
+    np_ = ss.numel()
+    _, d_occ = fused_cotangent(w, arrays, cfg)
+    hp = cfg.optim.ftrl
+    results = []
+
+    # --- scatter (#4): the gather's VJP. The plain version on the CPU sums
+    # each slot's run in plan order, as the kernel does, so the two agree
+    # bit for bit (on the card the plain version's atomics reorder sums).
+    d_cpu, ss_cpu = d_occ.cpu(), ss.cpu()
+    for bf16 in (False, True):
+        got = st.scatter_sorted_cuda(d_occ, ss, wo, S, K, bf16)
+        again = st.scatter_sorted_cuda(d_occ, ss, wo, S, K, bf16)
+        want = st.scatter_sorted_plain(d_cpu, ss_cpu, S, K, bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"scatter_sorted (bf16={bf16}) gave different bits on two launches")
+        got = got.cpu()
+        if not torch.equal(got, want):
+            fail(f"scatter_sorted (bf16={bf16}) differs from its plain version on the CPU: "
+                 f"max abs err {(got - want).abs().max().item()} "
+                 f"(largest |want| {want.abs().max().item()})")
+        print(f"# scatter_sorted bf16={bf16}: bit-exact against the CPU plain version and "
+              f"across two launches, over {tuple(got.shape)} "
+              f"(largest |g| {want.abs().max().item():.3g})", flush=True)
+        if not bf16:
+            s_err = (got - want).abs().max().item()
+    s_ms = cuda_ms(lambda: st.scatter_sorted_cuda(d_occ, ss, wo, S, K))
+    s_plain = cuda_ms(lambda: st.scatter_sorted_plain(d_occ, ss, S, K))
+    ss_l = ss.long()
+    s_lib = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T))
+    s_bound, s_by = bound_ms(S * K * 4 + K * np_ * 4 + np_ * 4 + wo.numel() * 4, K * np_)
+    results.append({
+        "name": "scatter_sorted", "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/scatter_sorted.cu",
+        "replaces": "xflow_tpu/ops/sorted_table.py:938",
+        "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
+        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib,
+    })
+
+    # --- fused scatter + FTRL (#3)
+    for bf16 in (False, True):
+        got = st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp, bf16)
+        want = st.scatter_ftrl_plain(d_occ, ss, w, n, z, K, hp, bf16)
+        g = st.scatter_sorted_plain(d_occ, ss, S, K, bf16)
+        torch.cuda.synchronize()
+        errs = ftrl_errs(got, want, (w, n, z), hp,
+                         f"scatter_ftrl (bf16={bf16}) against its plain version")
+        lazy = (g == 0) & (n == 0)
+        n_lazy = int(lazy.sum())
+        if n_lazy == 0 or not torch.equal(got[0][lazy], w[lazy]):
+            fail(f"scatter_ftrl (bf16={bf16}) did not keep w of the {n_lazy} "
+                 "never-touched (slot, channel) entries bitwise")
+        print(f"# scatter_ftrl bf16={bf16}: max err {errs} relative (w, n, z over a "
+              f"{FTRL_FLOOR} floor; g, w_rule over 1e-2 of their largest magnitude) "
+              f"(tolerance {FTRL_RTOL}); w kept bitwise on {n_lazy} lazy-init entries", flush=True)
+        if not bf16:
+            f_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    f_ms = cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp))
+    f_plain = cuda_ms(lambda: st.scatter_ftrl_plain(d_occ, ss, w, n, z, K, hp))
+
+    def composition():
+        g = torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T)
+        return update_one(w, n, z, g, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
+
+    f_lib = cuda_ms(composition)
+    f_bound, f_by = bound_ms(
+        6 * S * K * 4 + K * np_ * 4 + np_ * 4 + wo.numel() * 4,
+        K * np_ + FTRL_OPS_PER_ELEMENT * S * K,
+    )
+    results.append({
+        "name": "scatter_ftrl", "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/scatter_ftrl.cu",
+        "replaces": "xflow_tpu/ops/sorted_table.py:1064",
+        "max_abs_err": f_err, "ms": f_ms, "plain_ms": f_plain,
+        "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib,
+    })
+    print(f"# scatter_ftrl library_ms is a composition (index_add_ + the torch FTRL "
+          f"expression): {f_lib:.4f} ms", flush=True)
+    step_card_vs_cpu(cfg, path, "the restored step-1 state")
+    return results
+
+
+def step_card_vs_cpu(cfg, path, what: str) -> None:
+    """One fused train step on the first batch from the checkpoint under
+    cfg.train.checkpoint_dir, on the card and on the CPU: the loss within
+    LOSS_RTOL, (w, n, z) by `ftrl_errs`."""
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(get_model("fm")(cfg), get_optimizer("ftrl"), cfg)
+    _, arrays = first_arrays(cfg, path, DEVICE)
+    s_gpu, m_gpu = step(restored_state(cfg, DEVICE), arrays)
+    prev = restored_state(cfg, "cpu")
+    s_cpu, m_cpu = step(prev, {k: v.cpu() for k, v in arrays.items()})
+    lg, lc = m_gpu["loss"].item(), m_cpu["loss"].item()
+    if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
+        fail(f"fused step from {what}: loss on the card {lg} vs the CPU {lc}, beyond "
+             f"{LOSS_RTOL} relative")
+
+    def leaves(s):
+        return s.tables["wv"], s.opt_state["wv"]["n"], s.opt_state["wv"]["z"]
+
+    if not m_gpu["update_ok"]:
+        fail(f"fused step from {what} on the card: update_ok is false")
+    errs = ftrl_errs(leaves(s_gpu), leaves(s_cpu), leaves(prev),
+                     cfg.optim.ftrl, f"fused step from {what}, card vs CPU")
+    trained = s_cpu.tables["wv"][s_cpu.opt_state["wv"]["n"] > 0]
+    print(f"# fused step from {what}, card vs CPU: loss {lg} vs {lc}; max err {errs}; "
+          f"w' of the {trained.numel()} trained entries (n' > 0): "
+          f"{int((trained != 0).sum())} nonzero, largest |w'| "
+          f"{trained.abs().max().item():.3g}", flush=True)
 
 
 def first_batch(cfg, tables, path, device):
@@ -208,7 +444,7 @@ def first_batch(cfg, tables, path, device):
 
 
 def run_slice(cfg, gen, path) -> dict:
-    """The main path on the card, with the launch counts around it."""
+    """The evaluate path on the card, with the launch counts around it."""
     import numpy as np
     import torch
 
@@ -218,14 +454,14 @@ def run_slice(cfg, gen, path) -> dict:
 
     st.reset_launches()
     t0 = time.perf_counter()
-    auc, ll = evaluate(cfg, gen.tables, path, device="cuda")
+    auc, ll = evaluate(cfg, gen.tables, path, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(st.LAUNCHES)
     n_batches = -(-SHARD_ROWS // BATCH)
-    for name, n in launches.items():
-        if n < 1:
-            fail(f"kernel {name} was not launched on the main path ({launches})")
+    for name in ("gather_sorted", "row_sums"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the evaluate path ({launches})")
     if not (np.isfinite(auc) and np.isfinite(ll) and 0.0 <= auc <= 1.0 and ll < 0.0):
         fail(f"evaluate gave auc={auc} logloss={ll}")
     # the weights are random, so an AUC near 0.5 is what a right path gives
@@ -234,7 +470,7 @@ def run_slice(cfg, gen, path) -> dict:
           f"forward); launches {launches}", flush=True)
 
     # first batch: the card against the CPU
-    _, p_gpu = first_batch(cfg, gen.tables, path, "cuda")
+    _, p_gpu = first_batch(cfg, gen.tables, path, DEVICE)
     cpu_gen = ServeRunner(cfg, device="cpu").load()
     _, p_cpu = first_batch(cfg, cpu_gen.tables, path, "cpu")
     if p_gpu.shape != (BATCH,) or not np.all(np.isfinite(p_gpu)):
@@ -247,7 +483,7 @@ def run_slice(cfg, gen, path) -> dict:
     # serve == evaluate on 8 rows of the shard
     with open(path) as f:
         rows = [next(f).split("\t", 1)[1].strip() for _ in range(8)]
-    runner = ServeRunner(cfg, device="cuda")
+    runner = ServeRunner(cfg, device=DEVICE)
     runner.load()
     served, sgen = runner.predict_rows(rows)
     ds = float(np.abs(served - p_gpu[:8]).max())
@@ -286,7 +522,7 @@ def stage_breakdown(cfg, gen, path) -> None:
         host = batch_arrays(batch, cfg)
         acc["plan"] += pc() - t
         t = pc()
-        arrays = to_device(host, "cuda")
+        arrays = to_device(host, DEVICE)
         torch.cuda.synchronize()
         acc["to_device"] += pc() - t
         t = pc()
@@ -302,6 +538,173 @@ def stage_breakdown(cfg, gen, path) -> None:
     fwd_ms = cuda_ms(lambda: step(gen.tables, arrays), reps=10)
     print(f"# forward on the card (CUDA events): {fwd_ms:.3f} ms per {BATCH}-row batch",
           flush=True)
+
+
+def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str) -> tuple[dict, dict]:
+    """`python -m xflow_tpu_torch train` in process on the card, with the
+    launch counts set to 0 just before and read just after. Returns
+    (summary, launches); the CLI's own stdout is echoed as comments."""
+    import torch
+
+    from xflow_tpu_torch.__main__ import main as cli
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    argv = [
+        "train", "--train", prefix, "--model", "fm", "--epochs", str(epochs),
+        "--batch-size", str(BATCH), "--log2-slots", str(LOG2_SLOTS),
+        "--checkpoint-dir", ckpt_dir, "--device", DEVICE,
+        "--set", f"model.v_dim={V_DIM}", "--set", f"model.num_fields={NUM_FIELDS}",
+        "--set", f"data.max_nnz={NUM_FIELDS}", "--set", "train.log_every=1", *extra,
+    ]
+    out = io.StringIO()
+    st.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(st.LAUNCHES)
+    for line in out.getvalue().splitlines():
+        print(f"#   {line}")
+    if rc != 0:
+        fail(f"train {' '.join(extra)} exited {rc}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"# train {' '.join(extra) or '(fused)'}: {wall:.1f} s wall, launches {launches}",
+          flush=True)
+    return summary, launches
+
+
+def run_training(cfg, work: str, path: str) -> tuple[dict, dict]:
+    """The training main path, the two-pass epoch, and train -> serve."""
+    import math
+
+    import numpy as np
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import evaluate
+    from xflow_tpu_torch.serve.runner import ServeRunner
+
+    prefix = path[: -len("-00000")]
+    n_batches = -(-SHARD_ROWS // BATCH)
+    ck = os.path.join(work, "ck_train")
+    summary, launches = train_cli(prefix, ck, 2)
+    want_steps = 2 * n_batches
+    if (summary["steps"], summary["epochs"], summary["examples"], summary["bad_steps"]) != (
+        want_steps, 2, 2 * SHARD_ROWS, 0
+    ) or not math.isfinite(summary["last_loss"]):
+        fail(f"train summary {summary}: expected {want_steps} steps over 2 epochs, "
+             "no bad step, a finite loss")
+    for name in ("gather_sorted", "row_sums", "scatter_ftrl"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the training main path ({launches})")
+    if launches["scatter_sorted"]:
+        fail(f"the fused training path launched the two-pass scatter ({launches})")
+
+    _, two_pass = train_cli(prefix, os.path.join(work, "ck_two_pass"), 1,
+                            "--set", "optim.fused_scatter=off")
+    for name in ("gather_sorted", "row_sums", "scatter_sorted"):
+        if two_pass[name] < 1:
+            fail(f"kernel {name} was not launched on the two-pass path ({two_pass})")
+    if two_pass["scatter_ftrl"]:
+        fail(f"the two-pass path launched the fused kernel ({two_pass})")
+
+    tcfg = override(cfg, **{"train.checkpoint_dir": ck})
+    gen = ServeRunner(tcfg, device=DEVICE).load()
+    if gen.step != want_steps:
+        fail(f"the trained checkpoint serves step {gen.step}, expected {want_steps}")
+    auc, ll = evaluate(tcfg, gen.tables, path, device=DEVICE)
+    if not (np.isfinite(auc) and np.isfinite(ll) and 0.5 < auc <= 1.0):
+        fail(f"the trained model evaluates to auc={auc} logloss={ll} on its training shard")
+    print(f"# train -> serve: step {gen.step}, auc={auc} logloss={ll} on the training shard",
+          flush=True)
+    step_card_vs_cpu(tcfg, path, f"the main path's trained step-{want_steps} state")
+    train_breakdown(tcfg, path)
+    return launches, two_pass
+
+
+def train_breakdown(cfg, path) -> None:
+    """Where a train step's time goes: host clock per stage over the
+    shard from a fresh state (each device stage ends in a synchronize),
+    and the step's CUDA-event time on one resident batch."""
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data.libffm import iter_batches
+    from xflow_tpu_torch.evaluate import batch_arrays, to_device
+    from xflow_tpu_torch.train.step import make_train_step
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(override(cfg, **{"train.checkpoint_dir": ""}), device=DEVICE)
+    acc = dict.fromkeys(("parse", "plan", "to_device", "step"), 0.0)
+    n = 0
+    pc = time.perf_counter
+    it = iter_batches(path, cfg.data)
+    while True:
+        t = pc()
+        batch = next(it, None)
+        acc["parse"] += pc() - t
+        if batch is None:
+            break
+        t = pc()
+        host = batch_arrays(batch, cfg)
+        acc["plan"] += pc() - t
+        t = pc()
+        arrays = to_device(host, DEVICE)
+        torch.cuda.synchronize()
+        acc["to_device"] += pc() - t
+        t = pc()
+        trainer.state, _ = trainer.train_step(trainer.state, arrays)
+        torch.cuda.synchronize()
+        acc["step"] += pc() - t
+        n += 1
+    print("# train stages, ms per batch (host clock): "
+          + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
+    state = trainer.state
+    step_ms = cuda_ms(lambda: trainer.train_step(state, arrays), reps=10)
+    unguarded = make_train_step(
+        trainer.model, trainer.optimizer, override(cfg, **{"train.nonfinite_guard": "off"})
+    )
+    off_ms = cuda_ms(lambda: unguarded(state, arrays), reps=10)
+    print(f"# fused train step on the card (CUDA events): {step_ms:.3f} ms per "
+          f"{BATCH}-row batch; {off_ms:.3f} ms with the non-finite guard off "
+          "(no isfinite sweep, no host read)", flush=True)
+    profile_step(lambda: trainer.train_step(state, arrays))
+
+
+def profile_step(step, reps: int = 5) -> None:
+    """Device busy time of a train step by `torch.profiler` (the sum of
+    the kernels' own device time), its share of the profiled window, the
+    largest kernels, and the operators that launched the most device
+    time (the port's own kernels launch from ctypes, outside any
+    operator)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    own = lambda e: e.self_device_time_total  # noqa: E731
+    kern = [e for e in avgs if e.device_type == DeviceType.CUDA and own(e) > 0]
+    if not kern:
+        print("# train step profile: the profiler saw no device time (not measured)")
+        return
+    busy_us = sum(own(e) for e in kern)
+    ops = [e for e in avgs if e.device_type == DeviceType.CPU and own(e) > 0]
+    ms = lambda e: f"{own(e) / reps / 1e3:.4f} ms"  # noqa: E731
+    print(f"# train step profile (torch.profiler, {reps} steps): device busy "
+          f"{busy_us / reps / 1e3:.3f} ms per step, {busy_us / wall_us:.1%} of the profiled "
+          f"window ({wall_us / reps / 1e3:.3f} ms per step host clock)", flush=True)
+    print("#   largest kernels: " + "; ".join(
+        f"{e.key[:48]} {ms(e)}" for e in sorted(kern, key=own, reverse=True)[:6]))
+    print("#   operators by device time launched: " + "; ".join(
+        f"{e.key} x{e.count // reps} {ms(e)}" for e in sorted(ops, key=own, reverse=True)[:12]))
 
 
 def main() -> int:
@@ -335,11 +738,16 @@ def main() -> int:
         path = make_inputs(work, cfg)
         from xflow_tpu_torch.serve.runner import ServeRunner
 
-        gen = ServeRunner(cfg, device="cuda").load()
+        gen = ServeRunner(cfg, device=DEVICE).load()
         kern = check_kernels(cfg, gen, path)
-        launches = run_slice(cfg, gen, path)
+        kern += check_train_kernels(cfg, path)
+        eval_launches = run_slice(cfg, gen, path)
+        train_launches, two_pass = run_training(cfg, work, path)
+    print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
+          f"two-pass epoch {two_pass}")
     for k in kern:
-        k["launches"] = launches[k["name"]]
+        src = two_pass if k["name"] == "scatter_sorted" else train_launches
+        k["launches"] = src[k["name"]]
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ a checkpoint written by `xflow_tpu.train.checkpoint.save` restores in the
 port (digests verified, walk-back past a silently corrupted step), the
 port's sorted-window `evaluate` gives the JAX trainer's AUC and logloss
 on the same checkpoint and libffm shard, and `ServeRunner.predict_rows`
-gives the port's evaluate pctrs (the serve == evaluate pin).
+gives the port's evaluate pctrs (the serve == evaluate pin). The package
+imports, and its `evaluate` and `train` commands run, with `jax` and
+`xflow_tpu` blocked.
 """
 
 import json
@@ -181,6 +183,8 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch, xflow_tpu_torch.evaluate, xflow_tpu_torch.weights\n"
         "import xflow_tpu_torch.serve.runner, xflow_tpu_torch.data.synth\n"
         "import xflow_tpu_torch.ops.kernels, xflow_tpu_torch.__main__\n"
+        "import xflow_tpu_torch.optim, xflow_tpu_torch.train.state\n"
+        "import xflow_tpu_torch.train.step, xflow_tpu_torch.train.trainer\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -201,3 +205,23 @@ def test_cli_evaluate_without_jax(slice_case):
     assert out["step"] == 7 and out["device"] == "cpu"
     assert out["auc"] == slice_case["jauc"]
     assert abs(out["logloss"] - slice_case["jll"]) <= 1e-6
+
+
+def test_cli_train_without_jax(slice_case, tmp_path):
+    prefix = slice_case["path"][: -len("-00000")]
+    r = _run_without_jax(
+        "from xflow_tpu_torch.__main__ import main\n"
+        "sys.exit(main(sys.argv[1:]))\n",
+        "train", "--train", prefix, "--test", prefix, "--epochs", "2",
+        "--batch-size", str(B), "--log2-slots", str(LOG2_S),
+        "--checkpoint-dir", str(tmp_path / "ck"), "--device", "cpu",
+        "--set", f"model.v_dim={V}", "--set", f"model.num_fields={NF}",
+        "--set", f"data.max_nnz={NNZ}",
+    )
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert {"steps", "epochs", "examples", "seconds", "examples_per_sec", "last_loss",
+            "bad_steps", "auc", "logloss"} <= out.keys()
+    assert (out["steps"], out["epochs"], out["examples"], out["bad_steps"]) == (8, 2, 2 * ROWS, 0)
+    assert out["device"] == "cpu" and 0.0 <= out["auc"] <= 1.0
+    assert tckpt.committed_steps(str(tmp_path / "ck")) == [8]

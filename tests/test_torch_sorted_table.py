@@ -6,11 +6,15 @@ held against the JAX package on the same numpy inputs:
   `table_gather_sorted` and the Pallas kernel in interpret mode;
 - the row sum's plain version against `row_sums_sorted` and the Pallas
   kernel, within kernel_parity's reduction tolerance (1e-4 relative over
-  a 1e-2 floor: the two sum in different orders).
+  a 1e-2 floor: the two sum in different orders);
+- the backwards: the row sum's against `jax.vjp` of `row_sums_sorted`
+  (a gather: bitwise), and both backwards by `torch.autograd.gradcheck`
+  in float64.
 
 Small shapes: S = 2^14, B = 64 rows of 8 occurrences, v_dim = 4.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -191,22 +195,56 @@ def test_wire_compaction_matches_jax_and_widens(monkeypatch):
 def test_plain_versions_only_on_cpu_tensors():
     """A wrapper takes the plain version because its tensors lie on the
     CPU; tensors elsewhere go to the kernel wrapper, which checks them."""
+    from xflow_tpu_torch.config import FTRLConfig
+
     table = torch.zeros((S, K))
     ss = torch.zeros(CHUNK_N, dtype=torch.int32)
+    win_off = torch.zeros(S // tst.WINDOW + 1, dtype=torch.int32)
+    d = torch.zeros((K8, CHUNK_N))
+    hp = FTRLConfig()
     before = dict(tst.LAUNCHES)
-    tst.table_gather_sorted(table, ss, torch.zeros(9, dtype=torch.int32))
+    tst.table_gather_sorted(table, ss, win_off)
     tst.row_sums_sorted(torch.zeros((16, CHUNK_N)), ss, 4)
+    tst.scatter_sorted(d, ss, win_off, S, K)
+    tst.scatter_ftrl_sorted(d, ss, win_off, table, table, table, K, hp)
     assert tst.LAUNCHES == before  # no kernel launched on the CPU
     with pytest.raises(ValueError, match="CUDA"):
         tst.gather_sorted_cuda(table, ss)
     with pytest.raises(ValueError, match="CUDA"):
         tst.row_sums_cuda(torch.zeros((16, CHUNK_N)), ss, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tst.scatter_sorted_cuda(d, ss, win_off, S, K)
+    with pytest.raises(ValueError, match="CUDA"):
+        tst.scatter_ftrl_cuda(d, ss, win_off, table, table, table, K, hp)
 
 
-def test_backward_not_ported_yet():
-    table = torch.zeros((S, K), requires_grad=True)
-    ss = torch.zeros(CHUNK_N, dtype=torch.int32)
-    out = tst.table_gather_sorted(table, ss, torch.zeros(9, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+@pytest.mark.parametrize("wire", [False, True])
+def test_row_sums_backward_matches_jax_vjp(monkeypatch, wire):
+    vals, rows = _rowsum_inputs(monkeypatch, 10, wire)
+    d_out = np.random.default_rng(11).normal(size=(B, vals.shape[0])).astype(np.float32)
+    jrows = jst.wire_rows(jnp.asarray(rows))
+    _, vjp = jax.vjp(lambda v: jst.row_sums_sorted(v, jrows, B), jnp.asarray(vals))
+    want = np.asarray(vjp(jnp.asarray(d_out))[0])
+    tvals = torch.from_numpy(vals).requires_grad_(True)
+    tst.row_sums_sorted(tvals, tst.wire_rows(torch.from_numpy(rows)), B).backward(
+        torch.from_numpy(d_out)
+    )
+    assert tvals.grad.shape == vals.shape
+    np.testing.assert_array_equal(tvals.grad.numpy(), want)
+
+
+def test_backwards_pass_gradcheck():
+    """Both backwards against finite differences in float64, on a tiny
+    plan with repeated slots and repeated rows."""
+    rng = np.random.default_rng(12)
+    n_slots, n_rows, n_occ = 64, 5, 24
+    ss = torch.from_numpy(np.sort(rng.integers(0, n_slots, n_occ)).astype(np.int32))
+    ss[3:6] = ss[2]
+    table = torch.from_numpy(rng.normal(size=(n_slots, 3))).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda t: tst.table_gather_sorted(t, ss, torch.zeros(1, dtype=torch.int32)), (table,)
+    )
+    rows = torch.from_numpy(rng.integers(0, n_rows, n_occ).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(size=(8, n_occ))).requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda v: tst.row_sums_sorted(v, rows, n_rows), (vals,))
 

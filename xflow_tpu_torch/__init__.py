@@ -15,7 +15,8 @@ On the CPU each kernel op takes its plain PyTorch version; on the card it
 launches the hand-written CUDA kernel (`csrc/`, built at first use into
 `_build/`) or raises.
 
-This slice is FM inference: checkpoint -> sorted-window evaluate
+Slices ported so far: FM inference, checkpoint -> sorted-window evaluate
 (`evaluate.py`, `python -m xflow_tpu_torch evaluate`) and row-major
-serving (`serve/runner.py`).
+serving (`serve/runner.py`); single-device FM training with FTRL or SGD
+(`train/trainer.py`, `python -m xflow_tpu_torch train`).
 """

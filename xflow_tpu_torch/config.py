@@ -1,10 +1,11 @@
-"""Configuration tree of the PyTorch port: the fields the inference slice
-reads, with the JAX package's names and defaults (`xflow_tpu/config.py`),
-so a `--set section.key=value` override means the same in both.
+"""Configuration tree of the PyTorch port: the fields the ported slices
+(FM inference, single-device FM training) read, with the JAX package's
+names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
+override means the same in both.
 
 Sections and fields not listed here belong to paths the port has not
-taken over yet (training, the optimizers, multi-device engines, the
-serving fleet); an override naming one raises KeyError.
+taken over yet (multi-device engines, the serving fleet, telemetry);
+an override naming one raises KeyError.
 """
 
 from __future__ import annotations
@@ -12,6 +13,37 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
+
+
+@dataclass(frozen=True)
+class FTRLConfig:
+    """FTRL-proximal hyperparameters (the reference's `ftrl.h` defaults)."""
+
+    alpha: float = 5e-2
+    beta: float = 1.0
+    lambda1: float = 5e-5
+    lambda2: float = 10.0
+
+
+@dataclass(frozen=True)
+class SGDConfig:
+    lr: float = 1e-3
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer selection ("ftrl" | "sgd"). `v_init_scale` / `v_init_sgd`
+    are the vector-table inits (N(0,1) * scale for FTRL, a constant for
+    SGD). `fused_scatter` ("auto"|"on"|"off") applies FTRL inside the
+    windowed scatter on the single-device sorted FM step
+    (`ops/sorted_table.scatter_ftrl_sorted`)."""
+
+    name: str = "ftrl"
+    ftrl: FTRLConfig = field(default_factory=FTRLConfig)
+    sgd: SGDConfig = field(default_factory=SGDConfig)
+    v_init_scale: float = 1e-2
+    v_init_sgd: float = 1e-3
+    fused_scatter: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -38,6 +70,7 @@ class DataConfig:
     for the fused FM table; `sorted_bf16` rounds gathered table values
     to bf16."""
 
+    train_path: str = ""
     test_path: str = ""
     batch_size: int = 1024
     max_nnz: int = 32
@@ -49,11 +82,22 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The checkpoint fields the slice reads: where checkpoints live,
-    their format ("npz" is the one the port reads and writes) and digest
-    verification on restore ("auto"|"off")."""
+    """The fit loop and checkpoints: epochs over the shard, the table
+    init seed, a progress line every `log_every` steps (0 = none), a
+    checkpoint every `checkpoint_every` steps (0 = only at the end),
+    resume from the newest checkpoint, the non-finite guard
+    ("off"|"skip"|"halt") and its consecutive-skip abort; where
+    checkpoints live, their format ("npz" is the one the port reads and
+    writes) and digest verification on restore ("auto"|"off")."""
 
+    epochs: int = 60
+    seed: int = 0
+    log_every: int = 100
     checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    resume: bool = True
+    nonfinite_guard: str = "skip"
+    nonfinite_max_consecutive: int = 10
     checkpoint_format: str = "npz"
     checkpoint_verify: str = "auto"
 
@@ -68,6 +112,7 @@ class ServeConfig:
 @dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -78,10 +123,9 @@ class Config:
 
 
 def _replace_nested(obj: Any, path: list[str], value: Any) -> Any:
+    if path[0] not in {f.name for f in dataclasses.fields(obj)}:
+        raise KeyError(f"unknown config key {path[0]!r} in {type(obj).__name__}")
     if len(path) == 1:
-        fields = {f.name for f in dataclasses.fields(obj)}
-        if path[0] not in fields:
-            raise KeyError(f"unknown config key {path[0]!r} in {type(obj).__name__}")
         cur = getattr(obj, path[0])
         if isinstance(cur, bool):
             if isinstance(value, str):

@@ -56,11 +56,10 @@ def _fgid_i32(x: float) -> int:
     return int(x)
 
 
-def parse_line(
-    line: str, log2_slots: int, salt: int = 0
-) -> Optional[tuple[float, np.ndarray, np.ndarray]]:
-    """One libffm line -> (label, fields int32, slots int32), or None for a
-    line with no label separator."""
+def _split_label(line: str) -> Optional[list[str]]:
+    """[label, features] of a libffm line, or None when the line is not an
+    example (empty, or no label separator). The one rule of what counts
+    as an example: parsing and a resumed run's skip both read it."""
     line = line.strip(_ASCII_WS)
     if not line:
         return None
@@ -69,6 +68,17 @@ def parse_line(
         parts = line.split(" ", 1)
         if len(parts) == 1:
             return None
+    return parts
+
+
+def parse_line(
+    line: str, log2_slots: int, salt: int = 0
+) -> Optional[tuple[float, np.ndarray, np.ndarray]]:
+    """One libffm line -> (label, fields int32, slots int32), or None for a
+    line with no label separator."""
+    parts = _split_label(line)
+    if parts is None:
+        return None
     label = 1.0 if _strtod(parts[0]) > 1e-7 else 0.0
     fields = []
     slots = []
@@ -85,25 +95,35 @@ def parse_line(
     )
 
 
+def shard_path(prefix: str, rank: int) -> str:
+    """Shard naming of the reference and the JAX package: `<prefix>-%05d`."""
+    return "%s-%05d" % (prefix, rank)
+
+
 def iter_examples(
-    path: str, log2_slots: int, salt: int = 0
+    path: str, log2_slots: int, salt: int = 0, skip: int = 0
 ) -> Iterator[tuple[float, np.ndarray, np.ndarray]]:
-    """Stream (label, fields, slots) examples from a libffm file."""
+    """Stream (label, fields, slots) examples from a libffm file, after
+    passing over its first `skip` examples unparsed."""
     with open(path, "r") as f:
         for line in f:
+            if skip > 0:
+                skip -= _split_label(line) is not None
+                continue
             ex = parse_line(line, log2_slots, salt)
             if ex is not None:
                 yield ex
 
 
-def iter_batches(path: str, dcfg) -> Iterator[SparseBatch]:
+def iter_batches(path: str, dcfg, skip: int = 0) -> Iterator[SparseBatch]:
     """Padded ``[batch_size, max_nnz]`` batches of a libffm file; the last
-    partial batch is padded and row-masked."""
+    partial batch is padded and row-masked. `skip` passes over the first
+    `skip` batches (a resumed run's consumed prefix)."""
     bs = dcfg.batch_size
     labels: list = []
     fields: list = []
     slots: list = []
-    for label, f, s in iter_examples(path, dcfg.log2_slots, dcfg.hash_salt):
+    for label, f, s in iter_examples(path, dcfg.log2_slots, dcfg.hash_salt, skip * bs):
         labels.append(label)
         fields.append(f)
         slots.append(s)

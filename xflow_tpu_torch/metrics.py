@@ -1,6 +1,6 @@
-"""Evaluation metrics (`xflow_tpu/metrics.py`): the reference's clamped
-sigmoid, its rank-sum AUC with its logloss sign, and the streaming
-bucketed AUC.
+"""Metrics (`xflow_tpu/metrics.py`): the training loss, the reference's
+clamped sigmoid, its rank-sum AUC with its logloss sign, and the
+streaming bucketed AUC.
 """
 
 from __future__ import annotations
@@ -9,6 +9,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+def binary_logloss_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row BCE in nats: softplus(x) - y*x. softplus is logaddexp(x, 0),
+    as `jax.nn.softplus`; torch's `softplus` returns x itself above its
+    threshold of 20, which would differ."""
+    return torch.logaddexp(logits, torch.zeros_like(logits)) - labels * logits
 
 
 def reference_pctr(logits: torch.Tensor) -> torch.Tensor:

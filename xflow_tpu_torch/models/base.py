@@ -30,17 +30,22 @@ class Model(nn.Module):
         raise NotImplementedError
 
     def init_tables(self, generator: torch.Generator, device="cuda") -> Dict[str, torch.Tensor]:
-        """Fresh tables: scalar tables and the fused table's column 0 (the
-        linear w) are zero; vector entries ~ N(0, 1) * 1e-2, the FTRL
-        init of the reference. Drawn on the CPU from `generator`, then
-        moved to `device`."""
+        """Fresh tables (`xflow_tpu/models/base.py::init_tables`): scalar
+        tables and the fused table's column 0 (the linear w) are zero;
+        vector entries ~ N(0, 1) * optim.v_init_scale under FTRL, the
+        constant optim.v_init_sgd under SGD. Drawn on the CPU from
+        `generator` (not JAX's bits), then moved to `device`."""
         tables = {}
         S = self.cfg.num_slots
+        optim = self.cfg.optim
         for tname, trailing in sorted(self.table_specs(self.cfg).items()):
             if trailing == ():
                 t = torch.zeros((S,), dtype=torch.float32)
             else:
-                t = torch.randn((S, trailing[0]), generator=generator) * 1e-2
+                if optim.name == "sgd":
+                    t = torch.full((S, trailing[0]), optim.v_init_sgd, dtype=torch.float32)
+                else:
+                    t = torch.randn((S, trailing[0]), generator=generator) * optim.v_init_scale
                 if tname == "wv":
                     t[:, 0] = 0.0
             tables[tname] = t.to(device)

@@ -2,11 +2,11 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into its own shared
 library with a plain C interface, loaded through ctypes. Libraries land
-in `xflow_tpu_torch/_build/`, named by a digest of the source and the
-flags, so an edited source never loads a stale library. Nothing is built
-at import: `load` builds the one library it needs at first use, and
-`build` compiles several at once (one nvcc process per source, started
-together).
+in `xflow_tpu_torch/_build/`, named by a digest of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source never loads a
+stale library. Nothing is built at import: `load` builds the one library
+it needs at first use, and `build` compiles several at once (one nvcc
+process per source, started together).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 )
 
 # C signature of each library's entry points: name -> [(symbol, argtypes)]
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "gather_sorted": [
         ("xf_gather_sorted", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),
@@ -35,6 +35,13 @@ SIGNATURES = {
     "row_sums": [
         ("xf_row_sums", [_P, _P, _P, _I, _L, _L, _P]),
         ("xf_row_sums_smem_bytes", [_I]),
+    ],
+    "scatter_sorted": [
+        ("xf_scatter_sorted", [_P, _P, _P, _P, _L, _I, _L, _I, _P]),
+    ],
+    "scatter_ftrl": [
+        ("xf_scatter_ftrl",
+         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _F, _P]),
     ],
 }
 
@@ -52,8 +59,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
 
 

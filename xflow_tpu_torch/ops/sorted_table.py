@@ -1,5 +1,5 @@
-"""Sorted-window table engine: host-side plans and the two table kernels
-of the inference path.
+"""Sorted-window table engine: host-side plans and the table kernels of
+the FM inference and training paths.
 
 The host sorts each batch's feature occurrences by table slot
 (`plan_sorted_batch`, bit-identical to the JAX package's numpy planner)
@@ -7,15 +7,20 @@ and ships `sorted_slots [Np]`, `sorted_row [Np]`, `sorted_mask [Np]` and
 `win_off [S/WINDOW + 1]`. On the device:
 
 - `table_gather_sorted` returns each occurrence's table row, transposed:
-  `occ_t [K8, Np]`, rows K..K8 zero, pad columns holding row S-1;
+  `occ_t [K8, Np]`, rows K..K8 zero, pad columns holding row S-1; its
+  backward is the windowed scatter-add `scatter_sorted` (`[S, K]`);
 - `row_sums_sorted` reduces per-occurrence channels into per-row sums:
-  `out [B, ch]`.
+  `out [B, ch]`; its backward is the row gather `d_out.T[:, rows]`;
+- `scatter_ftrl_sorted` is the scatter-add fused with the FTRL update:
+  `(w', n', z')` from the occurrence cotangent, the gradient never
+  materialised.
 
-Each op has a hand-written CUDA kernel (`csrc/gather_sorted.cu`,
-`csrc/row_sums.cu`) and a plain PyTorch version beside it. A wrapper
-takes the plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises. `LAUNCHES` counts kernel launches, so a
-run can show that it went through the kernels.
+Each kernel op (gather, row sum, scatter, scatter+FTRL) has a
+hand-written CUDA kernel (`csrc/*.cu`) and a plain PyTorch version
+beside it. A wrapper takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
+counts kernel launches, so a run can show that it went through the
+kernels.
 
 Tables are logical `[S, K]` here (see the package docstring); `pack_of`
 recognises the JAX package's packed `[S/8, 8K]` layout so
@@ -29,11 +34,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from xflow_tpu_torch.optim.ftrl import update_one
+
 WINDOW = 2048  # table slots per window of the plan's win_off
 CHUNK = 512  # plan arrays are padded to a multiple of this
 PACK = 8  # slots per packed table row in the JAX package's layout
 
-LAUNCHES = {"gather_sorted": 0, "row_sums": 0}
+LAUNCHES = {"gather_sorted": 0, "row_sums": 0, "scatter_sorted": 0, "scatter_ftrl": 0}
 
 
 def reset_launches() -> None:
@@ -166,6 +173,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def _require_cuda(*tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -222,24 +233,30 @@ def gather_sorted_cuda(table: torch.Tensor, sorted_slots: torch.Tensor,
 
 
 def _gather_forward(table, sorted_slots, bf16):
-    if table.device.type == "cpu" and sorted_slots.device.type == "cpu":
+    if _on_cpu(table, sorted_slots):
         return gather_sorted_plain(table, sorted_slots, bf16)
     return gather_sorted_cuda(table, sorted_slots, bf16)
 
 
 class TableGatherSorted(torch.autograd.Function):
-    """Differentiable in `table`; the backward (the windowed scatter-add,
-    `_scatter_pallas` in the JAX package) comes with the training slice."""
+    """Differentiable in `table`; the backward is the windowed
+    scatter-add `scatter_sorted` (`_scatter_pallas` in the JAX package),
+    with the forward's `bf16` rounding of the cotangent terms."""
 
     @staticmethod
     def forward(ctx, table, sorted_slots, win_off, bf16):
+        ctx.save_for_backward(sorted_slots, win_off)
+        ctx.shape, ctx.bf16 = tuple(table.shape), bf16
         return _gather_forward(table, sorted_slots, bf16)
 
     @staticmethod
     def backward(ctx, d_occ_t):
-        raise NotImplementedError(
-            "table_gather_sorted backward (the windowed scatter-add) is not ported yet"
+        sorted_slots, win_off = ctx.saved_tensors
+        num_slots, k = ctx.shape
+        d_table = scatter_sorted(
+            d_occ_t.contiguous(), sorted_slots, win_off, num_slots, k, ctx.bf16
         )
+        return d_table, None, None, None
 
 
 def table_gather_sorted(table: torch.Tensor, sorted_slots: torch.Tensor,
@@ -255,7 +272,7 @@ def table_gather_sorted(table: torch.Tensor, sorted_slots: torch.Tensor,
 
 def row_sums_plain(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Plain PyTorch version of the row sum: [num_rows, ch]."""
-    out = torch.zeros((num_rows, vals_t.shape[0]), dtype=torch.float32, device=vals_t.device)
+    out = torch.zeros((num_rows, vals_t.shape[0]), dtype=vals_t.dtype, device=vals_t.device)
     return out.index_add_(0, rows.long(), vals_t.T)
 
 
@@ -291,25 +308,151 @@ def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> to
 
 
 def _row_sums_forward(vals_t, rows, num_rows):
-    if vals_t.device.type == "cpu" and rows.device.type == "cpu":
+    if _on_cpu(vals_t, rows):
         return row_sums_plain(vals_t, rows, num_rows)
     return row_sums_cuda(vals_t, rows, num_rows)
 
 
 class RowSumsSorted(torch.autograd.Function):
     """Differentiable in `vals_t`; the backward is the row gather
-    ``d_out.T[:, rows]``, ported with the training slice."""
+    ``d_out.T[:, rows]``, plain torch indexing as in the JAX package
+    (`jnp.take` outside any Pallas kernel)."""
 
     @staticmethod
     def forward(ctx, vals_t, rows, num_rows):
+        ctx.save_for_backward(rows)
         return _row_sums_forward(vals_t, rows, num_rows)
 
     @staticmethod
     def backward(ctx, d_out):
-        raise NotImplementedError("row_sums_sorted backward is not ported yet")
+        (rows,) = ctx.saved_tensors
+        return d_out.T[:, rows.long()], None, None
 
 
 def row_sums_sorted(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
     """out[r, c] = sum of vals_t[c, j] over occurrences j with rows[j] = r.
     Pads carry row 0 and value 0. No cap on `num_rows`."""
     return RowSumsSorted.apply(vals_t, rows, num_rows)
+
+
+# ------------------------------------------------------- windowed scatter-add
+
+def scatter_sorted_plain(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor, num_slots: int,
+                         k: int, bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the scatter: [num_slots, k] with
+    out[s] = sum of d_occ_t[:k, j] over j with sorted_slots[j] = s; slots
+    outside [0, num_slots) dropped; `bf16` rounds each term to bfloat16
+    before the sum."""
+    d = d_occ_t[:k]
+    if bf16:
+        d = d.to(torch.bfloat16).to(d_occ_t.dtype)
+    valid = (sorted_slots >= 0) & (sorted_slots < num_slots)
+    out = torch.zeros((num_slots, k), dtype=d_occ_t.dtype, device=d_occ_t.device)
+    return out.index_add_(0, sorted_slots[valid].long(), d[:, valid].T)
+
+
+def _check_scatter(d_occ_t, sorted_slots, win_off, num_slots, k) -> None:
+    _check(d_occ_t, "d_occ_t", torch.float32, 2)
+    _check(sorted_slots, "sorted_slots", torch.int32, 1)
+    _check(win_off, "win_off", torch.int32, 1)
+    if d_occ_t.shape[1] != sorted_slots.shape[0] or d_occ_t.shape[0] < k:
+        raise ValueError(
+            f"d_occ_t {tuple(d_occ_t.shape)} does not fit {sorted_slots.shape[0]} "
+            f"plan positions and k={k}"
+        )
+    if num_slots % WINDOW or win_off.shape[0] != num_slots // WINDOW + 1:
+        raise ValueError(
+            f"num_slots={num_slots} must be a multiple of {WINDOW} with "
+            f"win_off of {num_slots // WINDOW + 1} entries, got {win_off.shape[0]}"
+        )
+
+
+def scatter_sorted_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
+                        win_off: torch.Tensor, num_slots: int, k: int,
+                        bf16: bool = False) -> torch.Tensor:
+    """Launch `csrc/scatter_sorted.cu` on CUDA tensors.
+
+    Replaces `_scatter_pallas` (xflow_tpu/ops/sorted_table.py). Bound by
+    bytes on the H100: the dense [S, K] gradient written once, d[:K]
+    and the slots read once. A block owns 256 slots of one window, finds
+    each slot's run of plan positions by binary search in the window's
+    span, and sums each (slot, channel) run in plan order: no atomics,
+    the same bits on every run."""
+    from xflow_tpu_torch.ops import kernels
+
+    _require_cuda(d_occ_t, sorted_slots, win_off)
+    _check_scatter(d_occ_t, sorted_slots, win_off, num_slots, k)
+    out = torch.empty((num_slots, k), dtype=torch.float32, device=d_occ_t.device)
+    lib = kernels.load("scatter_sorted")
+    with torch.cuda.device(d_occ_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xf_scatter_sorted(
+            d_occ_t.data_ptr(), sorted_slots.data_ptr(), win_off.data_ptr(), out.data_ptr(),
+            num_slots, k, d_occ_t.shape[1], int(bool(bf16)), stream,
+        )
+    kernels.check(err, "scatter_sorted")
+    LAUNCHES["scatter_sorted"] += 1
+    return out
+
+
+def scatter_sorted(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor, win_off: torch.Tensor,
+                   num_slots: int, k: int, bf16: bool = False) -> torch.Tensor:
+    """The gather's VJP: dense [num_slots, k] table gradient from the
+    occurrence cotangent `d_occ_t [K8, Np]` (rows k..K8 ignored)."""
+    if _on_cpu(d_occ_t, sorted_slots):
+        return scatter_sorted_plain(d_occ_t, sorted_slots, num_slots, k, bf16)
+    return scatter_sorted_cuda(d_occ_t, sorted_slots, win_off, num_slots, k, bf16)
+
+
+# ------------------------------------------------- fused scatter-add + FTRL
+
+def scatter_ftrl_plain(d_occ_t, sorted_slots, w, n, z, k: int, hp, bf16: bool = False):
+    """Plain PyTorch version of the fused step: the scatter, then
+    `optim/ftrl.update_one` on every slot -> (w', n', z')."""
+    g = scatter_sorted_plain(d_occ_t, sorted_slots, w.shape[0], k, bf16)
+    return update_one(w, n, z, g, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
+
+
+def scatter_ftrl_cuda(d_occ_t, sorted_slots, win_off, w, n, z, k: int, hp, bf16: bool = False):
+    """Launch `csrc/scatter_ftrl.cu` on CUDA tensors: one kernel, the
+    [S, K] gradient summed in registers and never written.
+
+    Replaces `_scatter_ftrl_pallas` (xflow_tpu/ops/sorted_table.py).
+    Bound by bytes on the H100: w, n, z read and w', n', z' written
+    once, d[:K] and the slots read once. The scatter of
+    `scatter_sorted_cuda`, with each thread applying FTRL to the
+    (slot, channel) it summed. Writes fresh output tensors: the step's
+    non-finite guard may keep the pre-step state."""
+    from xflow_tpu_torch.ops import kernels
+
+    _require_cuda(d_occ_t, sorted_slots, win_off, w, n, z)
+    num_slots = w.shape[0]
+    _check_scatter(d_occ_t, sorted_slots, win_off, num_slots, k)
+    for name, t in (("w", w), ("n", n), ("z", z)):
+        _check(t, name, torch.float32, 2)
+        if tuple(t.shape) != (num_slots, k):
+            raise ValueError(f"{name}: expected shape {(num_slots, k)}, got {tuple(t.shape)}")
+    outs = [torch.empty_like(w) for _ in range(3)]
+    lib = kernels.load("scatter_ftrl")
+    with torch.cuda.device(d_occ_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xf_scatter_ftrl(
+            d_occ_t.data_ptr(), sorted_slots.data_ptr(), win_off.data_ptr(),
+            w.data_ptr(), n.data_ptr(), z.data_ptr(), *(o.data_ptr() for o in outs),
+            num_slots, k, d_occ_t.shape[1], int(bool(bf16)),
+            hp.alpha, hp.beta, hp.lambda1, hp.lambda2, stream,
+        )
+    kernels.check(err, "scatter_ftrl")
+    LAUNCHES["scatter_ftrl"] += 1
+    return tuple(outs)
+
+
+def scatter_ftrl_sorted(d_occ_t, sorted_slots, win_off, w, n, z, k: int, hp,
+                        bf16: bool = False):
+    """Windowed scatter-add of the occurrence cotangent + FTRL update in
+    one table pass: returns (w', n', z'). `hp` carries (alpha, beta,
+    lambda1, lambda2), cfg.optim.ftrl. The same function as
+    `table_gather_sorted`'s VJP followed by `update_one`."""
+    if _on_cpu(d_occ_t, sorted_slots, w, n, z):
+        return scatter_ftrl_plain(d_occ_t, sorted_slots, w, n, z, k, hp, bf16)
+    return scatter_ftrl_cuda(d_occ_t, sorted_slots, win_off, w, n, z, k, hp, bf16)

@@ -1,17 +1,20 @@
 """npz checkpoints in the JAX package's format (`xflow_tpu/train/checkpoint.py`,
-meta.json version 3): read side plus a minimal writer.
+meta.json version 3), read and written.
 
 A step lives in ``<dir>/step_<N>/``:
 
-- ``state.npz`` — ``tables/<name>`` in the logical layout (plus optimizer
-  state and ``step`` when the trainer wrote it);
+- ``state.npz`` — ``tables/<name>`` and ``opt/<name>/<leaf>`` in the
+  logical layout, and ``step`` (int32);
 - ``meta.json`` — version 3: the stored layout and a crc32 digest of
   every array's raw bytes;
+- ``data_state.json`` — the data-stream position (version 2, one shard),
+  written by the trainer before the marker;
 - ``COMMITTED`` — written last; a step dir without it is partial.
 
 `restore_tables` reads the tables only (serving and evaluation never
-read optimizer state), verifies their digests, and walks back to the
-previous committed step when the newest one fails to load.
+read optimizer state); `restore_state` reads tables, optimizer state and
+step for the trainer. Both verify digests and walk back to the previous
+committed step when the newest one fails to load.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ import numpy as np
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 CHECKPOINT_VERSION = 3
+# data_state.json "version": 2 = the topology-independent form (global
+# examples, per-shard offsets); the port writes it for one shard
+DATA_STATE_VERSION = 2
+DATA_STATE_FILE = "data_state.json"
 PACK = 8
 
 
@@ -110,38 +117,39 @@ def _logical(arr: np.ndarray, label: str, shape: tuple, source: str) -> np.ndarr
     return arr.reshape(shape)
 
 
-def restore_step_tables(ckpt_dir: str, step: int, shapes: dict, verify: str = "auto") -> dict:
-    """Tables {name: float32 array in logical shape} of one committed
-    step, digest-verified unless `verify` is "off"."""
+def restore_step_arrays(ckpt_dir: str, step: int, shapes: dict, verify: str = "auto") -> dict:
+    """{label: float32 array in logical shape} for `shapes` ({label such as
+    "tables/wv" or "opt/wv/n": logical shape}) of one committed step,
+    digest-verified unless `verify` is "off"."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     meta = read_meta(ckpt_dir, step) if verify != "off" else None
     digests = meta.get("digests") if isinstance(meta, dict) else None
     out = {}
     with np.load(os.path.join(path, "state.npz")) as data:
-        for name, shape in shapes.items():
-            label = f"tables/{name}"
+        for label, shape in shapes.items():
             if label not in data.files:
-                stored = sorted(k for k in data.files if k.startswith("tables/"))
+                group = label.split("/", 1)[0] + "/"
+                stored = sorted(k for k in data.files if k.startswith(group))
                 raise RuntimeError(f"checkpoint {path!r} has no {label!r} (stored: {stored})")
             arr = data[label]
             verify_digest(label, arr, digests, path)
-            out[name] = np.ascontiguousarray(_logical(arr, label, tuple(shape), path), np.float32)
+            out[label] = np.ascontiguousarray(_logical(arr, label, tuple(shape), path), np.float32)
     return out
 
 
-def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[dict, int]:
-    """Tables of the newest committed step that loads, walking back past
-    steps that fail (digest mismatch, damaged or missing file, wrong
-    shapes), each logged. Returns (tables, step). Raises
-    FileNotFoundError when no committed step exists, RuntimeError
-    listing every failure when none loads."""
+def _walk_back(ckpt_dir: str, load) -> tuple:
+    """(load(step), step) for the newest committed step that loads,
+    walking back past steps that fail (digest mismatch, damaged or
+    missing file, wrong shapes), each logged. Raises FileNotFoundError
+    when no committed step exists, RuntimeError listing every failure
+    when none loads."""
     steps = committed_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir!r}")
     errors = []
     for step in steps:
         try:
-            tables = restore_step_tables(ckpt_dir, step, shapes, verify=verify)
+            got = load(step)
         except Exception as e:  # noqa: BLE001 — every way a stored step can
             # be damaged (BadZipFile, zlib.error, OSError, ValueError,
             # digest or shape mismatch) takes the walk-back, logged below
@@ -152,11 +160,71 @@ def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[d
             )
             errors.append((step, e))
             continue
-        return tables, step
+        return got, step
     raise RuntimeError(
         f"no loadable checkpoint under {ckpt_dir!r}: "
         + "; ".join(f"step {s}: {type(e).__name__}: {e}" for s, e in errors)
     )
+
+
+def restore_step_tables(ckpt_dir: str, step: int, shapes: dict, verify: str = "auto") -> dict:
+    """Tables {name: float32 array in logical shape} of one committed
+    step, digest-verified unless `verify` is "off"."""
+    labels = {f"tables/{n}": shape for n, shape in shapes.items()}
+    got = restore_step_arrays(ckpt_dir, step, labels, verify=verify)
+    return {n: got[f"tables/{n}"] for n in shapes}
+
+
+def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[dict, int]:
+    """Tables ({name: logical shape} -> {name: array}) of the newest
+    committed step that loads. Returns (tables, step)."""
+    return _walk_back(ckpt_dir, lambda step: restore_step_tables(ckpt_dir, step, shapes, verify))
+
+
+def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple,
+                  verify: str = "auto") -> tuple[dict, dict, int]:
+    """Tables, optimizer state ({name: {leaf: array}}, `opt_leaves` per
+    table, each of its table's shape) and step of the newest committed
+    step that loads. Returns (tables, opt_state, step)."""
+
+    def load(step):
+        labels = {f"tables/{n}": shape for n, shape in shapes.items()}
+        labels.update(
+            {f"opt/{n}/{leaf}": shape for n, shape in shapes.items() for leaf in opt_leaves}
+        )
+        got = restore_step_arrays(ckpt_dir, step, labels, verify=verify)
+        tables = {n: got[f"tables/{n}"] for n in shapes}
+        opt = {n: {leaf: got[f"opt/{n}/{leaf}"] for leaf in opt_leaves} for n in shapes}
+        return tables, opt
+
+    (tables, opt), step = _walk_back(ckpt_dir, load)
+    return tables, opt, step
+
+
+def read_data_state(ckpt_dir: str, step: int) -> Optional[dict]:
+    """The data-stream position saved with checkpoint `step`, or None with
+    a logged note when it is missing or unreadable: the run then resumes
+    with a fresh stream (the model state still restores)."""
+    path = os.path.join(ckpt_dir, f"step_{step}", DATA_STATE_FILE)
+    if not os.path.exists(path):
+        print(
+            f"# checkpoint: step {step} has no data_state; resuming with a fresh data stream",
+            file=sys.stderr,
+        )
+        return None
+    try:
+        with open(path) as f:
+            ds = json.load(f)
+        if not isinstance(ds, dict):
+            raise ValueError(f"expected a JSON object, got {type(ds).__name__}")
+    except (OSError, ValueError) as e:
+        print(
+            f"# checkpoint: step {step} data_state unreadable ({type(e).__name__}: {e}); "
+            "resuming with a fresh data stream",
+            file=sys.stderr,
+        )
+        return None
+    return ds
 
 
 def _write_atomic(path: str, writer) -> None:
@@ -180,11 +248,12 @@ def _write_atomic(path: str, writer) -> None:
             os.remove(tmp)
 
 
-def write_flat(ckpt_dir: str, flat: dict, step: int) -> str:
+def write_flat(ckpt_dir: str, flat: dict, step: int, data_state: Optional[dict] = None) -> str:
     """Write host arrays `flat` ({"tables/wv": ..., "step": ...}) as
-    committed step `step`: state.npz, meta.json v3 with digests, then the
-    COMMITTED marker. A leftover uncommitted dir of the same step is
-    removed first. Returns the step dir."""
+    committed step `step`: state.npz, meta.json v3 with digests,
+    data_state.json when given, then the COMMITTED marker. A leftover
+    uncommitted dir of the same step is removed first. Returns the step
+    dir."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.isdir(path) and not os.path.exists(os.path.join(path, "COMMITTED")):
         shutil.rmtree(path)
@@ -210,6 +279,13 @@ def write_flat(ckpt_dir: str, flat: dict, step: int) -> str:
             json.dump(meta, f)
 
     _write_atomic(os.path.join(path, "meta.json"), write_json)
+    if data_state is not None:
+
+        def write_ds(p):
+            with open(p, "w") as f:
+                json.dump(data_state, f)
+
+        _write_atomic(os.path.join(path, DATA_STATE_FILE), write_ds)
 
     def write_marker(p):
         with open(p, "w") as f:
@@ -219,9 +295,29 @@ def write_flat(ckpt_dir: str, flat: dict, step: int) -> str:
     return path
 
 
+def _host(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.ascontiguousarray(t, np.float32)
+
+
 def save_tables(ckpt_dir: str, tables: dict, step: int) -> str:
     """Commit `tables` ({name: host array}, logical layout) as a
     tables-only checkpoint at `step`."""
-    flat = {f"tables/{n}": np.asarray(t, np.float32) for n, t in tables.items()}
+    flat = {f"tables/{n}": _host(t) for n, t in tables.items()}
     flat["step"] = np.asarray(step, np.int32)
     return write_flat(ckpt_dir, flat, step)
+
+
+def save_state(ckpt_dir: str, tables: dict, opt_state: dict, step: int,
+               data_state: Optional[dict] = None) -> str:
+    """Commit a full training state: ``tables/<n>``, ``opt/<n>/<leaf>``
+    and ``step``, as the JAX package's `_flatten` lays them out (logical
+    [S, K] tensors or host arrays), with `data_state` written before the
+    COMMITTED marker."""
+    flat = {f"tables/{n}": _host(t) for n, t in tables.items()}
+    for n, st in opt_state.items():
+        for leaf, v in st.items():
+            flat[f"opt/{n}/{leaf}"] = _host(v)
+    flat["step"] = np.asarray(step, np.int32)
+    return write_flat(ckpt_dir, flat, step, data_state=data_state)
