@@ -46,7 +46,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. where the time goes: host clock per stage of an evaluate batch and of
    a train step, CUDA-event times of the forward and of the step (with
    the non-finite guard on and off), and the step's device busy time by
-   `torch.profiler`.
+   `torch.profiler`;
+10. MVM at bench.py's full width (`v [2^22, 10]`, 18 fields, 65,536-row
+   batches), on a committed step-1 MVM checkpoint (v ~ N(0, 0.5²), FTRL
+   n and z on the lower half) and the same shard's first batch, parsed
+   once. The multi-buffer kernels on the segment row side's own inputs
+   (the NS = 4 stacked plan, and the occurrence cotangent of the
+   segment step's backward on the restored state), bf16 off and on: the
+   gather bit-exact against its plain version, the scatter bitwise
+   equal to its plain version on the CPU and across two launches; with
+   their times, and the single-stream gather's time on the same
+   flattened stream. The single-stream kernels on the product row side's
+   own inputs (its flat plan, the plus-one form's log-space channels at
+   ch = 32, and the fused step's occurrence cotangent), checked as in
+   phases 4 and 5, and the product step's time fused and two-pass. Then
+   one product step (two-pass and fused) and one segment step on the
+   card and on the CPU, plain and plus-one factor forms, as in phase 5;
+11. the MVM main paths through `python -m xflow_tpu_torch train --model
+   mvm` with `model.mvm_plus_one=true`: the product row side (2 epochs,
+   two-pass: gather, row sums, scatter), one fused epoch
+   (`optim.fused_scatter=on`: scatter+FTRL) and the segment row side
+   (`model.mvm_exclusive=off`, 2 epochs: the multi-buffer gather and
+   scatter once a step each, never the single-stream pair), each with
+   the launch counts set to 0 just before and read just after; then
+   evaluate on the segment checkpoint (the multi-buffer gather forward),
+   `predict_rows` (row-major) against it, and the segment step's stage
+   breakdown.
 
 The last three lines of standard output: the card line, the kernels
 JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -80,6 +105,9 @@ FTRL_RTOL, FTRL_FLOOR = 1e-3, 1e-4  # kernel_parity's scatter_ftrl_*
 LOSS_RTOL = 1e-5
 PCTR_ATOL = 1e-5
 FTRL_OPS_PER_ELEMENT = 16  # update_one's float ops, sqrt and division as one each
+# the restored MVM state's init scale: at 18 fields it keeps both factor
+# forms' gradients, and their squares in n, in float32's normal range
+MVM_V_SCALE = 0.5
 
 
 def fail(msg: str) -> None:
@@ -122,12 +150,17 @@ def rel_err(got, want, floor: float) -> float:
     return ((got - want).abs() / (want.abs() + floor)).max().item()
 
 
-def ftrl_errs(got, want, prev, hp, what: str) -> dict:
+def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True) -> dict:
     """Errors of an FTRL step's (w', n', z') against a reference, from the
-    pre-step (w, n, z); all must be within FTRL_RTOL. Each leaf over the
-    fixed FTRL_FLOOR; but the gradient of a mean over 65,536 rows is
-    about 1e-5 a slot, far under that floor, and n moves by g², which no
-    f32 n near 0.1 holds, so n is no witness of g. Two more checks are:
+    pre-step (w, n, z); all must be within FTRL_RTOL (with `leaves`
+    False, the three leaf errors are reported and only `g` and `w_rule`
+    must be: where the gradient is large, n' moves, and each side's own
+    sqrt of it moves z' by an ulp of √n over alpha times w, up to 1e-6
+    at |w| near 1, which is no error of g and far over the fixed floor).
+    Each leaf over the fixed FTRL_FLOOR; but the gradient of a mean over
+    65,536 rows is about 1e-5 a slot, far under that floor, and n moves
+    by g², which no f32 n near 0.1 holds, so n is no witness of g. Two
+    more checks are:
 
     - `g`: the gradient each side's z' implies, z' - z + (√n' - √n) /
       alpha * w, over a floor of 1e-2 of its largest magnitude. Each
@@ -135,10 +168,16 @@ def ftrl_errs(got, want, prev, hp, what: str) -> dict:
       an ulp of n, √n' - √n is 0 or an ulp of √n, so a last bit of n'
       or of sqrt (torch's CPU sqrt is not always correctly rounded)
       moves z' by an ulp of √n over alpha times w, which is no error of
-      g and cancels here;
+      g and cancels here. z' - z holds g only to half an ulp of z' on
+      each side (7e-12 an ulp at |z| near 1e-4), so the two sides'
+      implied g may differ by one ulp of the larger of |z|, |z'| with no
+      error of g: that much of each difference is not counted. It
+      matters where g is near an ulp of z (MVM's plain factor form gives
+      gradients of 1e-12..1e-8 at 18 fields);
     - `w_rule`: the new w against the FTRL rule on the same side's own
       (z', n'), with the lazy-init guard, over 1e-2 of the largest |w|
-      the rule gives off the guard."""
+      the rule gives off the guard. The table may be FM's `wv` or MVM's
+      `v`."""
     import torch
 
     from xflow_tpu_torch.optim.ftrl import weight_of
@@ -153,14 +192,28 @@ def ftrl_errs(got, want, prev, hp, what: str) -> dict:
     scale = g_want.abs().max().item()
     if not scale > 0:
         fail(f"{what}: the FTRL step moved no z: the gradient is all zero")
-    errs["g"] = rel_err(implied_g(got).to(g_want.device), g_want, 1e-2 * scale)
+    g_got = implied_g(got).to(g_want.device)
+    mag = torch.maximum(want[2].abs(), prev[2].to(g_want.device).abs())
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    g_err = ((g_got - g_want).abs() - ulp).clamp(min=0) / (g_want.abs() + 1e-2 * scale)
+    errs["g"] = g_err.max().item()
+    if not errs["g"] <= FTRL_RTOL:
+        i = int(g_err.argmax())
+        at = lambda t: t.reshape(-1)[i].item()  # noqa: E731
+        fail(f"{what}: g err {errs['g']} at flat index {i}: implied g {at(g_got)} vs "
+             f"{at(g_want)} (floor {1e-2 * scale}, ulp of z {at(ulp)}), z {at(prev[2])}, "
+             f"z' {at(got[2])} vs {at(want[2])}, n {at(prev[1])}, n' {at(got[1])} vs "
+             f"{at(want[1])}, w {at(prev[0])}")
     w_new, n_new, z_new = got
-    w, n = (p.to(w_new.device) for p in prev[:2])
-    lazy = (n == 0) & (n_new == 0)
+    w, n, z = (p.to(w_new.device) for p in prev)
+    # the lazy-init guard ran where the step left n = 0 and z as they were
+    # (a gradient whose square underflows leaves n' = 0 but moves z)
+    lazy = (n == 0) & (n_new == 0) & (z_new == z)
     rule = weight_of(z_new, n_new, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
     floor = max(1e-2 * rule[~lazy].abs().max().item(), 1e-30)
     errs["w_rule"] = rel_err(w_new, torch.where(lazy, w, rule), floor)
-    if not all(e <= FTRL_RTOL for e in errs.values()):
+    gated = errs if leaves else {k: errs[k] for k in ("g", "w_rule")}
+    if not all(e <= FTRL_RTOL for e in gated.values()):
         fail(f"{what}: {errs} beyond {FTRL_RTOL} relative")
     return errs
 
@@ -181,31 +234,39 @@ def gather_bytes(sorted_slots, K: int, K8: int) -> float:
     return np_ * 4 + n_sectors * 32 + K8 * np_ * 4
 
 
-def make_inputs(work: str, cfg):
-    """The full training checkpoint (step 1) and the shard `<work>/data-00000`."""
+def write_state(ck_dir: str, name: str, K: int, scale: float, seed: int) -> int:
+    """A committed step-1 training checkpoint of one [2^22, K] table ~
+    N(0, scale²), with FTRL state as a run that has touched the lower
+    half of the slots: the upper half keeps n = z = 0, so the lazy-init
+    guard runs there. Returns its bytes."""
     import numpy as np
 
-    from xflow_tpu_torch.data.synth import generate_shards
     from xflow_tpu_torch.train.checkpoint import save_state
 
-    rng = np.random.default_rng(SEED)
-    S, K = cfg.num_slots, 1 + V_DIM
-    wv = rng.standard_normal((S, K), dtype=np.float32) * np.float32(0.05)
-    # FTRL state as a run that has touched the lower half of the slots:
-    # the upper half keeps n = z = 0, so the lazy-init guard runs there
+    rng = np.random.default_rng(seed)
+    S = 1 << LOG2_SLOTS
+    t = rng.standard_normal((S, K), dtype=np.float32) * np.float32(scale)
     n = np.abs(rng.standard_normal((S, K), dtype=np.float32)) * np.float32(0.1)
     z = rng.standard_normal((S, K), dtype=np.float32) * np.float32(1e-4)
     n[S // 2:] = 0.0
     z[S // 2:] = 0.0
+    save_state(ck_dir, {name: t}, {name: {"n": n, "z": z}}, step=1)
+    return 3 * t.nbytes
+
+
+def make_inputs(work: str, cfg):
+    """The full training checkpoint (step 1) and the shard `<work>/data-00000`."""
+    from xflow_tpu_torch.data.synth import generate_shards
+
     t0 = time.perf_counter()
-    save_state(cfg.train.checkpoint_dir, {"wv": wv}, {"wv": {"n": n, "z": z}}, step=1)
+    nbytes = write_state(cfg.train.checkpoint_dir, "wv", 1 + V_DIM, 0.05, SEED)
     t_ck = time.perf_counter() - t0
     t0 = time.perf_counter()
     (path,) = generate_shards(
         os.path.join(work, "data"), 1, SHARD_ROWS, num_fields=NUM_FIELDS,
         ids_per_field=IDS_PER_FIELD, seed=SEED,
     )
-    print(f"# inputs: checkpoint {3 * wv.nbytes / 1e6:.1f} MB in {t_ck:.1f} s, "
+    print(f"# inputs: checkpoint {nbytes / 1e6:.1f} MB in {t_ck:.1f} s, "
           f"shard {os.path.getsize(path) / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return path
@@ -315,7 +376,7 @@ def check_train_kernels(cfg, path) -> list:
     from xflow_tpu_torch.train.step import fused_cotangent
 
     state = restored_state(cfg, DEVICE)
-    _, arrays = first_arrays(cfg, path, DEVICE)
+    host, arrays = first_arrays(cfg, path, DEVICE)
     w, n, z = state.tables["wv"], state.opt_state["wv"]["n"], state.opt_state["wv"]["z"]
     ss, wo = arrays["sorted_slots"], arrays["win_off"]
     S, K = w.shape
@@ -397,37 +458,38 @@ def check_train_kernels(cfg, path) -> list:
     })
     print(f"# scatter_ftrl library_ms is a composition (index_add_ + the torch FTRL "
           f"expression): {f_lib:.4f} ms", flush=True)
-    step_card_vs_cpu(cfg, path, "the restored step-1 state")
+    step_card_vs_cpu(cfg, host, "fused", "the restored step-1 state")
     return results
 
 
-def step_card_vs_cpu(cfg, path, what: str) -> None:
-    """One fused train step on the first batch from the checkpoint under
+def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True) -> None:
+    """One train step on the host arrays `host` from the checkpoint under
     cfg.train.checkpoint_dir, on the card and on the CPU: the loss within
-    LOSS_RTOL, (w, n, z) by `ftrl_errs`."""
+    LOSS_RTOL, the table's (w, n, z) by `ftrl_errs` (`leaves` as there)."""
+    from xflow_tpu_torch.evaluate import to_device
     from xflow_tpu_torch.models import get_model
     from xflow_tpu_torch.optim import get_optimizer
     from xflow_tpu_torch.train.step import make_train_step
 
-    step = make_train_step(get_model("fm")(cfg), get_optimizer("ftrl"), cfg)
-    _, arrays = first_arrays(cfg, path, DEVICE)
-    s_gpu, m_gpu = step(restored_state(cfg, DEVICE), arrays)
+    tname = "v" if cfg.model.name == "mvm" else "wv"
+    step = make_train_step(get_model(cfg.model.name)(cfg), get_optimizer("ftrl"), cfg)
+    s_gpu, m_gpu = step(restored_state(cfg, DEVICE), to_device(host, DEVICE))
     prev = restored_state(cfg, "cpu")
-    s_cpu, m_cpu = step(prev, {k: v.cpu() for k, v in arrays.items()})
+    s_cpu, m_cpu = step(prev, to_device(host, "cpu"))
     lg, lc = m_gpu["loss"].item(), m_cpu["loss"].item()
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
-        fail(f"fused step from {what}: loss on the card {lg} vs the CPU {lc}, beyond "
+        fail(f"{kind} step from {what}: loss on the card {lg} vs the CPU {lc}, beyond "
              f"{LOSS_RTOL} relative")
 
-    def leaves(s):
-        return s.tables["wv"], s.opt_state["wv"]["n"], s.opt_state["wv"]["z"]
+    def state_leaves(s):
+        return s.tables[tname], s.opt_state[tname]["n"], s.opt_state[tname]["z"]
 
     if not m_gpu["update_ok"]:
-        fail(f"fused step from {what} on the card: update_ok is false")
-    errs = ftrl_errs(leaves(s_gpu), leaves(s_cpu), leaves(prev),
-                     cfg.optim.ftrl, f"fused step from {what}, card vs CPU")
-    trained = s_cpu.tables["wv"][s_cpu.opt_state["wv"]["n"] > 0]
-    print(f"# fused step from {what}, card vs CPU: loss {lg} vs {lc}; max err {errs}; "
+        fail(f"{kind} step from {what} on the card: update_ok is false")
+    errs = ftrl_errs(state_leaves(s_gpu), state_leaves(s_cpu), state_leaves(prev),
+                     cfg.optim.ftrl, f"{kind} step from {what}, card vs CPU", leaves)
+    trained = s_cpu.tables[tname][s_cpu.opt_state[tname]["n"] > 0]
+    print(f"# {kind} step from {what}, card vs CPU: loss {lg} vs {lc}; max err {errs}; "
           f"w' of the {trained.numel()} trained entries (n' > 0): "
           f"{int((trained != 0).sum())} nonzero, largest |w'| "
           f"{trained.abs().max().item():.3g}", flush=True)
@@ -540,7 +602,8 @@ def stage_breakdown(cfg, gen, path) -> None:
           flush=True)
 
 
-def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str) -> tuple[dict, dict]:
+def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str,
+              model: str = "fm") -> tuple[dict, dict]:
     """`python -m xflow_tpu_torch train` in process on the card, with the
     launch counts set to 0 just before and read just after. Returns
     (summary, launches); the CLI's own stdout is echoed as comments."""
@@ -550,7 +613,7 @@ def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str) -> tuple[dic
     from xflow_tpu_torch.ops import sorted_table as st
 
     argv = [
-        "train", "--train", prefix, "--model", "fm", "--epochs", str(epochs),
+        "train", "--train", prefix, "--model", model, "--epochs", str(epochs),
         "--batch-size", str(BATCH), "--log2-slots", str(LOG2_SLOTS),
         "--checkpoint-dir", ckpt_dir, "--device", DEVICE,
         "--set", f"model.v_dim={V_DIM}", "--set", f"model.num_fields={NUM_FIELDS}",
@@ -569,8 +632,8 @@ def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str) -> tuple[dic
     if rc != 0:
         fail(f"train {' '.join(extra)} exited {rc}")
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
-    print(f"# train {' '.join(extra) or '(fused)'}: {wall:.1f} s wall, launches {launches}",
-          flush=True)
+    print(f"# train --model {model} {' '.join(extra)}: {wall:.1f} s wall, "
+          f"launches {launches}", flush=True)
     return summary, launches
 
 
@@ -617,12 +680,13 @@ def run_training(cfg, work: str, path: str) -> tuple[dict, dict]:
         fail(f"the trained model evaluates to auc={auc} logloss={ll} on its training shard")
     print(f"# train -> serve: step {gen.step}, auc={auc} logloss={ll} on the training shard",
           flush=True)
-    step_card_vs_cpu(tcfg, path, f"the main path's trained step-{want_steps} state")
-    train_breakdown(tcfg, path)
+    step_card_vs_cpu(tcfg, first_arrays(tcfg, path, DEVICE)[0], "fused",
+                     f"the main path's trained step-{want_steps} state")
+    train_breakdown(tcfg, path, "fused")
     return launches, two_pass
 
 
-def train_breakdown(cfg, path) -> None:
+def train_breakdown(cfg, path, kind: str) -> None:
     """Where a train step's time goes: host clock per stage over the
     shard from a fresh state (each device stage ends in a synchronize),
     and the step's CUDA-event time on one resident batch."""
@@ -657,7 +721,7 @@ def train_breakdown(cfg, path) -> None:
         torch.cuda.synchronize()
         acc["step"] += pc() - t
         n += 1
-    print("# train stages, ms per batch (host clock): "
+    print(f"# {cfg.model.name} {kind} train stages, ms per batch (host clock): "
           + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
     state = trainer.state
     step_ms = cuda_ms(lambda: trainer.train_step(state, arrays), reps=10)
@@ -665,13 +729,13 @@ def train_breakdown(cfg, path) -> None:
         trainer.model, trainer.optimizer, override(cfg, **{"train.nonfinite_guard": "off"})
     )
     off_ms = cuda_ms(lambda: unguarded(state, arrays), reps=10)
-    print(f"# fused train step on the card (CUDA events): {step_ms:.3f} ms per "
+    print(f"# {cfg.model.name} {kind} train step on the card (CUDA events): {step_ms:.3f} ms per "
           f"{BATCH}-row batch; {off_ms:.3f} ms with the non-finite guard off "
           "(no isfinite sweep, no host read)", flush=True)
-    profile_step(lambda: trainer.train_step(state, arrays))
+    profile_step(lambda: trainer.train_step(state, arrays), f"{cfg.model.name} {kind}")
 
 
-def profile_step(step, reps: int = 5) -> None:
+def profile_step(step, what: str, reps: int = 5) -> None:
     """Device busy time of a train step by `torch.profiler` (the sum of
     the kernels' own device time), its share of the profiled window, the
     largest kernels, and the operators that launched the most device
@@ -693,18 +757,355 @@ def profile_step(step, reps: int = 5) -> None:
     own = lambda e: e.self_device_time_total  # noqa: E731
     kern = [e for e in avgs if e.device_type == DeviceType.CUDA and own(e) > 0]
     if not kern:
-        print("# train step profile: the profiler saw no device time (not measured)")
+        print(f"# {what} train step profile: the profiler saw no device time (not measured)")
         return
     busy_us = sum(own(e) for e in kern)
     ops = [e for e in avgs if e.device_type == DeviceType.CPU and own(e) > 0]
     ms = lambda e: f"{own(e) / reps / 1e3:.4f} ms"  # noqa: E731
-    print(f"# train step profile (torch.profiler, {reps} steps): device busy "
+    print(f"# {what} train step profile (torch.profiler, {reps} steps): device busy "
           f"{busy_us / reps / 1e3:.3f} ms per step, {busy_us / wall_us:.1%} of the profiled "
           f"window ({wall_us / reps / 1e3:.3f} ms per step host clock)", flush=True)
     print("#   largest kernels: " + "; ".join(
         f"{e.key[:48]} {ms(e)}" for e in sorted(kern, key=own, reverse=True)[:6]))
     print("#   operators by device time launched: " + "; ".join(
         f"{e.key} x{e.count // reps} {ms(e)}" for e in sorted(ops, key=own, reverse=True)[:12]))
+
+
+def mvm_config(cfg, ck_dir: str, **extra):
+    """The MVM configuration at the FM phases' widths: `v [2^22, 10]`,
+    18 fields, 65,536-row batches, the plus-one factor form."""
+    from xflow_tpu_torch.config import override
+
+    return override(cfg, **{"model.name": "mvm", "train.checkpoint_dir": ck_dir,
+                            "model.mvm_plus_one": True, **extra})
+
+
+def segment_cotangent(table, arrays: dict, cfg):
+    """d_occ [K8, NS * cap] of a stacked segment-side batch: the
+    multi-buffer gather, then autograd of the row side's loss (one
+    segment row side per sub-batch, as `sorted_gather_map` runs it) with
+    respect to the gathered occurrences only."""
+    import torch
+
+    from xflow_tpu_torch.models.mvm import _segment_row_side
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.train.step import masked_mean_logloss
+
+    ns, np_sub = arrays["sorted_slots"].shape
+    with torch.no_grad():
+        occ = st.table_gather_sorted_multi(
+            table, arrays["sorted_slots"].reshape(-1), arrays["win_off"], cfg.data.sorted_bf16
+        )
+    occ.requires_grad_(True)
+    plus = 1.0 if cfg.model.mvm_plus_one else 0.0
+    rows = arrays["labels"].shape[0] // ns
+    with torch.enable_grad():
+        logits = torch.cat([
+            _segment_row_side(occ[:, i * np_sub:(i + 1) * np_sub], arrays["sorted_row"][i],
+                              arrays["sorted_mask"][i], arrays["sorted_fields"][i], rows,
+                              cfg.model.num_fields, cfg.model.v_dim, plus)
+            for i in range(ns)
+        ])
+        loss = masked_mean_logloss(logits, arrays["labels"], arrays["row_mask"])
+        (d,) = torch.autograd.grad(loss, occ)
+    return d.contiguous()
+
+
+def check_multi_kernels(seg_cfg, batch) -> list:
+    """The multi-buffer gather (#5) and scatter (#6) against their plain
+    versions on the segment row side's inputs: the first batch's stacked
+    plan and its cotangent on the restored MVM state."""
+    import torch
+
+    from xflow_tpu_torch.evaluate import batch_arrays, to_device
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    arrays = to_device(batch_arrays(batch, seg_cfg), DEVICE)
+    ss2, loc = arrays["sorted_slots"], arrays["win_off"]
+    if ss2.ndim != 2 or ss2.shape[0] != 4 or "sorted_fields" not in arrays:
+        fail(f"the segment plan is {tuple(ss2.shape)}, not 4 stacked sub-batches with fields")
+    ss = ss2.reshape(-1)
+    v = restored_state(seg_cfg, DEVICE).tables["v"]
+    S, K = v.shape
+    K8, np_ = st._k8(K), ss.numel()
+    print(f"# segment plan: {tuple(ss2.shape)} stacked, {np_} positions, "
+          f"{torch.unique(ss.long()).numel()} distinct slots", flush=True)
+    results = []
+
+    # --- multi-buffer gather (#5), bit-exact, bf16 off and on
+    for bf16 in (False, True):
+        got = st.gather_sorted_multi_cuda(v, ss, loc, bf16)
+        want = st.gather_sorted_multi_plain(v, ss, loc, bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather_sorted_multi (bf16={bf16}) differs from its plain version: "
+                 f"max abs err {(got - want).abs().max().item()}")
+        print(f"# gather_sorted_multi bf16={bf16}: bit-exact over {tuple(got.shape)}",
+              flush=True)
+    g_err = (st.gather_sorted_multi_cuda(v, ss, loc)
+             - st.gather_sorted_multi_plain(v, ss, loc)).abs().max().item()
+    g_ms = cuda_ms(lambda: st.gather_sorted_multi_cuda(v, ss, loc))
+    g_flat = cuda_ms(lambda: st.gather_sorted_cuda(v, ss))
+    g_plain = cuda_ms(lambda: st.gather_sorted_multi_plain(v, ss, loc))
+    g_lib = cuda_ms(lambda: torch.index_select(v, 0, ss).T.contiguous())
+    g_bytes = gather_bytes(ss, K, K8) + loc.numel() * 4
+    g_bound, g_by = bound_ms(g_bytes, 0.0)
+    print(f"# gather_sorted_multi {g_ms:.4f} ms; gather_sorted on the same flattened stream "
+          f"{g_flat:.4f} ms; bound {g_bound:.4f} ms ({g_bytes / 1e6:.1f} MB)", flush=True)
+    results.append({
+        "name": "gather_sorted_multi", "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/gather_sorted_multi.cu",
+        "replaces": "xflow_tpu/ops/sorted_table.py:811",
+        "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain,
+        "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib,
+        "flat_gather_sorted_ms": g_flat,
+    })
+
+    # --- multi-buffer scatter (#6): bitwise against the CPU plain version,
+    # which adds each slot's terms buffer by buffer in plan order, as the
+    # kernel does, and across two launches
+    d = segment_cotangent(v, arrays, seg_cfg)
+    d_cpu, ss_cpu, loc_cpu = d.cpu(), ss.cpu(), loc.cpu()
+    for bf16 in (False, True):
+        got = st.scatter_sorted_multi_cuda(d, ss, loc, S, K, bf16)
+        again = st.scatter_sorted_multi_cuda(d, ss, loc, S, K, bf16)
+        want = st.scatter_sorted_multi_plain(d_cpu, ss_cpu, loc_cpu, S, K, bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"scatter_sorted_multi (bf16={bf16}) gave different bits on two launches")
+        got = got.cpu()
+        if not torch.equal(got, want):
+            fail(f"scatter_sorted_multi (bf16={bf16}) differs from its plain version on the "
+                 f"CPU: max abs err {(got - want).abs().max().item()} "
+                 f"(largest |want| {want.abs().max().item()})")
+        if not want.abs().max().item() > 0:
+            fail("scatter_sorted_multi: the segment cotangent is all zero")
+        print(f"# scatter_sorted_multi bf16={bf16}: bit-exact against the CPU plain version "
+              f"and across two launches, over {tuple(got.shape)} "
+              f"(largest |g| {want.abs().max().item():.3g})", flush=True)
+        if not bf16:
+            s_err = (got - want).abs().max().item()
+    s_ms = cuda_ms(lambda: st.scatter_sorted_multi_cuda(d, ss, loc, S, K))
+    s_plain = cuda_ms(lambda: st.scatter_sorted_multi_plain(d, ss, loc, S, K))
+    ss_l = ss.long()
+    s_lib = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d[:K].T))
+    s_bound, s_by = bound_ms(S * K * 4 + K * np_ * 4 + np_ * 4 + loc.numel() * 4, K * np_)
+    results.append({
+        "name": "scatter_sorted_multi", "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/scatter_sorted_multi.cu",
+        "replaces": "xflow_tpu/ops/sorted_table.py:998",
+        "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
+        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib,
+    })
+    return results
+
+
+def check_mvm_product_kernels(mcfg, batch) -> dict:
+    """Kernels #1-#4 on the MVM product row side's own inputs: the first
+    batch's flat plan on the restored `v [2^22, 10]` state, the plus-one
+    form the main path trains (so the row sum runs at ch = 32 on the log
+    space channels), and the occurrence cotangent of the fused step's
+    backward. The checks of `check_kernels` and `check_train_kernels`;
+    the fused kernel's plain version runs on the CPU, and of its leaves
+    w is gated and n, z are reported, as in the MVM steps (see
+    `ftrl_errs`). Then the product step's CUDA-event time, fused and
+    two-pass. Returns each kernel's error and time here, by name."""
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import batch_arrays, to_device
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.models.mvm import mvm_product_channels
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.step import fused_cotangent, make_train_step
+
+    arrays = to_device(batch_arrays(batch, mcfg), DEVICE)
+    ss, wo = arrays["sorted_slots"], arrays["win_off"]
+    if ss.ndim != 1 or "sorted_fields" in arrays:
+        fail(f"the MVM product configuration planned {tuple(ss.shape)}, not a flat "
+             "product-side plan")
+    state = restored_state(mcfg, DEVICE)
+    v, n, z = state.tables["v"], state.opt_state["v"]["n"], state.opt_state["v"]["z"]
+    S, K = v.shape
+    hp = mcfg.optim.ftrl
+    out = {}
+
+    # --- gather (#1), bit-exact, bf16 off and on
+    for bf16 in (False, True):
+        got, want = st.gather_sorted_cuda(v, ss, bf16), st.gather_sorted_plain(v, ss, bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather_sorted on the MVM product plan (bf16={bf16}) differs from its plain "
+                 f"version: max abs err {(got - want).abs().max().item()}")
+    occ = st.gather_sorted_cuda(v, ss)
+    out["gather_sorted"] = {"max_abs_err": (occ - st.gather_sorted_plain(v, ss)).abs().max().item(),
+                            "ms": cuda_ms(lambda: st.gather_sorted_cuda(v, ss))}
+
+    # --- row sum (#2) on the product row side's log-space channels
+    rows, mask = st.wire_rows(arrays["sorted_row"]), st.wire_mask(arrays["sorted_mask"])
+    vals = mvm_product_channels(occ[:K] + 1.0, mask, K).contiguous()
+    got, want = st.row_sums_cuda(vals, rows, BATCH), st.row_sums_plain(vals, rows, BATCH)
+    torch.cuda.synchronize()
+    rel = rel_err(got, want, FLOOR)
+    if not rel <= RTOL:
+        fail(f"row_sums on the MVM product channels differs from its plain version: {rel} > "
+             f"{RTOL} (over a {FLOOR} floor)")
+    out["row_sums"] = {"max_abs_err": (got - want).abs().max().item(),
+                       "ms": cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))}
+
+    # --- scatter (#4), bitwise against the CPU plain version and across
+    # two launches; fused scatter + FTRL (#3) against its plain version on
+    # the CPU, which sums each slot's run in plan order as the kernel does.
+    # On the card the plain version's atomics reorder the sums, and where a
+    # slot's terms cancel to exactly 0 in one order only, the lazy-init
+    # guard keeps v on that side alone: w then differs by a whole v.
+    _, d_occ = fused_cotangent(v, arrays, mcfg)
+    d_cpu, ss_cpu = d_occ.cpu(), ss.cpu()
+    prev_cpu = (v.cpu(), n.cpu(), z.cpu())
+    for bf16 in (False, True):
+        got = st.scatter_sorted_cuda(d_occ, ss, wo, S, K, bf16)
+        again = st.scatter_sorted_cuda(d_occ, ss, wo, S, K, bf16)
+        want = st.scatter_sorted_plain(d_cpu, ss_cpu, S, K, bf16)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got.cpu(), want)):
+            fail(f"scatter_sorted on the MVM product cotangent (bf16={bf16}) is not bitwise "
+                 f"equal across two launches and to its CPU plain version: max abs err "
+                 f"{(got.cpu() - want).abs().max().item()}")
+        ftrl = st.scatter_ftrl_cuda(d_occ, ss, wo, v, n, z, K, hp, bf16)
+        ftrl_want = st.scatter_ftrl_plain(d_cpu, ss_cpu, *prev_cpu, K, hp, bf16)
+        what = f"scatter_ftrl on the MVM product cotangent (bf16={bf16})"
+        errs = ftrl_errs(ftrl, ftrl_want, prev_cpu, hp, what, leaves=False)
+        if not errs["w"] <= FTRL_RTOL:
+            fail(f"{what}: w err {errs['w']} beyond {FTRL_RTOL} relative over {FTRL_FLOOR}")
+        lazy = (got == 0) & (n == 0)
+        n_lazy = int(lazy.sum())
+        if n_lazy == 0 or not torch.equal(ftrl[0][lazy], v[lazy]):
+            fail(f"scatter_ftrl on the MVM product cotangent (bf16={bf16}) did not keep v of "
+                 f"the {n_lazy} never-touched (slot, channel) entries bitwise")
+        print(f"# mvm product kernels bf16={bf16}: gather bit-exact over {tuple(occ.shape)}; "
+              f"row_sums max err {rel:.3g} relative over {tuple(vals.shape)} channels; scatter "
+              f"bitwise (largest |g| {want.abs().max().item():.3g}); scatter_ftrl max err "
+              f"{errs} (w, g, w_rule within {FTRL_RTOL}), v kept bitwise on {n_lazy} lazy-init "
+              "entries", flush=True)
+        if not bf16:
+            out["scatter_sorted"] = {"max_abs_err": 0.0}
+            out["scatter_ftrl"] = {"max_abs_err": max(
+                (a.cpu() - b).abs().max().item() for a, b in zip(ftrl, ftrl_want))}
+    out["scatter_sorted"]["ms"] = cuda_ms(lambda: st.scatter_sorted_cuda(d_occ, ss, wo, S, K))
+    out["scatter_ftrl"]["ms"] = cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, v, n, z, K, hp))
+
+    # --- the product step, fused against two-pass (the `auto` rule keeps
+    # MVM two-pass, as measured on the TPU)
+    step_ms = {}
+    for fuse in ("on", "off"):
+        step = make_train_step(get_model("mvm")(mcfg), get_optimizer("ftrl"),
+                               override(mcfg, **{"optim.fused_scatter": fuse}))
+        step_ms[fuse] = cuda_ms(lambda step=step: step(state, arrays), reps=10)
+    print(f"# mvm product train step on the card (CUDA events): fused {step_ms['on']:.3f} ms, "
+          f"two-pass {step_ms['off']:.3f} ms per {BATCH}-row batch", flush=True)
+    return out
+
+
+def mvm_steps_card_vs_cpu(mcfg, batch) -> None:
+    """One product step (two-pass and fused) and one segment step from the
+    restored MVM state, plain and plus-one factor forms, on the card and
+    on the CPU: the loss, and (w, n, z) by the gradient z' implies and
+    the FTRL w rule (the plus-one form's gradients reach 1e-2, see
+    `ftrl_errs`)."""
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import batch_arrays
+
+    for plus in (False, True):
+        for side, excl, fuse in (("product", "auto", "auto"), ("product fused", "auto", "on"),
+                                 ("segment", "off", "auto")):
+            cfg = override(mcfg, **{"model.mvm_plus_one": plus, "model.mvm_exclusive": excl,
+                                    "optim.fused_scatter": fuse})
+            host = batch_arrays(batch, cfg)
+            if ("sorted_fields" in host) != (excl == "off"):
+                fail(f"the {side} configuration planned the other row side")
+            step_card_vs_cpu(cfg, host, f"mvm {side} (plus_one={plus})",
+                             "the restored MVM step-1 state", leaves=False)
+
+
+def run_mvm_training(mcfg, work: str, path: str) -> dict:
+    """The MVM main paths through the train CLI, then train -> serve on
+    the segment run's checkpoint and the segment step's breakdown.
+    Returns the segment run's launch counts."""
+    import math
+
+    import numpy as np
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import evaluate
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.serve.runner import ServeRunner
+
+    prefix = path[: -len("-00000")]
+    n_batches = -(-SHARD_ROWS // BATCH)
+    want_steps = 2 * n_batches
+    plus = ("--set", "model.mvm_plus_one=true")
+
+    def ran(launches, must, never, what):
+        for name in must:
+            if launches[name] < 1:
+                fail(f"kernel {name} was not launched on the {what} ({launches})")
+        for name in never:
+            if launches[name]:
+                fail(f"the {what} launched {name} ({launches})")
+
+    summary, product = train_cli(prefix, os.path.join(work, "ck_mvm_product"), 2, *plus,
+                                 model="mvm")
+    if (summary["steps"], summary["bad_steps"]) != (want_steps, 0) or not math.isfinite(
+            summary["last_loss"]):
+        fail(f"mvm product train summary {summary}")
+    ran(product, ("gather_sorted", "row_sums", "scatter_sorted"),
+        ("scatter_ftrl", "gather_sorted_multi", "scatter_sorted_multi"), "MVM product path")
+
+    _, fused = train_cli(prefix, os.path.join(work, "ck_mvm_fused"), 1, *plus,
+                         "--set", "optim.fused_scatter=on", model="mvm")
+    ran(fused, ("gather_sorted", "row_sums", "scatter_ftrl"), ("scatter_sorted",),
+        "MVM fused product path")
+
+    seg_ck = os.path.join(work, "ck_mvm_segment")
+    summary, segment = train_cli(prefix, seg_ck, 2, *plus,
+                                 "--set", "model.mvm_exclusive=off", model="mvm")
+    if (summary["steps"], summary["bad_steps"]) != (want_steps, 0) or not math.isfinite(
+            summary["last_loss"]):
+        fail(f"mvm segment train summary {summary}")
+    ran(segment, (), ("gather_sorted", "scatter_sorted", "row_sums", "scatter_ftrl"),
+        "MVM segment path")
+    for name in ("gather_sorted_multi", "scatter_sorted_multi"):
+        if segment[name] != want_steps:
+            fail(f"the MVM segment path launched {name} {segment[name]} times in "
+                 f"{want_steps} steps ({segment})")
+
+    scfg = override(mcfg, **{"train.checkpoint_dir": seg_ck, "model.mvm_exclusive": "off"})
+    st.reset_launches()
+    runner = ServeRunner(scfg, device=DEVICE)
+    gen = runner.load()
+    if gen.step != want_steps:
+        fail(f"the MVM segment checkpoint serves step {gen.step}, expected {want_steps}")
+    auc, ll = evaluate(scfg, gen.tables, path, device=DEVICE)
+    launches = dict(st.LAUNCHES)
+    if launches["gather_sorted_multi"] < 1:
+        fail(f"MVM evaluate did not launch gather_sorted_multi ({launches})")
+    if not (np.isfinite(auc) and np.isfinite(ll) and 0.0 <= auc <= 1.0):
+        fail(f"the trained MVM model evaluates to auc={auc} logloss={ll}")
+    print(f"# mvm train -> serve: step {gen.step}, auc={auc} logloss={ll} on the training "
+          f"shard; evaluate launches {launches}", flush=True)
+    _, p_eval = first_batch(scfg, gen.tables, path, DEVICE)
+    with open(path) as f:
+        rows = [next(f).split("\t", 1)[1].strip() for _ in range(8)]
+    served, _ = runner.predict_rows(rows)
+    ds = float(np.abs(served - p_eval[:8]).max())
+    if not ds <= PCTR_ATOL:
+        fail(f"MVM predict_rows (row-major) differs from evaluate (sorted) by {ds}")
+    print(f"# mvm predict_rows on 8 rows vs evaluate: max abs diff {ds} "
+          f"(pctrs {served[:3]})", flush=True)
+    train_breakdown(scfg, path, "segment")
+    print(f"# mvm launches: product {product}, fused {fused}, segment {segment}", flush=True)
+    return segment
 
 
 def main() -> int:
@@ -736,18 +1137,30 @@ def main() -> int:
             "data.batch_size": BATCH, "train.checkpoint_dir": os.path.join(work, "ck"),
         })
         path = make_inputs(work, cfg)
+        mcfg = mvm_config(cfg, os.path.join(work, "ck_mvm"))
+        write_state(mcfg.train.checkpoint_dir, "v", V_DIM, MVM_V_SCALE, SEED + 1)
+        from xflow_tpu_torch.data.libffm import iter_batches
         from xflow_tpu_torch.serve.runner import ServeRunner
 
         gen = ServeRunner(cfg, device=DEVICE).load()
         kern = check_kernels(cfg, gen, path)
         kern += check_train_kernels(cfg, path)
+        mvm_batch = next(iter_batches(path, mcfg.data))  # parsed once for the MVM checks
+        seg_cfg = mvm_config(cfg, mcfg.train.checkpoint_dir, **{"model.mvm_exclusive": "off"})
+        kern += check_multi_kernels(seg_cfg, mvm_batch)
+        mvm_product = check_mvm_product_kernels(mcfg, mvm_batch)
+        mvm_steps_card_vs_cpu(mcfg, mvm_batch)
         eval_launches = run_slice(cfg, gen, path)
         train_launches, two_pass = run_training(cfg, work, path)
+        segment = run_mvm_training(mcfg, work, path)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
-          f"two-pass epoch {two_pass}")
+          f"two-pass epoch {two_pass}, MVM segment path {segment}")
     for k in kern:
-        src = two_pass if k["name"] == "scatter_sorted" else train_launches
+        src = {"scatter_sorted": two_pass, "gather_sorted_multi": segment,
+               "scatter_sorted_multi": segment}.get(k["name"], train_launches)
         k["launches"] = src[k["name"]]
+        if k["name"] in mvm_product:
+            k["mvm_product"] = mvm_product[k["name"]]
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,16 @@ the CPU. Every test needs a CUDA card and skips without one; on the card:
 (`--noconftest`: the root conftest pins JAX, which the card's machine
 does not have; nothing here imports JAX.)
 
+The multi-buffer kernels (#5 gather, #6 scatter) run on stacked plans
+of 4 sub-batches: a slot every buffer shares, windows empty in some
+buffers, an all-pad buffer, a hot slot of 2,048 occurrences across the
+buffers, both table ends.
+
 Tolerances:
-- gather: bitwise (a copy);
-- scatter: bitwise against the plain version on the CPU (both sum each
-  slot's run in plan order from 0), and bitwise across two launches;
+- gathers: bitwise (a copy);
+- scatters: bitwise against the plain version on the CPU (both sum each
+  slot's run in plan order from 0, buffer after buffer), and bitwise
+  across two launches;
 - scatter + FTRL: 1e-3 relative over a 1e-4 floor (kernel_parity's
   scatter_ftrl_*), w of never-touched entries bitwise;
 - row sum: 1e-4 relative over a 1e-2 floor (float atomics reorder it);
@@ -186,6 +192,149 @@ def test_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     assert (rc.steps, rc.examples, rc.bad_steps) == (rp.steps, rp.examples, rp.bad_steps)
     assert abs(rc.last_loss - rp.last_loss) <= LOSS_RTOL * abs(rp.last_loss)
     assert _rel(card.state.tables["wv"], cpu.state.tables["wv"], FTRL_FLOOR) <= FTRL_RTOL
+    auc_c, ll_c = card.evaluate(path)
+    auc_p, ll_p = cpu.evaluate(path)
+    assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)
+
+
+MULTI_CASES = ("shared", "sparse_windows", "all_pad", "hot", "edges")
+
+
+def _multi_plan(case, seed=0, ns=4):
+    """(sorted_slots [ns * cap], loc_off [ns, S/W + 1], sorted_mask) of a
+    crafted stacked plan."""
+    rng = np.random.default_rng(seed)
+    if case == "hot":  # 2,048 occurrences of one slot, 512 in each buffer
+        slots = np.full((512, 4), 12345, np.int32)
+    elif case == "edges":
+        slots = _slots("edges", rng)
+    else:
+        slots = rng.integers(0, S, (64, 8)).astype(np.int32)
+    if case == "shared":  # one slot in every row of every buffer
+        slots[:, 0] = 777
+    if case == "sparse_windows":  # buffer i touches windows 2i and 2i+1 only
+        bs = slots.shape[0] // ns
+        for i in range(ns):
+            slots[i * bs:(i + 1) * bs] = (slots[i * bs:(i + 1) * bs] % (2 * st.WINDOW)
+                                          + 2 * i * st.WINDOW)
+    mask = (rng.random(slots.shape) < 0.8).astype(np.float32)
+    plan = st.plan_sorted_stacked(slots, mask, S, num_sub=ns)
+    ss, loc, m = plan.sorted_slots.copy(), plan.win_off.copy(), plan.sorted_mask.copy()
+    if case == "all_pad":  # the last buffer holds pads only
+        ss[-1], m[-1] = S - 1, 0.0
+        loc[-1] = np.searchsorted(ss[-1], np.arange(0, S + 1, st.WINDOW))
+    return ss.reshape(-1), loc, m.reshape(-1)
+
+
+@pytest.mark.parametrize("case", MULTI_CASES)
+@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_multi_kernel_matches_plain(dev, case, k, bf16):
+    ss, loc, _ = _multi_plan(case)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(S, k)).astype(np.float32))
+    ss_t, loc_t = torch.from_numpy(ss), torch.from_numpy(loc)
+    st.reset_launches()
+    got = st.gather_sorted_multi_cuda(table.to(dev), ss_t.to(dev), loc_t.to(dev), bf16)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["gather_sorted_multi"] == 1
+    assert torch.equal(got.cpu(), st.gather_sorted_multi_plain(table, ss_t, loc_t, bf16))
+
+
+@pytest.mark.parametrize("case", MULTI_CASES)
+@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_multi_kernel_bitwise_equal_to_plain(dev, case, k, bf16):
+    ss, loc, m = _multi_plan(case, seed=1)
+    rng = np.random.default_rng(6)
+    d = rng.normal(size=(st._k8(k), ss.shape[0])).astype(np.float32)
+    d[:k] *= m[None, :]  # rows k..k8 keep noise to be ignored
+    d_t, ss_t, loc_t = torch.from_numpy(d), torch.from_numpy(ss), torch.from_numpy(loc)
+    got = st.scatter_sorted_multi_cuda(d_t.to(dev), ss_t.to(dev), loc_t.to(dev), S, k, bf16)
+    again = st.scatter_sorted_multi_cuda(d_t.to(dev), ss_t.to(dev), loc_t.to(dev), S, k, bf16)
+    want = st.scatter_sorted_multi_plain(d_t, ss_t, loc_t, S, k, bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+    if case == "hot":
+        assert (want[12345] != 0).all()
+
+
+def test_multi_kernels_refuse_a_bad_loc_off(dev):
+    ss, loc, _ = _multi_plan("shared")
+    table = torch.zeros((S, 5), device=dev)
+    bad = torch.from_numpy(loc[:, :-1].copy()).to(dev)
+    with pytest.raises(ValueError, match="columns"):
+        st.gather_sorted_multi_cuda(table, torch.from_numpy(ss).to(dev), bad)
+    with pytest.raises(ValueError, match="buffers"):
+        st.scatter_sorted_multi_cuda(torch.zeros((8, ss.size - 8), device=dev),
+                                     torch.from_numpy(ss[:-8].copy()).to(dev),
+                                     torch.from_numpy(loc).to(dev), S, 5)
+
+
+def _mvm_cfg(**extra):
+    return _cfg(**{"model.name": "mvm", "optim.v_init_scale": 0.1, **extra})
+
+
+def _mvm_batch(seed, cfg, dup=False):
+    from xflow_tpu_torch.data.schema import make_batch
+    from xflow_tpu_torch.evaluate import batch_arrays
+
+    rng = np.random.default_rng(seed)
+    fields = [rng.permutation(8)[: int(rng.integers(3, 9))].astype(np.int32) for _ in range(60)]
+    if dup:
+        fields[0][-1] = fields[0][0]
+    slots = [rng.integers(0, S, f.size).astype(np.int32) for f in fields]
+    labels = list((rng.random(60) < 0.4).astype(np.float32))
+    return batch_arrays(make_batch(fields, slots, labels, 64, 8), cfg)
+
+
+MVM_VARIANTS = [
+    ({}, "scatter_sorted"),
+    ({"optim.fused_scatter": "on"}, "scatter_ftrl"),
+    ({"model.mvm_exclusive": "off", "data.sorted_sub_batches": 4}, "scatter_sorted_multi"),
+    ({"model.mvm_exclusive": "off", "data.sorted_sub_batches": 4, "model.mvm_plus_one": True},
+     "scatter_sorted_multi"),
+    ({"model.mvm_plus_one": True, "data.sorted_bf16": True}, "scatter_sorted"),
+]
+
+
+@pytest.mark.parametrize("extra, kernel", MVM_VARIANTS)
+def test_mvm_train_steps_on_the_card_match_the_cpu(dev, extra, kernel):
+    from xflow_tpu_torch.train.state import init_state
+
+    cfg = _mvm_cfg(**extra)
+    model, opt = get_model("mvm")(cfg), get_optimizer(cfg.optim.name)
+    step = make_train_step(model, opt, cfg)
+    cpu, card = init_state(model, opt, cfg, "cpu"), init_state(model, opt, cfg, dev)
+    losses = []
+    for i in range(3):
+        cpu, mc = step(cpu, to_device(_mvm_batch(i, cfg), "cpu"))
+        losses.append(mc["loss"].item())
+    st.reset_launches()
+    for i in range(3):
+        card, mg = step(card, to_device(_mvm_batch(i, cfg), dev))
+        assert abs(mg["loss"].item() - losses[i]) <= LOSS_RTOL * abs(losses[i])
+    assert st.LAUNCHES[kernel] == 3
+    if kernel == "scatter_sorted_multi":
+        assert st.LAUNCHES["gather_sorted_multi"] == 3 and st.LAUNCHES["gather_sorted"] == 0
+    for name, a, b in [("v", card.tables["v"], cpu.tables["v"])] + [
+            (leaf, t, cpu.opt_state["v"][leaf]) for leaf, t in card.opt_state["v"].items()]:
+        scale = b.abs().max().item()
+        assert _rel(a, b, max(FTRL_FLOOR * scale, 1e-30)) <= FTRL_RTOL, name
+
+
+def test_mvm_fit_on_the_card_matches_the_cpu(dev, tmp_path):
+    (path,) = generate_shards(str(tmp_path / "train"), 1, 200, num_fields=8,
+                              ids_per_field=40, seed=5)
+    cfg = _mvm_cfg(**{"data.train_path": str(tmp_path / "train"), "train.epochs": 2,
+                      "model.mvm_exclusive": "off", "data.sorted_sub_batches": 2,
+                      "model.mvm_plus_one": True})
+    card, cpu = Trainer(cfg, device=str(dev)), Trainer(cfg, device="cpu")
+    rc, rp = card.fit(), cpu.fit()
+    assert (rc.steps, rc.examples, rc.bad_steps) == (rp.steps, rp.examples, rp.bad_steps)
+    assert abs(rc.last_loss - rp.last_loss) <= LOSS_RTOL * abs(rp.last_loss)
+    assert _rel(card.state.tables["v"], cpu.state.tables["v"], FTRL_FLOOR) <= FTRL_RTOL
     auc_c, ll_c = card.evaluate(path)
     auc_p, ll_p = cpu.evaluate(path)
     assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)

@@ -4,8 +4,8 @@ port (digests verified, walk-back past a silently corrupted step), the
 port's sorted-window `evaluate` gives the JAX trainer's AUC and logloss
 on the same checkpoint and libffm shard, and `ServeRunner.predict_rows`
 gives the port's evaluate pctrs (the serve == evaluate pin). The package
-imports, and its `evaluate` and `train` commands run, with `jax` and
-`xflow_tpu` blocked.
+imports, and its `evaluate` and `train` commands run (FM, and MVM on
+both row sides), with `jax` and `xflow_tpu` blocked.
 """
 
 import json
@@ -185,6 +185,7 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.ops.kernels, xflow_tpu_torch.__main__\n"
         "import xflow_tpu_torch.optim, xflow_tpu_torch.train.state\n"
         "import xflow_tpu_torch.train.step, xflow_tpu_torch.train.trainer\n"
+        "import xflow_tpu_torch.models.mvm\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -225,3 +226,25 @@ def test_cli_train_without_jax(slice_case, tmp_path):
     assert (out["steps"], out["epochs"], out["examples"], out["bad_steps"]) == (8, 2, 2 * ROWS, 0)
     assert out["device"] == "cpu" and 0.0 <= out["auc"] <= 1.0
     assert tckpt.committed_steps(str(tmp_path / "ck")) == [8]
+
+
+@pytest.mark.parametrize("exclusive", ["auto", "off"])
+def test_cli_mvm_train_and_evaluate_without_jax(slice_case, tmp_path, exclusive):
+    prefix = slice_case["path"][: -len("-00000")]
+    common = ("--batch-size", str(B), "--log2-slots", str(LOG2_S), "--device", "cpu",
+              "--model", "mvm", "--set", f"model.v_dim={V}", "--set", f"model.num_fields={NF}",
+              "--set", f"data.max_nnz={NNZ}", "--set", f"model.mvm_exclusive={exclusive}",
+              "--set", "model.mvm_plus_one=true", "--set", "data.sorted_sub_batches=2")
+    main = "from xflow_tpu_torch.__main__ import main\nsys.exit(main(sys.argv[1:]))\n"
+    r = _run_without_jax(main, "train", "--train", prefix, "--epochs", "2",
+                         "--checkpoint-dir", str(tmp_path / "ck"), *common)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert (out["steps"], out["epochs"], out["examples"], out["bad_steps"]) == (8, 2, 2 * ROWS, 0)
+    assert out["device"] == "cpu" and np.isfinite(out["last_loss"])
+    assert set(out["occupancy"]) == {"v"} and 0.0 < out["occupancy"]["v"] < 1.0
+    r = _run_without_jax(main, "evaluate", "--checkpoint-dir", str(tmp_path / "ck"),
+                         "--test", slice_case["path"], *common)
+    assert r.returncode == 0, r.stderr
+    ev = json.loads(r.stdout.strip().splitlines()[-1])
+    assert ev["step"] == 8 and 0.0 <= ev["auc"] <= 1.0 and np.isfinite(ev["logloss"])

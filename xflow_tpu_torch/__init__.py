@@ -18,5 +18,8 @@ launches the hand-written CUDA kernel (`csrc/`, built at first use into
 Slices ported so far: FM inference, checkpoint -> sorted-window evaluate
 (`evaluate.py`, `python -m xflow_tpu_torch evaluate`) and row-major
 serving (`serve/runner.py`); single-device FM training with FTRL or SGD
-(`train/trainer.py`, `python -m xflow_tpu_torch train`).
+(`train/trainer.py`, `python -m xflow_tpu_torch train`); single-device MVM
+training, evaluation and serving (`models/mvm.py`: the product row side,
+and the segment row side over plans stacked into sub-batches through the
+multi-buffer gather and scatter).
 """

@@ -1,5 +1,5 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
-(FM inference, single-device FM training) read, with the JAX package's
+(FM inference, single-device FM and MVM training) read, with the JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
@@ -51,11 +51,21 @@ class ModelConfig:
     """Model selection and dims. `fm_standard` selects the textbook FM
     second-order term (per latent dim, with the 1/2 when `fm_half`);
     False reproduces the reference's coupled form. `fm_fused` keeps w
-    and v in one ``wv [S, 1+k]`` table."""
+    and v in one ``wv [S, 1+k]`` table.
+
+    MVM: `mvm_exclusive` ("auto"|"on"|"off") routes a batch to the
+    exclusive-fields product row side ("auto": when no row repeats a
+    field, else the segment row side; "on": raise on a repeated field;
+    "off": always the segment row side). `mvm_plus_one` selects the
+    factor form: False = the plain view-sum product over fields, True =
+    the product of (1 + view sum), the form that learns from small
+    inits (`xflow_tpu/config.py`)."""
 
     name: str = "lr"
     v_dim: int = 10
     num_fields: int = 18
+    mvm_exclusive: str = "auto"
+    mvm_plus_one: bool = False
     fm_standard: bool = True
     fm_half: bool = True
     fm_fused: bool = True
@@ -67,8 +77,10 @@ class DataConfig:
     batched to ``[batch_size, max_nnz]`` padded blocks.
 
     `sorted_layout` ("auto"|"on"|"off") picks the sorted-window engine
-    for the fused FM table; `sorted_bf16` rounds gathered table values
-    to bf16."""
+    for fused FM and MVM; `sorted_bf16` rounds gathered table values
+    to bf16; `sorted_sub_batches` is the number NS of row-contiguous
+    sub-batches a batch's plan is stacked into (0 = auto:
+    `ops/sorted_table.resolve_sub_batches`)."""
 
     train_path: str = ""
     test_path: str = ""
@@ -78,6 +90,7 @@ class DataConfig:
     hash_salt: int = 0
     sorted_layout: str = "auto"
     sorted_bf16: bool = False
+    sorted_sub_batches: int = 0
 
 
 @dataclass(frozen=True)

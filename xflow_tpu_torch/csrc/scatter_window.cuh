@@ -1,8 +1,10 @@
-// Shared pieces of the two windowed scatter kernels for Hopper (sm_90a):
-// `scatter_sorted.cu` (the gather's VJP) and `scatter_ftrl.cu` (the
-// scatter fused with the FTRL update).
+// Shared pieces of the windowed scatter kernels for Hopper (sm_90a):
+// `scatter_sorted.cu` (the gather's VJP), `scatter_ftrl.cu` (the scatter
+// fused with the FTRL update) and `scatter_sorted_multi.cu` (the
+// multi-buffer gather's VJP, which finds its runs in every buffer's span
+// by marking boundaries and sums them with `run_add`).
 //
-// Both walk the dense [S, K] output in tiles of TILE consecutive slots,
+// All walk the dense [S, K] output in tiles of TILE consecutive slots,
 // one block per tile. The plan is slot-sorted, so each slot's
 // occurrences form one contiguous run of plan positions inside its
 // window's span win_off[w] .. win_off[w + 1] (w = slot / WINDOW). A block
@@ -14,8 +16,9 @@
 // and stores of the [S, K] state are contiguous.
 //
 // Known limit: a (slot, channel) thread sums its run serially, so a hot
-// slot shared by every row of a batch (a run of up to B occurrences)
-// serialises its block. Synthetic near-uniform data never shows it.
+// slot shared by every row of a batch (a run of up to B occurrences, in
+// all buffers together for the multi-buffer scatter) serialises its
+// block. Synthetic near-uniform data never shows it.
 
 #pragma once
 
@@ -57,20 +60,26 @@ __device__ __forceinline__ void tile_runs(const int32_t* __restrict__ slots,
   __syncthreads();
 }
 
-// Sum of d[c, j0 .. j1) in plan order; with bf16 != 0 each term is
-// rounded to bfloat16 (round-to-nearest-even) before the float32 sum, as
-// the TPU kernel's single bf16 MXU pass does. Pads and masked
+// acc plus d[c, j0 .. j1), added in plan order; with bf16 != 0 each term
+// is rounded to bfloat16 (round-to-nearest-even) before the float32 add,
+// as the TPU kernel's single bf16 MXU pass does. Pads and masked
 // occurrences carry d = 0 and add 0.
-__device__ __forceinline__ float run_sum(const float* __restrict__ d, long long np,
-                                         int c, long long j0, long long j1, int bf16) {
+__device__ __forceinline__ float run_add(float acc, const float* __restrict__ d,
+                                         long long np, int c, long long j0, long long j1,
+                                         int bf16) {
   const float* dc = d + (long long)c * np;
-  float acc = 0.0f;
   for (long long j = j0; j < j1; ++j) {
     float v = __ldg(dc + j);
     if (bf16) v = __bfloat162float(__float2bfloat16_rn(v));
     acc = __fadd_rn(acc, v);
   }
   return acc;
+}
+
+// Sum of d[c, j0 .. j1) in plan order, from 0.
+__device__ __forceinline__ float run_sum(const float* __restrict__ d, long long np,
+                                         int c, long long j0, long long j1, int bf16) {
+  return run_add(0.0f, d, np, c, j0, j1, bf16);
 }
 
 }  // namespace xf_scatter

@@ -2,8 +2,9 @@
 JAX trainer's `evaluate` (`xflow_tpu/train/trainer.py`).
 
 Each batch of the libffm file is planned on the host (slot-sorted plan,
-compact wire format) when the sorted layout is on, shipped to the
-device, and run through the shared `predict_fn`; the pCTRs of real rows
+stacked into sub-batches where configured, compact wire format) when the
+sorted layout is on, shipped to the device, and run through the shared
+`predict_fn`; the pCTRs of real rows
 feed the rank-sum AUC and the mean log-likelihood.
 """
 
@@ -20,44 +21,76 @@ from xflow_tpu_torch.data.schema import SparseBatch
 from xflow_tpu_torch.metrics import auc_logloss
 from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.models.predict import make_predict_fn
+from xflow_tpu_torch.models.mvm import has_field_duplicates, resolve_mvm_product
 from xflow_tpu_torch.ops.sorted_table import (
     WINDOW,
     compact_plan_wire,
-    plan_sorted_batch,
+    plan_sorted_stacked,
+    resolve_sub_batches,
 )
 
 
 def sorted_layout_on(cfg: Config) -> bool:
     """Whether batches ship as sorted plans: the JAX trainer's
-    single-device rule (fused FM, S a multiple of WINDOW) under
+    single-device rule (fused FM or MVM, S a multiple of WINDOW) under
     data.sorted_layout "auto", forced by "on", never under "off"."""
     mode = cfg.data.sorted_layout
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"data.sorted_layout={mode!r}: expected auto|on|off")
-    supported = cfg.model.name == "fm" and cfg.model.fm_fused
+    if cfg.model.name == "ffm":
+        raise ValueError("model.name=ffm is not ported to xflow_tpu_torch yet")
+    supported = (cfg.model.name == "fm" and cfg.model.fm_fused) or cfg.model.name == "mvm"
     if mode == "on" and not (supported and cfg.num_slots % WINDOW == 0):
         raise ValueError(
-            "sorted_layout=on needs model.name=fm with model.fm_fused=true and "
-            f"num_slots divisible by {WINDOW}"
+            "sorted_layout=on needs model.name=fm with model.fm_fused=true or "
+            f"model.name=mvm, and num_slots divisible by {WINDOW}"
         )
     return mode == "on" or (mode == "auto" and supported and cfg.num_slots % WINDOW == 0)
 
 
+def mvm_wants_fields(batch: SparseBatch, cfg: Config) -> bool:
+    """Whether an MVM batch takes the segment row side (its plan carries
+    per-occurrence fields): the JAX trainer's single-process routing,
+    per batch under mvm_exclusive=auto."""
+    excl = cfg.model.mvm_exclusive
+    dup = excl != "off" and has_field_duplicates(batch.fields, batch.mask)
+    return not resolve_mvm_product(excl, dup, 1)
+
+
 def batch_arrays(batch: SparseBatch, cfg: Config) -> dict:
-    """Host arrays the forward consumes: the sorted plan (compacted wire
-    dtypes) plus labels/row_mask, or the row-major arrays."""
+    """Host arrays the step or the forward consumes: the sorted plan
+    (stacked into `resolve_sub_batches` sub-batches, with fields when an
+    MVM batch takes the segment row side, compacted wire dtypes) plus
+    labels/row_mask, or the row-major arrays. MVM field ids must lie
+    below model.num_fields."""
+    mvm = cfg.model.name == "mvm"
+    if mvm and batch.fields.size and int(batch.fields.max()) >= cfg.model.num_fields:
+        raise ValueError(
+            f"libffm field id {int(batch.fields.max())} >= model.num_fields="
+            f"{cfg.model.num_fields}; raise model.num_fields"
+        )
     arrays = {"labels": batch.labels, "row_mask": batch.row_mask}
     if not sorted_layout_on(cfg):
         arrays.update(slots=batch.slots, fields=batch.fields, mask=batch.mask)
         return arrays
-    plan = plan_sorted_batch(batch.slots, batch.mask, cfg.num_slots)
+    want_fields = mvm and mvm_wants_fields(batch, cfg)
+    ns = resolve_sub_batches(cfg)
+    plan = plan_sorted_stacked(
+        batch.slots, batch.mask, cfg.num_slots,
+        fields=batch.fields if want_fields else None, num_sub=ns,
+    )
     arrays.update(
         sorted_slots=plan.sorted_slots,
         sorted_row=plan.sorted_row,
         sorted_mask=plan.sorted_mask,
         win_off=plan.win_off,
     )
-    return compact_plan_wire(arrays, rows_bound=cfg.data.batch_size)
+    if want_fields:
+        arrays["sorted_fields"] = plan.sorted_fields
+    return compact_plan_wire(
+        arrays, rows_bound=cfg.data.batch_size // ns,
+        fields_bound=cfg.model.num_fields if want_fields else 0,
+    )
 
 
 def to_device(arrays: dict, device) -> dict:

@@ -8,8 +8,9 @@ row's masked latent vectors (`xflow_tpu/models/fm.py`).
 
 Tables: one fused ``wv [S, 1+k]`` (column 0 = w) or, with
 `fm_fused=False`, ``w [S]`` and ``v [S, k]``. Row-major batches gather
-rows per occurrence; sorted-plan batches (fused table only) run the
-windowed gather and the row-sum kernels.
+rows per occurrence; sorted-plan batches (fused table only, flat or
+stacked into sub-batches) run the windowed gather and the row-sum
+kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from xflow_tpu_torch.ops.sorted_table import (
     _k8,
     batch_rows,
     row_sums_sorted,
-    table_gather_sorted,
+    sorted_gather_map,
     wire_mask,
     wire_rows,
 )
@@ -79,14 +80,13 @@ def _row_side_sorted(occ_t, sorted_row, sorted_mask, rows: int, cfg) -> torch.Te
 
 
 def _forward_sorted(tables: dict, batch: dict, cfg) -> torch.Tensor:
-    """Sorted-window path over a flat plan: gather every occurrence's row
-    once, then reduce the channels into per-row sums."""
-    ss = batch["sorted_slots"]
-    if ss.ndim != 1:
-        raise ValueError("the port runs flat sorted plans only (sorted_slots [Np])")
-    occ_t = table_gather_sorted(tables["wv"], ss, batch["win_off"], cfg.data.sorted_bf16)
-    return _row_side_sorted(
-        occ_t, batch["sorted_row"], batch["sorted_mask"], batch["labels"].shape[0], cfg
+    """Sorted-window path: gather every occurrence's row once (one
+    multi-buffer gather for a stacked plan), then reduce each
+    (sub-)batch's channels into per-row sums."""
+    return sorted_gather_map(
+        tables["wv"], batch, ("sorted_row", "sorted_mask"), batch["labels"].shape[0],
+        lambda occ, sr, sm, rows: _row_side_sorted(occ, sr, sm, rows, cfg),
+        1 + cfg.model.v_dim, cfg.data.sorted_bf16,
     )
 
 

@@ -1,5 +1,5 @@
 """Sorted-window table engine: host-side plans and the table kernels of
-the FM inference and training paths.
+the FM and MVM inference and training paths.
 
 The host sorts each batch's feature occurrences by table slot
 (`plan_sorted_batch`, bit-identical to the JAX package's numpy planner)
@@ -13,14 +13,21 @@ and ships `sorted_slots [Np]`, `sorted_row [Np]`, `sorted_mask [Np]` and
   `out [B, ch]`; its backward is the row gather `d_out.T[:, rows]`;
 - `scatter_ftrl_sorted` is the scatter-add fused with the FTRL update:
   `(w', n', z')` from the occurrence cotangent, the gradient never
-  materialised.
+  materialised;
+- `table_gather_sorted_multi` is the gather over a STACKED plan
+  (`plan_sorted_stacked`: NS row-contiguous sub-batches, each sorted on
+  its own, concatenated), window-major over the buffers; its backward is
+  `scatter_sorted_multi`. `sorted_gather_map` runs a model's row side
+  over either plan form;
+- `segment_sum_channels` reduces occurrences into (row, field) segments
+  (MVM's segment row side), plain PyTorch as in the JAX package.
 
-Each kernel op (gather, row sum, scatter, scatter+FTRL) has a
-hand-written CUDA kernel (`csrc/*.cu`) and a plain PyTorch version
-beside it. A wrapper takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
-counts kernel launches, so a run can show that it went through the
-kernels.
+Each kernel op (gather, row sum, scatter, scatter+FTRL, and the
+multi-buffer gather and scatter) has a hand-written CUDA kernel
+(`csrc/*.cu`) and a plain PyTorch version beside it. A wrapper takes
+the plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises. `LAUNCHES` counts kernel launches, so a
+run can show that it went through the kernels.
 
 Tables are logical `[S, K]` here (see the package docstring); `pack_of`
 recognises the JAX package's packed `[S/8, 8K]` layout so
@@ -40,7 +47,10 @@ WINDOW = 2048  # table slots per window of the plan's win_off
 CHUNK = 512  # plan arrays are padded to a multiple of this
 PACK = 8  # slots per packed table row in the JAX package's layout
 
-LAUNCHES = {"gather_sorted": 0, "row_sums": 0, "scatter_sorted": 0, "scatter_ftrl": 0}
+LAUNCHES = {
+    "gather_sorted": 0, "row_sums": 0, "scatter_sorted": 0, "scatter_ftrl": 0,
+    "gather_sorted_multi": 0, "scatter_sorted_multi": 0,
+}
 
 
 def reset_launches() -> None:
@@ -103,6 +113,80 @@ def plan_sorted_batch(
         win_off=win_off,
         sorted_fields=sorted_fields,
     )
+
+
+def plan_sorted_stacked(
+    slots: np.ndarray,
+    mask: np.ndarray,
+    num_slots: int,
+    fields: Optional[np.ndarray] = None,
+    num_sub: int = 1,
+    always_stack: bool = False,
+) -> SortedPlan:
+    """Per-sub-batch sorted plans stacked on a leading [NS] axis: the
+    [B, F] batch is split into `num_sub` row-contiguous sub-batches,
+    each planned on its own (row ids LOCAL to the sub-batch), one after
+    another. `num_sub=1` returns the FLAT plan unless `always_stack`.
+    Each stacked `win_off[i]` ends at the sub-plan's length, the
+    `loc_off` contract of `table_gather_sorted_multi`."""
+    B = slots.shape[0]
+    if num_sub <= 1:
+        p = plan_sorted_batch(slots, mask, num_slots, fields=fields)
+        if not always_stack:
+            return p
+        return SortedPlan(*(None if a is None else a[None] for a in p))
+    if B % num_sub:
+        raise ValueError(f"batch {B} not divisible by num_sub {num_sub}")
+    bs = B // num_sub
+    plans = [
+        plan_sorted_batch(
+            slots[i * bs : (i + 1) * bs], mask[i * bs : (i + 1) * bs], num_slots,
+            fields=None if fields is None else fields[i * bs : (i + 1) * bs],
+        )
+        for i in range(num_sub)
+    ]
+    return SortedPlan(*(
+        None if parts[0] is None else np.stack(parts) for parts in zip(*plans)
+    ))
+
+
+def auto_sub_batches(batch_size: int, row_state_bytes_per_row: int,
+                     target_bytes: int = 1 << 24) -> int:
+    """Smallest power-of-two NS (dividing batch_size) that keeps the
+    per-sub-batch row-side state under `target_bytes`, with sub-batches
+    of at least 1024 rows."""
+    ns = 1
+    while (
+        batch_size % (ns * 2) == 0
+        and batch_size // (ns * 2) >= 1024
+        and (batch_size // ns) * row_state_bytes_per_row > target_bytes
+    ):
+        ns *= 2
+    return ns
+
+
+def resolve_sub_batches(cfg) -> int:
+    """NS for the sorted layout (cfg.data.sorted_sub_batches; 0 = auto).
+
+    Auto keeps MVM's segment-path [B/NS * nf, k+1] row aggregate under
+    16 MiB; FM's row state and MVM's product path are small, so NS = 1
+    there (a duplicate-field batch under mvm_exclusive=auto then runs
+    the segment row side at NS = 1)."""
+    ns = cfg.data.sorted_sub_batches
+    B = cfg.data.batch_size
+    if ns > 0:
+        if B % ns:
+            raise ValueError(
+                f"data.sorted_sub_batches={ns} must divide batch_size={B}"
+            )
+        return ns
+    if cfg.model.name == "mvm" and cfg.model.mvm_exclusive == "off":
+        per_row = cfg.model.num_fields * (cfg.model.v_dim + 1) * 4
+        return auto_sub_batches(B, per_row)
+    if cfg.model.name == "ffm":
+        per_row = cfg.model.num_fields * (cfg.model.num_fields * cfg.model.v_dim + 2) * 4
+        return auto_sub_batches(B, per_row)
+    return 1
 
 
 def compact_plan_wire(arrays: dict, rows_bound: int, fields_bound: int = 0) -> dict:
@@ -351,15 +435,19 @@ def scatter_sorted_plain(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor, num_
     return out.index_add_(0, sorted_slots[valid].long(), d[:, valid].T)
 
 
-def _check_scatter(d_occ_t, sorted_slots, win_off, num_slots, k) -> None:
+def _check_cotangent(d_occ_t, sorted_slots, k) -> None:
     _check(d_occ_t, "d_occ_t", torch.float32, 2)
     _check(sorted_slots, "sorted_slots", torch.int32, 1)
-    _check(win_off, "win_off", torch.int32, 1)
     if d_occ_t.shape[1] != sorted_slots.shape[0] or d_occ_t.shape[0] < k:
         raise ValueError(
             f"d_occ_t {tuple(d_occ_t.shape)} does not fit {sorted_slots.shape[0]} "
             f"plan positions and k={k}"
         )
+
+
+def _check_scatter(d_occ_t, sorted_slots, win_off, num_slots, k) -> None:
+    _check_cotangent(d_occ_t, sorted_slots, k)
+    _check(win_off, "win_off", torch.int32, 1)
     if num_slots % WINDOW or win_off.shape[0] != num_slots // WINDOW + 1:
         raise ValueError(
             f"num_slots={num_slots} must be a multiple of {WINDOW} with "
@@ -456,3 +544,202 @@ def scatter_ftrl_sorted(d_occ_t, sorted_slots, win_off, w, n, z, k: int, hp,
     if _on_cpu(d_occ_t, sorted_slots, w, n, z):
         return scatter_ftrl_plain(d_occ_t, sorted_slots, w, n, z, k, hp, bf16)
     return scatter_ftrl_cuda(d_occ_t, sorted_slots, win_off, w, n, z, k, hp, bf16)
+
+
+# ------------------------------------------- multi-buffer gather and scatter
+
+MULTI_MAX_BUFFERS = 112  # the multi scatter's run table: 2 KB of shared memory a buffer
+
+
+def _check_multi(sorted_slots: torch.Tensor, loc_off: torch.Tensor, num_slots: int) -> tuple:
+    """(nbuf, cap) of a multi-buffer stream, after the shape checks
+    `_gather_pallas_multi` asserts: `loc_off` [nbuf, S/WINDOW + 1]
+    buffer-local window offsets, nbuf buffers of cap positions each (cap
+    a multiple of CHUNK). Its values are not read here (that would stall
+    the host on the device every call): the planner writes 0 and cap in
+    the first and last columns, and the kernels cover each buffer's
+    whole [0, cap) whatever those two columns hold."""
+    _check(sorted_slots, "sorted_slots", torch.int32, 1)
+    _check(loc_off, "loc_off", torch.int32, 2)
+    nbuf, wpo1 = loc_off.shape
+    np_ = sorted_slots.shape[0]
+    if num_slots % WINDOW or wpo1 != num_slots // WINDOW + 1:
+        raise ValueError(
+            f"num_slots={num_slots} must be a multiple of {WINDOW} with loc_off of "
+            f"{num_slots // WINDOW + 1} columns, got {tuple(loc_off.shape)}"
+        )
+    if not 1 <= nbuf <= MULTI_MAX_BUFFERS or np_ % nbuf or (np_ // nbuf) % CHUNK:
+        raise ValueError(
+            f"{np_} plan positions do not split into {nbuf} buffers of a multiple of "
+            f"{CHUNK} (at most {MULTI_MAX_BUFFERS} buffers)"
+        )
+    return nbuf, np_ // nbuf
+
+
+def gather_sorted_multi_plain(table: torch.Tensor, sorted_slots: torch.Tensor,
+                              loc_off: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the multi-buffer gather: the gather of the
+    flattened stream, [K8, nbuf * cap]."""
+    _check_multi(sorted_slots, loc_off, table.shape[0])
+    return gather_sorted_plain(table, sorted_slots, bf16)
+
+
+def gather_sorted_multi_cuda(table: torch.Tensor, sorted_slots: torch.Tensor,
+                             loc_off: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Launch `csrc/gather_sorted_multi.cu` on CUDA tensors.
+
+    Replaces `_gather_pallas_multi` (xflow_tpu/ops/sorted_table.py).
+    Bound by bytes on the H100: each distinct row's sectors read once
+    across the buffers, a 4 B slot read and K8 floats written per
+    position. Window-major: a block owns one table window and walks
+    every buffer's span of it, so a row that several sub-batches share
+    is read while its lines are still in L1/L2."""
+    from xflow_tpu_torch.ops import kernels
+
+    _require_cuda(table, sorted_slots, loc_off)
+    _check(table, "table", torch.float32, 2)
+    S, K = table.shape
+    nbuf, cap = _check_multi(sorted_slots, loc_off, S)
+    np_ = sorted_slots.shape[0]
+    out = torch.empty((_k8(K), np_), dtype=torch.float32, device=table.device)
+    lib = kernels.load("gather_sorted_multi")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xf_gather_sorted_multi(
+            table.data_ptr(), sorted_slots.data_ptr(), loc_off.data_ptr(), out.data_ptr(),
+            S, K, _k8(K), np_, nbuf, cap, int(bool(bf16)), stream,
+        )
+    kernels.check(err, "gather_sorted_multi")
+    LAUNCHES["gather_sorted_multi"] += 1
+    return out
+
+
+def scatter_sorted_multi_plain(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
+                               loc_off: torch.Tensor, num_slots: int, k: int,
+                               bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the multi-buffer scatter: the scatter of
+    the flattened stream, [num_slots, k] (`index_add_`, which on the CPU
+    adds in stream order: buffer 0's run of a slot, then buffer 1's)."""
+    _check_multi(sorted_slots, loc_off, num_slots)
+    return scatter_sorted_plain(d_occ_t, sorted_slots, num_slots, k, bf16)
+
+
+def scatter_sorted_multi_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
+                              loc_off: torch.Tensor, num_slots: int, k: int,
+                              bf16: bool = False) -> torch.Tensor:
+    """Launch `csrc/scatter_sorted_multi.cu` on CUDA tensors.
+
+    Replaces `_scatter_pallas_multi` (xflow_tpu/ops/sorted_table.py).
+    Bound by bytes on the H100: the dense [S, K] gradient written once,
+    d[:K] and the slots read once. A block owns 256 slots of one window,
+    marks each slot's run in every buffer's span of that window, and
+    sums each (slot, channel) over buffer 0's run, then buffer 1's, in
+    plan order, writing once: no atomics, the same bits on every run."""
+    from xflow_tpu_torch.ops import kernels
+
+    _require_cuda(d_occ_t, sorted_slots, loc_off)
+    _check_cotangent(d_occ_t, sorted_slots, k)
+    nbuf, cap = _check_multi(sorted_slots, loc_off, num_slots)
+    out = torch.empty((num_slots, k), dtype=torch.float32, device=d_occ_t.device)
+    lib = kernels.load("scatter_sorted_multi")
+    with torch.cuda.device(d_occ_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xf_scatter_sorted_multi(
+            d_occ_t.data_ptr(), sorted_slots.data_ptr(), loc_off.data_ptr(), out.data_ptr(),
+            num_slots, k, d_occ_t.shape[1], nbuf, cap, int(bool(bf16)), stream,
+        )
+    kernels.check(err, "scatter_sorted_multi")
+    LAUNCHES["scatter_sorted_multi"] += 1
+    return out
+
+
+def scatter_sorted_multi(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
+                         loc_off: torch.Tensor, num_slots: int, k: int,
+                         bf16: bool = False) -> torch.Tensor:
+    """The multi-buffer gather's VJP: dense [num_slots, k] gradient."""
+    if _on_cpu(d_occ_t, sorted_slots, loc_off):
+        return scatter_sorted_multi_plain(d_occ_t, sorted_slots, loc_off, num_slots, k, bf16)
+    return scatter_sorted_multi_cuda(d_occ_t, sorted_slots, loc_off, num_slots, k, bf16)
+
+
+class TableGatherSortedMulti(torch.autograd.Function):
+    """Differentiable in `table`; the backward is `scatter_sorted_multi`
+    (`_scatter_pallas_multi` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, table, sorted_slots, loc_off, bf16):
+        ctx.save_for_backward(sorted_slots, loc_off)
+        ctx.shape, ctx.bf16 = tuple(table.shape), bf16
+        if _on_cpu(table, sorted_slots, loc_off):
+            return gather_sorted_multi_plain(table, sorted_slots, loc_off, bf16)
+        return gather_sorted_multi_cuda(table, sorted_slots, loc_off, bf16)
+
+    @staticmethod
+    def backward(ctx, d_occ_t):
+        sorted_slots, loc_off = ctx.saved_tensors
+        num_slots, k = ctx.shape
+        d_table = scatter_sorted_multi(
+            d_occ_t.contiguous(), sorted_slots, loc_off, num_slots, k, ctx.bf16
+        )
+        return d_table, None, None, None
+
+
+def table_gather_sorted_multi(table: torch.Tensor, sorted_slots: torch.Tensor,
+                              loc_off: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """`table_gather_sorted` over `nbuf` concatenated buffers, each
+    slot-sorted over the same table: `sorted_slots [nbuf * cap]`,
+    `loc_off [nbuf, S/WINDOW + 1]` buffer-local window offsets (the
+    stacked plan's `win_off`, last column equal to cap). Output
+    [K8, nbuf * cap]."""
+    return TableGatherSortedMulti.apply(table, sorted_slots, loc_off, bf16)
+
+
+def sorted_gather_map(table: torch.Tensor, batch: dict, row_keys: tuple, batch_rows: int,
+                      row_fn, K: int, bf16: bool) -> torch.Tensor:
+    """Gather the table once, then run the row side per sub-batch.
+
+    `row_fn(occ_t [K8, Np], *row_arrays, rows)` computes one sub-batch's
+    logits from its gathered rows. A flat plan takes `table_gather_sorted`;
+    a stacked [NS, Np_sub] plan takes ONE `table_gather_sorted_multi` over
+    the flattened stream (the table crosses memory once a step, not once
+    a sub-batch), then `row_fn` over each sub-batch in order; the logits
+    are concatenated to [batch_rows]."""
+    if table.shape[1] != K:
+        raise ValueError(f"table {tuple(table.shape)} is not of logical width {K}")
+    ss, wo = batch["sorted_slots"], batch["win_off"]
+    arrs = tuple(batch[k] for k in row_keys)
+    if ss.ndim == 1:
+        return row_fn(table_gather_sorted(table, ss, wo, bf16), *arrs, batch_rows)
+    ns, np_sub = ss.shape
+    occ_all = table_gather_sorted_multi(table, ss.reshape(-1), wo, bf16)
+    return torch.cat([
+        row_fn(occ_all[:, i * np_sub : (i + 1) * np_sub], *(a[i] for a in arrs),
+               batch_rows // ns)
+        for i in range(ns)
+    ])
+
+
+# ----------------------------------------------------------- segment sums
+
+class SegmentSumChannels(torch.autograd.Function):
+    """out[s, c] = sum of vals_t[c, j] over j with seg[j] = s: `index_add_`
+    forward, the row gather ``d_out[seg].T`` backward (both outside any
+    kernel, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, vals_t, seg, num_segments):
+        ctx.save_for_backward(seg)
+        out = torch.zeros((num_segments, vals_t.shape[0]), dtype=vals_t.dtype,
+                          device=vals_t.device)
+        return out.index_add_(0, seg.long(), vals_t.T)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (seg,) = ctx.saved_tensors
+        return d_out[seg.long()].T, None, None
+
+
+def segment_sum_channels(vals_t: torch.Tensor, seg: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """Occurrences into segments: [num_segments, ch] from vals_t [ch, Np]."""
+    return SegmentSumChannels.apply(vals_t, seg, num_segments)

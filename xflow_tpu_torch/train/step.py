@@ -4,11 +4,13 @@
     tables, opt_state = optimizer(tables, opt_state, grads)
 
 Two forms. The two-pass step runs autograd through the model (the
-sorted gather's backward is the windowed scatter kernel) and then the
-optimizer over whole tables. The fused step (fused FM + FTRL on a flat
-sorted plan) takes autograd only through the row side, from the gathered
-occurrence rows to the loss, and hands the occurrence cotangent to the
-one `scatter_ftrl_sorted` pass, so the [S, K] gradient never exists.
+sorted gather's backward is the windowed scatter kernel, the multi-buffer
+one for a stacked plan) and then the optimizer over whole tables. The
+fused step (fused FM or MVM's product row side, FTRL, a flat sorted plan
+without fields) takes autograd only through the row side, from the
+gathered occurrence rows to the loss, and hands the occurrence cotangent
+to the one `scatter_ftrl_sorted` pass, so the [S, K] gradient never
+exists.
 
 Masked padded rows contribute zero gradient; the loss mean divides by
 the number of real rows.
@@ -71,31 +73,37 @@ def guard_nonfinite(cfg: Config, state: TrainState, new_state: TrainState, metri
 
 
 def _fused_scatter_eligible(cfg: Config) -> bool:
-    """Whether the fused scatter+FTRL step applies: fused FM with FTRL
-    (the JAX package also fuses MVM and FFM, which the port does not
-    have yet). "on" where it cannot apply is a config error, not a
-    silent downgrade."""
+    """Whether the fused scatter+FTRL step applies (the JAX rules):
+    "auto" fuses FM only (MVM's product path measured slower fused on
+    the TPU, so it stays an opt-in), "on" takes fused FM or MVM and is a
+    config error elsewhere, not a silent downgrade."""
     if cfg.optim.fused_scatter == "off":
         return False
     if cfg.optim.fused_scatter not in ("auto", "on"):
         raise ValueError(
             f"optim.fused_scatter={cfg.optim.fused_scatter!r}: expected auto|on|off"
         )
-    ok = cfg.optim.name == "ftrl" and cfg.model.name == "fm" and cfg.model.fm_fused
-    if cfg.optim.fused_scatter == "on" and not ok:
-        raise ValueError(
-            "optim.fused_scatter=on requires optim.name=ftrl and model.name=fm "
-            f"(fm_fused=true); got optim={cfg.optim.name} "
-            f"model={cfg.model.name} fm_fused={cfg.model.fm_fused}"
-        )
-    return ok
+    if cfg.model.name == "ffm":
+        raise ValueError("model.name=ffm is not ported to xflow_tpu_torch yet")
+    fm_ok = cfg.model.name == "fm" and cfg.model.fm_fused
+    mvm_ok = cfg.model.name == "mvm"
+    ftrl = cfg.optim.name == "ftrl"
+    if cfg.optim.fused_scatter == "on":
+        if not (ftrl and (fm_ok or mvm_ok)):
+            raise ValueError(
+                "optim.fused_scatter=on requires optim.name=ftrl and model.name=fm "
+                f"(fm_fused=true) or mvm; got optim={cfg.optim.name} "
+                f"model={cfg.model.name} fm_fused={cfg.model.fm_fused}"
+            )
+        return True
+    return ftrl and fm_ok
 
 
 def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
     """(loss, d_occ [K8, Np]) of a flat sorted-plan batch: the gather,
     then autograd of the row-side loss with respect to the gathered
-    occurrence rows only (the table is not part of the graph)."""
-    from xflow_tpu_torch.models.fm import _row_side_sorted
+    occurrence rows only (the table is not part of the graph). The row
+    side is FM's, or MVM's product row side."""
     from xflow_tpu_torch.ops.sorted_table import table_gather_sorted
 
     with torch.no_grad():
@@ -103,27 +111,40 @@ def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
             table, batch["sorted_slots"], batch["win_off"], cfg.data.sorted_bf16
         )
     occ_t.requires_grad_(True)
+    rows = batch["labels"].shape[0]
     with torch.enable_grad():
-        logits = _row_side_sorted(
-            occ_t, batch["sorted_row"], batch["sorted_mask"], batch["labels"].shape[0], cfg
-        )
+        if cfg.model.name == "mvm":
+            from xflow_tpu_torch.models.mvm import _product_row_side
+
+            plus = 1.0 if cfg.model.mvm_plus_one else 0.0
+            logits = _product_row_side(
+                occ_t, batch["sorted_row"], batch["sorted_mask"], rows, cfg.model.v_dim, plus
+            )
+        else:
+            from xflow_tpu_torch.models.fm import _row_side_sorted
+
+            logits = _row_side_sorted(
+                occ_t, batch["sorted_row"], batch["sorted_mask"], rows, cfg
+            )
         loss = masked_mean_logloss(logits, batch["labels"], batch["row_mask"])
         (d_occ,) = torch.autograd.grad(loss, occ_t)
     return loss.detach(), d_occ
 
 
 def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
-    """`fused_cotangent`, then one scatter_ftrl_sorted pass over the table."""
+    """`fused_cotangent`, then one scatter_ftrl_sorted pass over the table
+    ("wv" for FM, "v" for MVM)."""
     from xflow_tpu_torch.ops.sorted_table import scatter_ftrl_sorted
 
-    table = state.tables["wv"]
+    tname = "v" if cfg.model.name == "mvm" else "wv"
+    table = state.tables[tname]
     loss, d_occ = fused_cotangent(table, batch, cfg)
-    st = state.opt_state["wv"]
+    st = state.opt_state[tname]
     w_new, n_new, z_new = scatter_ftrl_sorted(
         d_occ, batch["sorted_slots"], batch["win_off"], table, st["n"], st["z"],
         table.shape[1], cfg.optim.ftrl, cfg.data.sorted_bf16,
     )
-    new_state = TrainState({"wv": w_new}, {"wv": {"n": n_new, "z": z_new}}, state.step + 1)
+    new_state = TrainState({tname: w_new}, {tname: {"n": n_new, "z": z_new}}, state.step + 1)
     return new_state, {"loss": loss, "rows": batch["row_mask"].sum()}
 
 
@@ -150,7 +171,7 @@ def make_train_step(model: Model, optimizer: Optimizer, cfg: Config) -> Callable
 
     def train_step(state: TrainState, batch: dict):
         # the fused path needs a flat sorted plan without per-occurrence
-        # fields (the port's sorted plans are always of that form)
+        # fields (not a stacked plan, not MVM's segment row side)
         fusable = (
             "sorted_slots" in batch
             and batch["sorted_slots"].ndim == 1
@@ -162,9 +183,10 @@ def make_train_step(model: Model, optimizer: Optimizer, cfg: Config) -> Callable
         if fuse and cfg.optim.fused_scatter == "on":
             raise ValueError(
                 "optim.fused_scatter=on but this batch has no flat "
-                "fields-free sorted plan (sorted_layout off or a "
-                "row-major batch): the fused path cannot run; use auto "
-                "to allow the two-pass form on such batches"
+                "fields-free sorted plan (sorted_layout off/row-major, "
+                "stacked sub-batch plans, or MVM's segment path): the "
+                "fused path cannot run; use auto to allow the two-pass "
+                "form on such batches"
             )
         new_state, metrics = _two_pass_step(state, batch, model, optimizer, cfg)
         return guard_nonfinite(cfg, state, new_state, metrics)
