@@ -71,7 +71,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the launch counts set to 0 just before and read just after; then
    evaluate on the segment checkpoint (the multi-buffer gather forward),
    `predict_rows` (row-major) against it, and the segment step's stage
-   breakdown.
+   breakdown;
+12. the Hopper lab and the row-sum repair: (a) the row sum at ch = 104,
+   128 and 136 (FM's row side at v_dim 50, 63 and 64: over the 48 KB of
+   shared memory a block gets by default) against its plain version on
+   the first batch's plan, and one FM forward at v_dim = 64 on the card
+   against the CPU, pCTRs within 1e-5; (b) `bench_lab --suite mosaic`
+   (kernels #7-#10 at the probe's own shapes, `off` from the seed, each
+   bitwise against its plain version and its numpy slice, and the TMA
+   encode of each shape's plain tensor map: B and C must encode; each
+   probe's time is its device time by `torch.profiler`, with the CUDA
+   events' figure around back-to-back calls, the host's dispatch, beside
+   it as `host_ms`) and `--suite rowsum` at the JAX shapes (#11 within the float32 reorder
+   bound of its plain version and of `np.add.at`), in process with the
+   lab's launch counts set to 0 just before and read just after: each of
+   #7-#11 must have launched; (c) `kernel_parity.check_kernel_parity()`
+   on the card, every check within its tolerance; (d) `--suite core` at
+   its defaults (S = 2^22, N = 2^21, K = 11: 3 cells) into the temporary
+   directory, then `micro`, `layout` and `scatter` once each at the JAX
+   shapes. Each suite's output is echoed as comments.
 
 The last three lines of standard output: the card line, the kernels
 JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1108,6 +1126,140 @@ def run_mvm_training(mcfg, work: str, path: str) -> dict:
     return segment
 
 
+WIDE_V_DIMS = (50, 63, 64)  # FM row sides at ch = 104, 128, 136
+
+
+def check_wide_row_sums(cfg, path) -> dict:
+    """The row sum (#2) at channel counts over 96 against its plain version
+    on the first batch's plan, each on FM's own channels at that width
+    (a random `wv [2^22, 1 + v_dim]` ~ N(0, 0.05²) gathered by #1), and
+    the FM forward at v_dim = 64 on the card against the CPU. Returns
+    {ch: {v_dim, rel_err, ms}}."""
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import to_device
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.models.fm import stack_channels
+    from xflow_tpu_torch.models.predict import make_predict_fn
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    host, arrays = first_arrays(cfg, path, DEVICE)
+    ss = arrays["sorted_slots"]
+    rows, mask = st.wire_rows(arrays["sorted_row"]), st.wire_mask(arrays["sorted_mask"])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    out = {}
+    for v_dim in WIDE_V_DIMS:
+        K = 1 + v_dim
+        wv = torch.randn((1 << LOG2_SLOTS, K), generator=gen, device=DEVICE) * 0.05
+        vals = stack_channels(st.gather_sorted_cuda(wv, ss)[:K] * mask[None, :], K).contiguous()
+        ch = vals.shape[0]
+        got, want = st.row_sums_cuda(vals, rows, BATCH), st.row_sums_plain(vals, rows, BATCH)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want, FLOOR)
+        if not rel <= RTOL:
+            fail(f"row_sums at ch = {ch} differs from its plain version: {rel} > {RTOL}")
+        ms = cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))
+        # vals and rows read once, the [B, ch] sums written once
+        b_ms, _ = bound_ms(vals.numel() * 4 + rows.numel() * rows.element_size()
+                           + BATCH * ch * 4, vals.numel())
+        out[ch] = {"v_dim": v_dim, "rel_err": rel, "ms": ms, "bound_ms": b_ms}
+        print(f"# row_sums at ch = {ch} (FM v_dim {v_dim}, {ch * 128 * 4} B of shared memory a "
+              f"block): max err {rel:.3g} relative over a {FLOOR} floor, {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms", flush=True)
+    predict = make_predict_fn(get_model("fm")(override(cfg, **{"model.v_dim": 64})))
+    st.reset_launches()
+    p_card = predict({"wv": wv}, arrays).cpu()
+    launched = st.LAUNCHES["row_sums"]
+    p_cpu = predict({"wv": wv.cpu()}, to_device(host, "cpu"))
+    d = (p_card - p_cpu).abs().max().item()
+    if launched != 1 or p_card.shape != (BATCH,) or not d <= PCTR_ATOL:
+        fail(f"FM forward at v_dim 64: {launched} row_sums launches, card vs CPU pCTRs differ "
+             f"by {d} (tolerance {PCTR_ATOL})")
+    print(f"# FM forward at v_dim 64 (ch 136) on the card vs the CPU: pCTR max abs diff {d}",
+          flush=True)
+    return out
+
+
+def echo(fn):
+    """fn() with its stdout and stderr echoed as comments afterwards."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            return fn()
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"#   {line}")
+        sys.stdout.flush()
+
+
+LAB_PROBES = (  # (launch key, suite key, TPU kernel)
+    ("mosaic_a", "a", "xflow_tpu/tools/bench_lab.py:441"),
+    ("mosaic_b", "b", "xflow_tpu/tools/bench_lab.py:462"),
+    ("mosaic_c", "c", "xflow_tpu/tools/bench_lab.py:484"),
+    ("mosaic_d", "d", "xflow_tpu/tools/bench_lab.py:506"),
+)
+
+
+def run_lab(work: str) -> list:
+    """The lab's suites in process: mosaic and rowsum with the lab's
+    launch counts around them, the parity gate, then core, micro, layout
+    and scatter. Returns the kernels JSON entries of #7-#11."""
+    from xflow_tpu_torch.ops import lab
+    from xflow_tpu_torch.tools import bench_lab, kernel_parity
+
+    lab.reset_launches()
+    t0 = time.perf_counter()
+    mosaic = echo(lambda: bench_lab.suite_mosaic(device=DEVICE))
+    rowsum = echo(lambda: bench_lab.suite_rowsum(device=DEVICE))
+    launches = dict(lab.LAUNCHES)
+    print(f"# lab mosaic + rowsum: {time.perf_counter() - t0:.1f} s, launches {launches}",
+          flush=True)
+    if not mosaic["ok"]:
+        fail(f"the mosaic suite failed: probes {mosaic['probes_ok']}, TMA {mosaic['tma']}")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"lab kernel {name} was not launched in the lab run ({launches})")
+
+    res = kernel_parity.check_kernel_parity()
+    print(f"# kernel_parity {json.dumps(res)}", flush=True)
+    if not (res["ok"] and res["backend"] == "cuda"):
+        fail(f"kernel_parity on the card: {res}")
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "BENCH_LAB_TORCH.json")
+    core = echo(lambda: bench_lab.suite_core(["--out", out], device=DEVICE))
+    print("# core sweep: " + ", ".join(
+        f"{c['op']} {c['ns_per_element']} ns/element ({c['achieved_gbps']} GB/s)"
+        for c in core["cells"]), flush=True)
+    for suite in ("micro", "layout", "scatter"):
+        echo(lambda suite=suite: bench_lab.SUITES[suite]((), device=DEVICE))
+    print(f"# lab core, micro, layout, scatter: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    kern = []
+    tma = {key: lab.tma_result(code) for key, code in mosaic["tma"].items()}
+    for name, key, replaces in LAB_PROBES:
+        k = mosaic["kernels"][key]
+        b_ms, b_by = bound_ms(k["bytes"], 0.0)
+        kern.append({
+            "name": name, "route": "cuda", "source": "xflow_tpu_torch/csrc/lab_mosaic.cu",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": k["library_ms"], "ms_by": k["ms_by"], "host_ms": k["host_ms"],
+            **({"tma_encode": tma} if key == "d" else {}),
+        })
+    b_ms, b_by = bound_ms(rowsum["bytes"], rowsum["adds"])
+    kern.append({
+        "name": "lab_rowsum", "route": "cuda", "source": "xflow_tpu_torch/csrc/lab_rowsum.cu",
+        "replaces": "xflow_tpu/tools/bench_lab.py:714", "launches": launches["lab_rowsum"],
+        "max_abs_err": rowsum["errors"]["max_abs_err"],
+        "ms": rowsum["ms"]["lab rowsum (red.v4)"], "plain_ms": rowsum["ms"]["plain"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": rowsum["ms"]["zeros + index_add_"],
+        "row_sums_ms": rowsum["ms"]["row_sums (#2)"],
+    })
+    return kern
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
@@ -1153,6 +1305,8 @@ def main() -> int:
         eval_launches = run_slice(cfg, gen, path)
         train_launches, two_pass = run_training(cfg, work, path)
         segment = run_mvm_training(mcfg, work, path)
+        wide = check_wide_row_sums(cfg, path)
+        lab_kern = run_lab(work)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, MVM segment path {segment}")
     for k in kern:
@@ -1161,6 +1315,9 @@ def main() -> int:
         k["launches"] = src[k["name"]]
         if k["name"] in mvm_product:
             k["mvm_product"] = mvm_product[k["name"]]
+        if k["name"] == "row_sums":
+            k["wide_channels"] = wide
+    kern += lab_kern
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ does not have; nothing here imports JAX.)
 The multi-buffer kernels (#5 gather, #6 scatter) run on stacked plans
 of 4 sub-batches: a slot every buffer shares, windows empty in some
 buffers, an all-pad buffer, a hot slot of 2,048 occurrences across the
-buffers, both table ends.
+buffers, both table ends. The row sum (#2) runs at ch = 104, 128 and 136
+(over the 48 KB of shared memory a block gets by default), and FM's
+forward at v_dim = 64 against the CPU. The lab's kernels (#7-#11,
+`ops/lab.py`) run at the mosaic probe's shapes with one slice out of
+range, and `kernel_parity` runs whole.
 
 Tolerances:
 - gathers: bitwise (a copy);
@@ -21,6 +25,10 @@ Tolerances:
 - scatter + FTRL: 1e-3 relative over a 1e-4 floor (kernel_parity's
   scatter_ftrl_*), w of never-touched entries bitwise;
 - row sum: 1e-4 relative over a 1e-2 floor (float atomics reorder it);
+  at wide channels, and the lab's row sum, the float32 reorder bound
+  (`bench_lab.reorder_err` < 1: a row of many unit-scale terms reorders
+  past 1e-4 over that floor), the relative error printed beside it;
+- the lab's slice probes: bitwise (copies);
 - steps and fits: loss within 1e-5 relative, state within the FTRL
   tolerance.
 """
@@ -36,6 +44,7 @@ from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.ops import sorted_table as st
 from xflow_tpu_torch.optim import get_optimizer
 from xflow_tpu_torch.train.step import make_train_step
+from xflow_tpu_torch.tools.bench_lab import reorder_err
 from xflow_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
@@ -338,3 +347,126 @@ def test_mvm_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     auc_c, ll_c = card.evaluate(path)
     auc_p, ll_p = cpu.evaluate(path)
     assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)
+
+
+# ------------------------------------------------- row sums at wide channels
+
+@pytest.mark.parametrize("ch", [104, 128, 136])
+def test_row_sums_kernel_at_wide_channels(dev, ch):
+    """ch over 96 needs more than 48 KB of shared memory a block: FM's
+    row side at v_dim 50 (ch 104) and v_dim 64 (ch 136), and ch 128."""
+    plan, _ = _inputs("random", 5, seed=7)
+    rng = np.random.default_rng(8)
+    vals = torch.from_numpy(rng.normal(size=(ch, plan.sorted_slots.shape[0])).astype(np.float32)
+                            * plan.sorted_mask[None, :]).to(dev)
+    rows = torch.from_numpy(plan.sorted_row).to(dev)
+    n_rows = int(plan.sorted_row.max()) + 1
+    st.reset_launches()
+    got = st.row_sums_cuda(vals, rows, n_rows)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["row_sums"] == 1
+    want = st.row_sums_plain(vals, rows, n_rows)
+    print(f"ch {ch}: {_rel(got, want, FLOOR):.3g} relative over a {FLOOR} floor")
+    assert reorder_err(got, want, vals, rows, n_rows) < 1.0
+
+
+def test_row_sums_kernel_refuses_a_channel_count_over_the_card(dev):
+    vals = torch.zeros((4096, 128), device=dev)
+    with pytest.raises(ValueError, match="this card allows ch <="):
+        st.row_sums_cuda(vals, torch.zeros(128, dtype=torch.int32, device=dev), 4)
+
+
+def test_fm_forward_at_v_dim_64_on_the_card_matches_the_cpu(dev):
+    from xflow_tpu_torch.models.predict import make_predict_fn
+
+    cfg = _cfg(**{"model.v_dim": 64})
+    rng = np.random.default_rng(9)
+    wv = torch.from_numpy((rng.normal(size=(S, 65)) * 0.05).astype(np.float32))
+    predict = make_predict_fn(get_model("fm")(cfg))
+    st.reset_launches()
+    p_card = predict({"wv": wv.to(dev)}, to_device(_batch(0), dev))
+    assert st.LAUNCHES["row_sums"] == 1
+    p_cpu = predict({"wv": wv}, to_device(_batch(0), "cpu"))
+    np.testing.assert_allclose(p_card.cpu().numpy(), p_cpu.numpy(), atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------ the Hopper lab (#7-#11)
+
+def _lab_inputs(seed=0, n=1 << 13, k=11, c=512, grid=4):
+    from xflow_tpu_torch.ops import lab  # noqa: F401
+
+    rng = np.random.default_rng(seed)
+    off = rng.integers(0, n - c + 1, 33).astype(np.int32)
+    off[grid - 1] = n  # the last block's slice leaves the array: zeros
+    return {
+        "table": torch.from_numpy(rng.standard_normal((1 << 14, k), dtype=np.float32)),
+        "d_t": torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)),
+        "sl": torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (1, n)).astype(np.int32)),
+        "d_rows": torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)),
+        "off": torch.from_numpy(off),
+    }
+
+
+@pytest.mark.parametrize("probe", ["a", "b", "c", "d"])
+def test_lab_slice_probes_bitwise_equal_to_plain(dev, probe):
+    from xflow_tpu_torch.ops import lab
+
+    x = _lab_inputs()
+    key, fn, plain = {
+        "a": ("mosaic_a", lambda t: lab.block_scale_cuda(t["table"]),
+              lambda t: lab.block_scale_plain(t["table"])),
+        "b": ("mosaic_b", lambda t: lab.col_slices_cuda(t["d_t"], t["off"]),
+              lambda t: lab.col_slices_plain(t["d_t"], t["off"])),
+        "c": ("mosaic_c", lambda t: lab.col_slices_cuda(t["sl"], t["off"]),
+              lambda t: lab.col_slices_plain(t["sl"], t["off"])),
+        "d": ("mosaic_d", lambda t: lab.row_slices_cuda(t["d_rows"], t["off"]),
+              lambda t: lab.row_slices_plain(t["d_rows"], t["off"])),
+    }[probe]
+    lab.reset_launches()
+    got = fn({name: v.to(dev) for name, v in x.items()})
+    torch.cuda.synchronize()
+    assert lab.LAUNCHES[key] == 1
+    want = plain(x)
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple)
+                    else (want,)):
+        assert torch.equal(g.cpu(), w)
+    if probe != "a":
+        assert (want[1][:3] != 0).all() and (want[0][3] == 0).all()
+
+
+def test_lab_tensor_maps_encode_where_the_strides_allow(dev):
+    from xflow_tpu_torch.ops import lab
+
+    x = {name: v.to(dev) for name, v in _lab_inputs().items()}
+    assert lab.tma_encode(x["d_t"], (11, 256)) == 0
+    assert lab.tma_encode(x["sl"], (1, 256)) == 0
+    assert lab.tma_encode(x["d_rows"], (256, 11)) != 0  # a 44 B row stride
+    assert lab.tma_encode(x["table"], (256, 11)) != 0
+
+
+@pytest.mark.parametrize("ch", [24, 128])
+def test_lab_rowsum_kernel_matches_plain(dev, ch):
+    """The suite's ch 24, and ch 128, whose 64 KB slab needs the opt-in
+    over the 48 KB of shared memory a block gets by default."""
+    from xflow_tpu_torch.ops import lab
+
+    rng = np.random.default_rng(10)
+    rows = torch.from_numpy(rng.integers(-2, 514, 8192).astype(np.int32))  # a few out of range
+    vals = torch.from_numpy(rng.normal(size=(ch, 8192)).astype(np.float32))
+    lab.reset_launches()
+    got = lab.rowsum_cuda(vals.to(dev), rows.to(dev), 512)
+    torch.cuda.synchronize()
+    assert lab.LAUNCHES["lab_rowsum"] == 1
+    want = lab.rowsum_plain(vals, rows, 512)
+    print(f"ch {ch}: {_rel(got, want, FLOOR):.3g} relative over a {FLOOR} floor")
+    keep = (rows >= 0) & (rows < 512)
+    assert reorder_err(got, want, vals[:, keep], rows[keep], 512) < 1.0
+
+
+def test_kernel_parity_on_the_card(dev):
+    from xflow_tpu_torch.tools.kernel_parity import TOLERANCES, check_kernel_parity
+
+    res = check_kernel_parity()
+    assert res["backend"] == "cuda"
+    assert res["ok"], {n: (e, TOLERANCES[n]) for n, e in res["checks"].items()
+                       if e > TOLERANCES[n]}

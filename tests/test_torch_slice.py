@@ -185,7 +185,8 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.ops.kernels, xflow_tpu_torch.__main__\n"
         "import xflow_tpu_torch.optim, xflow_tpu_torch.train.state\n"
         "import xflow_tpu_torch.train.step, xflow_tpu_torch.train.trainer\n"
-        "import xflow_tpu_torch.models.mvm\n"
+        "import xflow_tpu_torch.models.mvm, xflow_tpu_torch.ops.lab\n"
+        "import xflow_tpu_torch.tools.bench_lab, xflow_tpu_torch.tools.kernel_parity\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr

@@ -21,6 +21,11 @@
 // so the low bits of a sum can differ from run to run; a deterministic
 // form (a host row order, or a segmented reduction over a row-sorted
 // permutation) is later work.
+//
+// The slab takes ch * TILE * 4 B of dynamic shared memory: above the
+// 48 KB every kernel gets (ch > 96), the launch opts the kernel in to
+// more, up to the card's per-block limit (227 KB on the H100: ch <= 454).
+// `xf_row_sums_max_ch` reports that limit for the current device.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,11 +59,27 @@ __global__ void row_sums_kernel(const float* __restrict__ vals,
 
 extern "C" int xf_row_sums_smem_bytes(int ch) { return ch * TILE * (int)sizeof(float); }
 
+// The largest ch whose slab fits the current device's opt-in shared
+// memory a block; 0 with the CUDA error negated on failure.
+extern "C" int xf_row_sums_max_ch() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  return optin / (TILE * (int)sizeof(float));
+}
+
 extern "C" int xf_row_sums(const void* vals, const void* rows, void* out, int ch,
                            long long np, long long num_rows, void* stream) {
   if (np > 0) {
     long long blocks = (np + TILE - 1) / TILE;
     size_t smem = (size_t)ch * TILE * sizeof(float);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          row_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
     row_sums_kernel<<<(unsigned)blocks, 256, smem, (cudaStream_t)stream>>>(
         (const float*)vals, (const int32_t*)rows, (float*)out, ch, np, num_rows);
   }

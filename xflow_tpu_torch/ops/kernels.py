@@ -35,6 +35,7 @@ SIGNATURES = {
     "row_sums": [
         ("xf_row_sums", [_P, _P, _P, _I, _L, _L, _P]),
         ("xf_row_sums_smem_bytes", [_I]),
+        ("xf_row_sums_max_ch", []),
     ],
     "scatter_sorted": [
         ("xf_scatter_sorted", [_P, _P, _P, _P, _L, _I, _L, _I, _P]),
@@ -48,6 +49,15 @@ SIGNATURES = {
     ],
     "scatter_sorted_multi": [
         ("xf_scatter_sorted_multi", [_P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P]),
+    ],
+    "lab_mosaic": [
+        ("xf_lab_tma_encode", [_P, _I, _L, _L, _L, _I, _I]),
+        ("xf_lab_scale_blocks", [_P, _P, _L, _I, _F, _P]),
+        ("xf_lab_dma_cols", [_P, _I, _P, _P, _P, _I, _L, _I, _I, _P]),
+        ("xf_lab_dma_rows", [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    ],
+    "lab_rowsum": [
+        ("xf_lab_rowsum", [_P, _P, _P, _I, _L, _L, _P]),
     ],
 }
 

@@ -36,6 +36,7 @@ recognises the JAX package's packed `[S/8, 8K]` layout so
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -360,6 +361,19 @@ def row_sums_plain(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> t
     return out.index_add_(0, rows.long(), vals_t.T)
 
 
+@functools.lru_cache(maxsize=None)
+def _row_sums_max_ch(device_index: int) -> int:
+    """The widest ch whose slab fits a block's shared memory on the card,
+    read once per device (an error is raised, not cached)."""
+    from xflow_tpu_torch.ops import kernels
+
+    with torch.cuda.device(device_index):
+        max_ch = kernels.load("row_sums").xf_row_sums_max_ch()
+    if max_ch < 0:
+        kernels.check(-max_ch, "row_sums (reading the card's shared memory limit)")
+    return max_ch
+
+
 def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Launch `csrc/row_sums.cu` on CUDA tensors.
 
@@ -368,7 +382,9 @@ def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> to
     a [ch, 128] slab of vals with coalesced loads into shared memory and
     adds it into the rows channel-fastest with float atomics, so the
     order of the adds, and the last bits of a sum, vary from run to run
-    (tolerance: 1e-4 relative over a 1e-2 floor)."""
+    (tolerance: 1e-4 relative over a 1e-2 floor). Any ch whose slab fits
+    the card's shared memory a block (ch <= 454 on the H100) launches;
+    a wider one raises with the card's limit."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(vals_t, rows)
@@ -378,8 +394,12 @@ def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> to
     if rows.shape[0] != np_:
         raise ValueError(f"rows has {rows.shape[0]} entries, vals_t {np_} columns")
     lib = kernels.load("row_sums")
-    if lib.xf_row_sums_smem_bytes(ch) > 48 * 1024:
-        raise ValueError(f"row_sums: ch={ch} needs more than 48 KB of shared memory")
+    max_ch = _row_sums_max_ch(vals_t.device.index)
+    if ch > max_ch:
+        raise ValueError(
+            f"row_sums: ch={ch} needs {lib.xf_row_sums_smem_bytes(ch)} B of shared memory a "
+            f"block; this card allows ch <= {max_ch}"
+        )
     out = torch.zeros((num_rows, ch), dtype=torch.float32, device=vals_t.device)
     with torch.cuda.device(vals_t.device):
         stream = torch.cuda.current_stream().cuda_stream
