@@ -29,7 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    state on the card and on the CPU: loss within 1e-5 relative, w, n, z
    as for the fused kernel. For every kernel, CUDA-event times of the
    kernel, its plain version and one PyTorch library call (or
-   composition) computing the same function;
+   composition) computing the same function; for the scatter also
+   `torch.zeros((S, K))` (`zeros_ms`), the dense write any scatter into a
+   fresh output pays;
 6. the evaluate path: `evaluate` over the shard on the card, the first
    batch's pCTRs against the CPU's, `predict_rows` against evaluate;
 7. the training main path: `python -m xflow_tpu_torch train` (in
@@ -60,8 +62,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    own inputs (its flat plan, the plus-one form's log-space channels at
    ch = 32, and the fused step's occurrence cotangent), checked as in
    phases 4 and 5, and the product step's time fused and two-pass. Then
-   one product step (two-pass and fused) and one segment step on the
-   card and on the CPU, plain and plus-one factor forms, as in phase 5;
+   the scatters on a skewed plan at the same S and Np (one slot in every
+   row's first field: a run of 65,536, over the 4 stacked buffers for the
+   multi-buffer one), bitwise against the CPU plain version and across two
+   launches, with their times (`hot_ms`, not a target). Then one product
+   step (two-pass and fused) and one segment step on the card and on the
+   CPU, plain and plus-one factor forms, as in phase 5;
 11. the MVM main paths through `python -m xflow_tpu_torch train --model
    mvm` with `model.mvm_plus_one=true`: the product row side (2 epochs,
    two-pass: gather, row sums, scatter), one fused epoch
@@ -75,7 +81,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. the Hopper lab and the row-sum repair: (a) the row sum at ch = 104,
    128 and 136 (FM's row side at v_dim 50, 63 and 64: over the 48 KB of
    shared memory a block gets by default) against its plain version on
-   the first batch's plan, and one FM forward at v_dim = 64 on the card
+   the first batch's plan, with `zeros` + `index_add_` on the same inputs,
+   and one FM forward at v_dim = 64 on the card
    against the CPU, pCTRs within 1e-5; (b) `bench_lab --suite mosaic`
    (kernels #7-#10 at the probe's own shapes, `off` from the seed, each
    bitwise against its plain version and its numpy slice, and the TMA
@@ -92,7 +99,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes. Each suite's output is echoed as comments.
 
 The last three lines of standard output: the card line, the kernels
-JSON, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+JSON (each entry with `share_of_bound` = bound_ms / ms), and
+``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
 
@@ -123,6 +131,7 @@ FTRL_RTOL, FTRL_FLOOR = 1e-3, 1e-4  # kernel_parity's scatter_ftrl_*
 LOSS_RTOL = 1e-5
 PCTR_ATOL = 1e-5
 FTRL_OPS_PER_ELEMENT = 16  # update_one's float ops, sqrt and division as one each
+HOT_SLOT = 12345  # the skewed plan's hot slot (check_hot_scatters)
 # the restored MVM state's init scale: at 18 fields it keeps both factor
 # forms' gradients, and their squares in n, in float32's normal range
 MVM_V_SCALE = 0.5
@@ -428,13 +437,16 @@ def check_train_kernels(cfg, path) -> list:
     s_plain = cuda_ms(lambda: st.scatter_sorted_plain(d_occ, ss, S, K))
     ss_l = ss.long()
     s_lib = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T))
+    s_zeros = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE))  # the write floor
     s_bound, s_by = bound_ms(S * K * 4 + K * np_ * 4 + np_ * 4 + wo.numel() * 4, K * np_)
+    print(f"# scatter_sorted {s_ms:.4f} ms, zeros + index_add_ {s_lib:.4f} ms, zeros "
+          f"{s_zeros:.4f} ms, bound {s_bound:.4f} ms", flush=True)
     results.append({
         "name": "scatter_sorted", "route": "cuda",
         "source": "xflow_tpu_torch/csrc/scatter_sorted.cu",
         "replaces": "xflow_tpu/ops/sorted_table.py:938",
         "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
-        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib,
+        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib, "zeros_ms": s_zeros,
     })
 
     # --- fused scatter + FTRL (#3)
@@ -907,13 +919,16 @@ def check_multi_kernels(seg_cfg, batch) -> list:
     s_plain = cuda_ms(lambda: st.scatter_sorted_multi_plain(d, ss, loc, S, K))
     ss_l = ss.long()
     s_lib = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d[:K].T))
+    s_zeros = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE))  # the write floor
     s_bound, s_by = bound_ms(S * K * 4 + K * np_ * 4 + np_ * 4 + loc.numel() * 4, K * np_)
+    print(f"# scatter_sorted_multi {s_ms:.4f} ms, zeros + index_add_ {s_lib:.4f} ms, zeros "
+          f"{s_zeros:.4f} ms, bound {s_bound:.4f} ms", flush=True)
     results.append({
         "name": "scatter_sorted_multi", "route": "cuda",
         "source": "xflow_tpu_torch/csrc/scatter_sorted_multi.cu",
         "replaces": "xflow_tpu/ops/sorted_table.py:998",
         "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
-        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib,
+        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib, "zeros_ms": s_zeros,
     })
     return results
 
@@ -927,7 +942,8 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
     the fused kernel's plain version runs on the CPU, and of its leaves
     w is gated and n, z are reported, as in the MVM steps (see
     `ftrl_errs`). Then the product step's CUDA-event time, fused and
-    two-pass. Returns each kernel's error and time here, by name."""
+    two-pass. Returns each kernel's error and time here, by name, and
+    the multi-buffer scatter's time on this plan as one buffer."""
     import torch
 
     from xflow_tpu_torch.config import override
@@ -1011,6 +1027,19 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
             out["scatter_ftrl"] = {"max_abs_err": max(
                 (a.cpu() - b).abs().max().item() for a, b in zip(ftrl, ftrl_want))}
     out["scatter_sorted"]["ms"] = cuda_ms(lambda: st.scatter_sorted_cuda(d_occ, ss, wo, S, K))
+    ss_l = ss.long()
+    out["scatter_sorted"]["library_ms"] = cuda_ms(
+        lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T))
+    out["scatter_sorted"]["zeros_ms"] = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE))
+    # the multi-buffer scatter (#6) on the same positions in one buffer
+    # (the segment side stacks a batch in four): the time of its pieces
+    one = st.scatter_sorted_multi_cuda(d_occ, ss, wo.view(1, -1), S, K)
+    if not torch.equal(one, st.scatter_sorted_cuda(d_occ, ss, wo, S, K)):
+        fail("scatter_sorted_multi over one buffer differs from scatter_sorted on its plan")
+    out["scatter_sorted_multi"] = {"one_buffer_ms": cuda_ms(
+        lambda: st.scatter_sorted_multi_cuda(d_occ, ss, wo.view(1, -1), S, K))}
+    out["scatter_sorted"]["bound_ms"], _ = bound_ms(
+        S * K * 4 + K * ss.numel() * 4 + ss.numel() * 4 + wo.numel() * 4, K * ss.numel())
     out["scatter_ftrl"]["ms"] = cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, v, n, z, K, hp))
 
     # --- the product step, fused against two-pass (the `auto` rule keeps
@@ -1022,6 +1051,63 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
         step_ms[fuse] = cuda_ms(lambda step=step: step(state, arrays), reps=10)
     print(f"# mvm product train step on the card (CUDA events): fused {step_ms['on']:.3f} ms, "
           f"two-pass {step_ms['off']:.3f} ms per {BATCH}-row batch", flush=True)
+    return out
+
+
+def check_hot_scatters() -> dict:
+    """#4 and #6 on a skewed plan at the main paths' S and Np: B x F slots
+    drawn uniformly from the table (seeded), except that one slot takes
+    every row's first field, a run of B = 65,536 occurrences (16,384 in each
+    of #6's 4 stacked buffers). #4 at FM's K = 11 on the flat plan, #6 at
+    MVM's K = 10 on the stacked one, d ~ N(0, 1) masked as the plan's pads
+    are: bitwise against the CPU plain version and across two launches, bf16
+    off and on. Returns {name: {hot_ms, hot_library_ms}}: the times on this
+    plan (a hot slot's terms are added one at a time, so its run is serial;
+    not a target), and zeros + index_add_ on it."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    S = 1 << LOG2_SLOTS
+    rng = np.random.default_rng(SEED + 5)
+    slots = rng.integers(0, S, (BATCH, NUM_FIELDS)).astype(np.int32)
+    slots[:, 0] = HOT_SLOT
+    mask = np.ones((BATCH, NUM_FIELDS), np.float32)
+    flat = st.plan_sorted_batch(slots, mask, S)
+    stacked = st.plan_sorted_stacked(slots, mask, S, num_sub=4)
+    cases = (
+        ("scatter_sorted", 1 + V_DIM, flat.sorted_slots, flat.win_off, flat.sorted_mask,
+         lambda d, ss, off, K, bf16: st.scatter_sorted_cuda(d, ss, off, S, K, bf16)),
+        ("scatter_sorted_multi", V_DIM, stacked.sorted_slots.reshape(-1), stacked.win_off,
+         stacked.sorted_mask.reshape(-1),
+         lambda d, ss, off, K, bf16: st.scatter_sorted_multi_cuda(d, ss, off, S, K, bf16)),
+    )
+    out = {}
+    for name, K, ss_np, off_np, m_np, run in cases:
+        d_np = rng.standard_normal((st._k8(K), ss_np.size), dtype=np.float32)
+        d_np[:K] *= m_np[None, :]
+        d_cpu, ss_cpu = torch.from_numpy(d_np), torch.from_numpy(np.ascontiguousarray(ss_np))
+        d, ss = d_cpu.to(DEVICE), ss_cpu.to(DEVICE)
+        off = torch.from_numpy(np.ascontiguousarray(off_np)).to(DEVICE)
+        for bf16 in (False, True):
+            got, again = run(d, ss, off, K, bf16), run(d, ss, off, K, bf16)
+            want = st.scatter_sorted_plain(d_cpu, ss_cpu, S, K, bf16)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(got.cpu(), want)):
+                fail(f"{name} on the hot-slot plan (bf16={bf16}) is not bitwise equal across "
+                     f"two launches and to its CPU plain version: max abs err "
+                     f"{(got.cpu() - want).abs().max().item()}")
+        ss_l = ss.long()
+        out[name] = {
+            "hot_ms": cuda_ms(lambda: run(d, ss, off, K, False), reps=5, warmup=1),
+            "hot_library_ms": cuda_ms(
+                lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d[:K].T),
+                reps=5, warmup=1),
+        }
+        print(f"# {name} on the hot-slot plan ({ss_np.size} positions, a run of {BATCH} at "
+              f"slot {HOT_SLOT}): bitwise, bf16 off and on; {out[name]['hot_ms']:.4f} ms, "
+              f"zeros + index_add_ {out[name]['hot_library_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -1134,7 +1220,8 @@ def check_wide_row_sums(cfg, path) -> dict:
     on the first batch's plan, each on FM's own channels at that width
     (a random `wv [2^22, 1 + v_dim]` ~ N(0, 0.05²) gathered by #1), and
     the FM forward at v_dim = 64 on the card against the CPU. Returns
-    {ch: {v_dim, rel_err, ms}}."""
+    {ch: {v_dim, rel_err, ms, bound_ms, library_ms}} (library: zeros +
+    index_add_)."""
     import torch
 
     from xflow_tpu_torch.config import override
@@ -1160,13 +1247,15 @@ def check_wide_row_sums(cfg, path) -> dict:
         if not rel <= RTOL:
             fail(f"row_sums at ch = {ch} differs from its plain version: {rel} > {RTOL}")
         ms = cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))
+        rows_l = rows.long()
+        lib = cuda_ms(lambda: torch.zeros((BATCH, ch), device=DEVICE).index_add_(0, rows_l, vals.T))
         # vals and rows read once, the [B, ch] sums written once
         b_ms, _ = bound_ms(vals.numel() * 4 + rows.numel() * rows.element_size()
                            + BATCH * ch * 4, vals.numel())
-        out[ch] = {"v_dim": v_dim, "rel_err": rel, "ms": ms, "bound_ms": b_ms}
+        out[ch] = {"v_dim": v_dim, "rel_err": rel, "ms": ms, "bound_ms": b_ms, "library_ms": lib}
         print(f"# row_sums at ch = {ch} (FM v_dim {v_dim}, {ch * 128 * 4} B of shared memory a "
-              f"block): max err {rel:.3g} relative over a {FLOOR} floor, {ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms", flush=True)
+              f"block): max err {rel:.3g} relative over a {FLOOR} floor, {ms:.4f} ms, "
+              f"zeros + index_add_ {lib:.4f} ms, bound {b_ms:.4f} ms", flush=True)
     predict = make_predict_fn(get_model("fm")(override(cfg, **{"model.v_dim": 64})))
     st.reset_launches()
     p_card = predict({"wv": wv}, arrays).cpu()
@@ -1301,6 +1390,7 @@ def main() -> int:
         seg_cfg = mvm_config(cfg, mcfg.train.checkpoint_dir, **{"model.mvm_exclusive": "off"})
         kern += check_multi_kernels(seg_cfg, mvm_batch)
         mvm_product = check_mvm_product_kernels(mcfg, mvm_batch)
+        hot = check_hot_scatters()
         mvm_steps_card_vs_cpu(mcfg, mvm_batch)
         eval_launches = run_slice(cfg, gen, path)
         train_launches, two_pass = run_training(cfg, work, path)
@@ -1317,7 +1407,10 @@ def main() -> int:
             k["mvm_product"] = mvm_product[k["name"]]
         if k["name"] == "row_sums":
             k["wide_channels"] = wide
+        k.update(hot.get(k["name"], {}))
     kern += lab_kern
+    for k in kern:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,15 @@ the CPU. Every test needs a CUDA card and skips without one; on the card:
 (`--noconftest`: the root conftest pins JAX, which the card's machine
 does not have; nothing here imports JAX.)
 
-The multi-buffer kernels (#5 gather, #6 scatter) run on stacked plans
-of 4 sub-batches: a slot every buffer shares, windows empty in some
-buffers, an all-pad buffer, a hot slot of 2,048 occurrences across the
-buffers, both table ends. The row sum (#2) runs at ch = 104, 128 and 136
+The scatters (#4, and #6 at 1, 4 and the most stacked buffers) also run
+on the edges of their staged design: runs across 160-position staging
+chunks, spans longer than a chunk (in one buffer and split over all of
+them), spans that start at odd positions (not 16 B aligned), a buffer
+empty in a window next to one with a long span there, at K = 5, 10 and
+11 (the MVM and FM widths). The multi-buffer kernels (#5 gather, #6
+scatter) run on stacked plans: a slot every buffer shares, windows empty
+in some buffers, an all-pad buffer, a hot slot of 2,048 occurrences
+across the buffers, both table ends. The row sum (#2) runs at ch = 104, 128 and 136
 (over the 48 KB of shared memory a block gets by default), and FM's
 forward at v_dim = 64 against the CPU. The lab's kernels (#7-#11,
 `ops/lab.py`) run at the mosaic probe's shapes with one slice out of
@@ -68,7 +73,14 @@ def _rel(got, want, floor):
             / (want.double().cpu().abs() + floor)).max().item()
 
 
-def _slots(case, rng):
+def _odd_starts():
+    """Tile t (of 256 slots) holds 2t + 1 occurrences, so the tiles'
+    spans start at odd plan positions, none 16 B aligned after the first."""
+    flat = np.concatenate([t * 256 + np.arange(2 * t + 1) % 3 for t in range(48)])
+    return flat.astype(np.int32).reshape(-1, 8)  # 48^2 = 2,304 occurrences
+
+
+def _slots(case, rng, rows=64):
     """[B, F] slots of a crafted plan."""
     if case == "hot":  # one slot in every occurrence: a run of B * F
         return np.full((512, 4), 12345, np.int32)
@@ -76,7 +88,12 @@ def _slots(case, rng):
         edge = np.array([0, 1, 255, 256, 257, 2047, 2048, 2049, S - 2049, S - 2048,
                          S - 257, S - 256, S - 2, S - 1], np.int32)
         return np.tile(edge, (16, 1))
-    return rng.integers(0, S, (64, 8)).astype(np.int32)
+    if case == "chunk_cross":  # 40 slots of one tile: a 2,048-position span
+        # whose runs of about 51 cross the staging chunks' boundaries
+        return rng.integers(4096, 4136, (rows * 4, 8)).astype(np.int32)
+    if case == "odd_starts":
+        return _odd_starts()
+    return rng.integers(0, S, (rows, 8)).astype(np.int32)
 
 
 def _inputs(case, k, seed=0):
@@ -90,7 +107,9 @@ def _inputs(case, k, seed=0):
     return plan, torch.from_numpy(d)
 
 
-CASES = [(c, k) for c in ("random", "hot", "edges") for k in (5, 11)]
+# k = 10 and 11: the MVM and FM main paths' widths
+CASES = [(c, k) for c in ("random", "hot", "edges", "chunk_cross", "odd_starts")
+         for k in (5, 10, 11)]
 
 
 @pytest.mark.parametrize("case, k", CASES)
@@ -206,28 +225,37 @@ def test_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)
 
 
-MULTI_CASES = ("shared", "sparse_windows", "all_pad", "hot", "edges")
+MULTI_CASES = ("shared", "sparse_windows", "all_pad", "hot", "edges", "chunk_cross",
+               "odd_starts", "empty_full")
 
 
 def _multi_plan(case, seed=0, ns=4):
     """(sorted_slots [ns * cap], loc_off [ns, S/W + 1], sorted_mask) of a
-    crafted stacked plan."""
+    crafted stacked plan of `ns` buffers (rows repeated up to a multiple
+    of ns)."""
     rng = np.random.default_rng(seed)
-    if case == "hot":  # 2,048 occurrences of one slot, 512 in each buffer
+    if case == "hot":  # 2,048 occurrences of one slot, spread over the buffers
         slots = np.full((512, 4), 12345, np.int32)
-    elif case == "edges":
-        slots = _slots("edges", rng)
+    elif case in ("edges", "chunk_cross", "odd_starts"):
+        slots = _slots(case, rng)
+    elif case == "empty_full":  # buffer 0 has nothing in window 0, buffer 1 a
+        # 512-position span of 50 slots there (longer than a staging chunk)
+        slots = rng.integers(0, S, (256, 8)).astype(np.int32)
+        slots[:64] = rng.integers(st.WINDOW, 2 * st.WINDOW, (64, 8))
+        slots[64:128] = rng.integers(0, 50, (64, 8))
     else:
         slots = rng.integers(0, S, (64, 8)).astype(np.int32)
+    rows = -(-slots.shape[0] // ns) * ns
+    slots = np.resize(slots, (rows, slots.shape[1]))
     if case == "shared":  # one slot in every row of every buffer
         slots[:, 0] = 777
     if case == "sparse_windows":  # buffer i touches windows 2i and 2i+1 only
         bs = slots.shape[0] // ns
         for i in range(ns):
             slots[i * bs:(i + 1) * bs] = (slots[i * bs:(i + 1) * bs] % (2 * st.WINDOW)
-                                          + 2 * i * st.WINDOW)
+                                          + 2 * i * st.WINDOW) % S
     mask = (rng.random(slots.shape) < 0.8).astype(np.float32)
-    plan = st.plan_sorted_stacked(slots, mask, S, num_sub=ns)
+    plan = st.plan_sorted_stacked(slots, mask, S, num_sub=ns, always_stack=True)
     ss, loc, m = plan.sorted_slots.copy(), plan.win_off.copy(), plan.sorted_mask.copy()
     if case == "all_pad":  # the last buffer holds pads only
         ss[-1], m[-1] = S - 1, 0.0
@@ -251,10 +279,11 @@ def test_gather_multi_kernel_matches_plain(dev, case, k, bf16):
 
 
 @pytest.mark.parametrize("case", MULTI_CASES)
-@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("k", [5, 10, 11])
+@pytest.mark.parametrize("nbuf", [1, 4, st.MULTI_MAX_BUFFERS])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_scatter_multi_kernel_bitwise_equal_to_plain(dev, case, k, bf16):
-    ss, loc, m = _multi_plan(case, seed=1)
+def test_scatter_multi_kernel_bitwise_equal_to_plain(dev, case, k, nbuf, bf16):
+    ss, loc, m = _multi_plan(case, seed=1, ns=nbuf)
     rng = np.random.default_rng(6)
     d = rng.normal(size=(st._k8(k), ss.shape[0])).astype(np.float32)
     d[:k] *= m[None, :]  # rows k..k8 keep noise to be ignored

@@ -158,7 +158,7 @@ def test_gather_multi_plain_matches_pallas_interpret(bf16):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("k", [4, 10])
+@pytest.mark.parametrize("k", [4, 10, 11])
 def test_scatter_multi_plain_matches_scatter_xla(k):
     ss, loc, _, _, d = _stream(3, k=k)
     want = np.asarray(jst._scatter_xla(jnp.asarray(d), jnp.asarray(ss), None, S, k))

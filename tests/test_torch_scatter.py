@@ -120,6 +120,57 @@ def test_scatter_plain_matches_pallas_interpret(monkeypatch, bf16):
     assert _rel(got, want, FLOOR) <= (BF16_RTOL if bf16 else RTOL)
 
 
+def _edge_slots(case, rng):
+    """[B, F] slots of the plans that reach the staged CUDA design's edges
+    (its card tests run the same shapes): runs across its staging chunks,
+    tiles whose spans start at odd positions, one hot slot."""
+    if case == "chunk_cross":  # 40 slots of one tile: runs of about 13
+        return rng.integers(4096, 4136, (B, F)).astype(np.int32)
+    if case == "odd_starts":  # tile t (256 slots) holds 2t + 1 occurrences
+        flat = np.concatenate([t * 256 + np.arange(2 * t + 1) % 3 for t in range(48)])
+        return flat.astype(np.int32).reshape(-1, F)
+    return np.full((B, F), 12345, np.int32)  # hot: one run of B * F
+
+
+@pytest.mark.parametrize("case", ["chunk_cross", "odd_starts", "hot"])
+@pytest.mark.parametrize("k", [10, 11])
+def test_scatter_plain_matches_scatter_xla_at_staging_edges(monkeypatch, case, k):
+    """The plain version at the MVM and FM widths on the plans the card
+    tests use for the staged kernel's edges, against `_scatter_xla`."""
+    rng = np.random.default_rng(7)
+    slots = _edge_slots(case, rng)
+    mask = (rng.random(slots.shape) < 0.8).astype(np.float32)
+    plan = _plan(monkeypatch, slots, mask)
+    d = rng.normal(size=(tst._k8(k), plan.sorted_slots.shape[0])).astype(np.float32)
+    d[:k] *= plan.sorted_mask[None, :]
+    want = np.asarray(jst._scatter_xla(
+        jnp.asarray(d), jnp.asarray(plan.sorted_slots), jnp.asarray(plan.win_off), S, k
+    ))
+    got = tst.scatter_sorted(_t(d), _t(plan.sorted_slots), _t(plan.win_off), S, k).numpy()
+    assert got.shape == (S, k)
+    assert _rel(got, want, FLOOR) <= RTOL
+    assert np.count_nonzero(got) > 0
+
+
+def test_staged_scatter_checks_what_its_copies_need():
+    """The CUDA scatters copy 16 B aligned pieces and keep a tile's sums in
+    shared memory: the check before their launch refuses K out of range,
+    an Np that is not a multiple of 4 and a cotangent that does not start
+    16 B aligned, and passes a padded plan."""
+    ss = torch.zeros(tst.CHUNK, dtype=torch.int32)
+    d = torch.zeros((8, tst.CHUNK))
+    tst._check_staged(d, ss, K)
+    tst._check_staged(torch.zeros((tst.SCATTER_MAX_K, 4)), ss[:4], tst.SCATTER_MAX_K)
+    for bad_k in (0, tst.SCATTER_MAX_K + 1):
+        with pytest.raises(ValueError, match="staged scatter takes"):
+            tst._check_staged(d, ss, bad_k)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tst._check_staged(d[:, :-2].contiguous(), ss[:-2].contiguous(), K)
+    shifted = torch.zeros(8 * tst.CHUNK + 1)[1:].view(8, tst.CHUNK)  # 4 B past alignment
+    with pytest.raises(ValueError, match="16 B aligned"):
+        tst._check_staged(shifted, ss, K)
+
+
 def test_scatter_drops_out_of_range_slots_and_adds_zero_pads():
     d = np.arange(1, 1 + K8 * 6, dtype=np.float32).reshape(K8, 6)
     d[:, 4] = 0.0  # a pad at S-1, after the real occurrence of S-1

@@ -1,10 +1,8 @@
-// Shared pieces of the windowed scatter kernels for Hopper (sm_90a):
-// `scatter_sorted.cu` (the gather's VJP), `scatter_ftrl.cu` (the scatter
-// fused with the FTRL update) and `scatter_sorted_multi.cu` (the
-// multi-buffer gather's VJP, which finds its runs in every buffer's span
-// by marking boundaries and sums them with `run_add`).
+// The search-and-sum walk of the fused scatter + FTRL kernel for Hopper
+// (sm_90a), `scatter_ftrl.cu` (#3). (The plain scatters #4 and #6 take the
+// staged walk of `scatter_staged.cuh`.)
 //
-// All walk the dense [S, K] output in tiles of TILE consecutive slots,
+// #3 walks the dense [S, K] state in tiles of TILE consecutive slots,
 // one block per tile. The plan is slot-sorted, so each slot's
 // occurrences form one contiguous run of plan positions inside its
 // window's span win_off[w] .. win_off[w + 1] (w = slot / WINDOW). A block
@@ -15,10 +13,9 @@
 // are indexed slot-major with the channel fastest, so a warp's loads
 // and stores of the [S, K] state are contiguous.
 //
-// Known limit: a (slot, channel) thread sums its run serially, so a hot
-// slot shared by every row of a batch (a run of up to B occurrences, in
-// all buffers together for the multi-buffer scatter) serialises its
-// block. Synthetic near-uniform data never shows it.
+// Known limit: a (slot, channel) thread sums its run serially from
+// global memory, so a hot slot shared by every row of a batch (a run of
+// up to B occurrences) serialises its block.
 
 #pragma once
 

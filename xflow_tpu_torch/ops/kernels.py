@@ -39,6 +39,7 @@ SIGNATURES = {
     ],
     "scatter_sorted": [
         ("xf_scatter_sorted", [_P, _P, _P, _P, _L, _I, _L, _I, _P]),
+        ("xf_scatter_sorted_tile", [_I]),
     ],
     "scatter_ftrl": [
         ("xf_scatter_ftrl",
@@ -49,6 +50,7 @@ SIGNATURES = {
     ],
     "scatter_sorted_multi": [
         ("xf_scatter_sorted_multi", [_P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P]),
+        ("xf_scatter_sorted_multi_tile", [_I]),
     ],
     "lab_mosaic": [
         ("xf_lab_tma_encode", [_P, _I, _L, _L, _L, _I, _I]),
