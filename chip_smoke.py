@@ -15,8 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. inference kernels on the evaluate path's own inputs (the first
    batch's plan and gathered rows): the gather bit-exact with bf16 off
    and on, the row sum within 1e-4 relative over a 1e-2 floor
-   (|got - want| <= 1e-4 * (|want| + 1e-2): float atomics reorder the
-   sum);
+   (|got - want| <= 1e-4 * (|want| + 1e-2): float reductions reorder the
+   sum), with its time, its plain version's, `zeros` + `index_add_`'s and
+   its bound (`check_row_sums`, as at every width below);
 5. training kernels on the training path's own inputs (the first batch's
    plan and the occurrence cotangent the fused step's backward produces
    on the restored state), bf16 off and on: the scatter bitwise equal to
@@ -38,7 +39,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    process) on the card, 2 epochs over the shard (4 fused steps); then
    one epoch of the two-pass step (`optim.fused_scatter=off`). Each run
    has the launch counts set to 0 just before and read just after, and
-   each kernel of its path must have launched;
+   each kernel of its path must have launched. Then the default model:
+   `train` with no `--model` (LR, `w [2^22]`, row-major, FTRL), 2 epochs
+   (4 steps), every kernel's launch count 0 (LR runs none), and one step
+   from its checkpoint on the card against the CPU (`run_lr`);
 8. train -> serve: the trained checkpoint loads in `ServeRunner` at the
    trained step and evaluates to a finite AUC above 0.5 on its own
    training shard; one more fused step from that checkpoint on the card
@@ -60,8 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their times, and the single-stream gather's time on the same
    flattened stream. The single-stream kernels on the product row side's
    own inputs (its flat plan, the plus-one form's log-space channels at
-   ch = 32, and the fused step's occurrence cotangent), checked as in
-   phases 4 and 5, and the product step's time fused and two-pass. Then
+   ch = 32, and the fused step's occurrence cotangent), checked and timed
+   as in phases 4 and 5, and the product step's time fused and two-pass. Then
    the scatters on a skewed plan at the same S and Np (one slot in every
    row's first field: a run of 65,536, over the 4 stacked buffers for the
    multi-buffer one), bitwise against the CPU plain version and across two
@@ -78,11 +82,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    evaluate on the segment checkpoint (the multi-buffer gather forward),
    `predict_rows` (row-major) against it, and the segment step's stage
    breakdown;
-12. the Hopper lab and the row-sum repair: (a) the row sum at ch = 104,
-   128 and 136 (FM's row side at v_dim 50, 63 and 64: over the 48 KB of
-   shared memory a block gets by default) against its plain version on
-   the first batch's plan, with `zeros` + `index_add_` on the same inputs,
-   and one FM forward at v_dim = 64 on the card
+12. the Hopper lab and the wide row sums: (a) the row sum at ch = 104,
+   128 and 136 (FM's row side at v_dim 50, 63 and 64: four and five
+   channel groups) against its plain version on the first batch's plan,
+   timed as in phase 4, and one FM forward at v_dim = 64 on the card
    against the CPU, pCTRs within 1e-5; (b) `bench_lab --suite mosaic`
    (kernels #7-#10 at the probe's own shapes, `off` from the seed, each
    bitwise against its plain version and its numpy slice, and the TMA
@@ -99,7 +102,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes. Each suite's output is echoed as comments.
 
 The last three lines of standard output: the card line, the kernels
-JSON (each entry with `share_of_bound` = bound_ms / ms), and
+JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
+`widths` hold its entry at each of ch 24, 32, 104, 128 and 136), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -245,6 +249,40 @@ def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True) -> dict:
     return errs
 
 
+def check_row_sums(vals, rows, what: str) -> dict:
+    """#2 on one path's channels `vals [ch, Np]` and rows against its plain
+    version (within RTOL over FLOOR), with the times of the kernel, its
+    plain version and `zeros` + `index_add_` on the same inputs, and its
+    bound: vals and rows read once, the [B, ch] sums written once."""
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    ch = vals.shape[0]
+    got, want = st.row_sums_cuda(vals, rows, BATCH), st.row_sums_plain(vals, rows, BATCH)
+    torch.cuda.synchronize()
+    rel = rel_err(got, want, FLOOR)
+    if not rel <= RTOL:
+        fail(f"row_sums {what} at ch = {ch} differs from its plain version: {rel} > {RTOL} "
+             f"(over a {FLOOR} floor)")
+    rows_l = rows.long()
+    out = {
+        "ch": ch, "rel_err": rel, "max_abs_err": (got - want).abs().max().item(),
+        "ms": cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH)),
+        "plain_ms": cuda_ms(lambda: st.row_sums_plain(vals, rows, BATCH)),
+        "library_ms": cuda_ms(
+            lambda: torch.zeros((BATCH, ch), device=DEVICE).index_add_(0, rows_l, vals.T)),
+    }
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        vals.numel() * 4 + rows.numel() * rows.element_size() + BATCH * ch * 4, vals.numel())
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    print(f"# row_sums {what} at ch = {ch}: max err {rel:.3g} relative over a {FLOOR} floor "
+          f"(tolerance {RTOL}); {out['ms']:.4f} ms, plain {out['plain_ms']:.4f}, zeros + "
+          f"index_add_ {out['library_ms']:.4f}, bound {out['bound_ms']:.4f} "
+          f"({out['share_of_bound']:.0%})", flush=True)
+    return out
+
+
 def gather_bytes(sorted_slots, K: int, K8: int) -> float:
     """Bytes the gather must move for this plan: each slot read once, the
     32 B sectors that hold the distinct rows it touches, the output
@@ -352,26 +390,14 @@ def check_kernels(cfg, gen, path) -> list:
     rows = st.wire_rows(arrays["sorted_row"])
     mask = st.wire_mask(arrays["sorted_mask"])
     vals = stack_channels(occ_t[:K] * mask[None, :], K).contiguous()
-    ch = vals.shape[0]
-    got = st.row_sums_cuda(vals, rows, BATCH)
-    want = st.row_sums_plain(vals, rows, BATCH)
-    torch.cuda.synchronize()
-    rel = rel_err(got, want, FLOOR)
-    if not rel <= RTOL:
-        fail(f"row_sums differs from its plain version: {rel} > {RTOL} (over a {FLOOR} floor)")
-    print(f"# row_sums: max err {rel:.3g} relative over a {FLOOR} floor "
-          f"(tolerance {RTOL}) over {tuple(got.shape)}", flush=True)
-    r_ms = cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))
-    r_plain = cuda_ms(lambda: st.row_sums_plain(vals, rows, BATCH))
-    rows_l = rows.long()
-    r_lib = cuda_ms(lambda: torch.zeros((BATCH, ch), device=DEVICE).index_add_(0, rows_l, vals.T))
-    r_bound, r_by = bound_ms(ch * np_ * 4 + np_ * 4 + BATCH * ch * 4, ch * np_)
+    rs = check_row_sums(vals, rows, "on the FM evaluate path's channels")
     results.append({
         "name": "row_sums", "route": "cuda",
         "source": "xflow_tpu_torch/csrc/row_sums.cu",
         "replaces": "xflow_tpu/ops/sorted_table.py:1162",
-        "max_abs_err": (got - want).abs().max().item(), "ms": r_ms, "plain_ms": r_plain,
-        "bound_ms": r_bound, "bound_by": r_by, "library_ms": r_lib,
+        **{key: rs[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "widths": {rs["ch"]: rs},
     })
     return results
 
@@ -501,8 +527,9 @@ def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True)
     from xflow_tpu_torch.optim import get_optimizer
     from xflow_tpu_torch.train.step import make_train_step
 
-    tname = "v" if cfg.model.name == "mvm" else "wv"
-    step = make_train_step(get_model(cfg.model.name)(cfg), get_optimizer("ftrl"), cfg)
+    model = get_model(cfg.model.name)(cfg)
+    (tname,) = model.table_specs(cfg)  # "wv" (fused FM), "v" (MVM) or "w" (LR)
+    step = make_train_step(model, get_optimizer("ftrl"), cfg)
     s_gpu, m_gpu = step(restored_state(cfg, DEVICE), to_device(host, DEVICE))
     prev = restored_state(cfg, "cpu")
     s_cpu, m_cpu = step(prev, to_device(host, "cpu"))
@@ -633,17 +660,19 @@ def stage_breakdown(cfg, gen, path) -> None:
 
 
 def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str,
-              model: str = "fm") -> tuple[dict, dict]:
-    """`python -m xflow_tpu_torch train` in process on the card, with the
-    launch counts set to 0 just before and read just after. Returns
-    (summary, launches); the CLI's own stdout is echoed as comments."""
+              model: str | None = "fm") -> tuple[dict, dict]:
+    """`python -m xflow_tpu_torch train` in process on the card (`model`
+    None: no `--model`, the CLI's default), with the launch counts set to
+    0 just before and read just after. Returns (summary, launches); the
+    CLI's own stdout is echoed as comments."""
     import torch
 
     from xflow_tpu_torch.__main__ import main as cli
     from xflow_tpu_torch.ops import sorted_table as st
 
     argv = [
-        "train", "--train", prefix, "--model", model, "--epochs", str(epochs),
+        "train", "--train", prefix, *(("--model", model) if model else ()),
+        "--epochs", str(epochs),
         "--batch-size", str(BATCH), "--log2-slots", str(LOG2_SLOTS),
         "--checkpoint-dir", ckpt_dir, "--device", DEVICE,
         "--set", f"model.v_dim={V_DIM}", "--set", f"model.num_fields={NUM_FIELDS}",
@@ -662,7 +691,7 @@ def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str,
     if rc != 0:
         fail(f"train {' '.join(extra)} exited {rc}")
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
-    print(f"# train --model {model} {' '.join(extra)}: {wall:.1f} s wall, "
+    print(f"# train --model {model or '(the default)'} {' '.join(extra)}: {wall:.1f} s wall, "
           f"launches {launches}", flush=True)
     return summary, launches
 
@@ -714,6 +743,44 @@ def run_training(cfg, work: str, path: str) -> tuple[dict, dict]:
                      f"the main path's trained step-{want_steps} state")
     train_breakdown(tcfg, path, "fused")
     return launches, two_pass
+
+
+def run_lr(cfg, work: str, path: str, batch) -> dict:
+    """The default model's main path: `python -m xflow_tpu_torch train`
+    with no `--model` (LR: table `w [2^22]`, row-major batches, FTRL), 2
+    epochs = 4 steps, with the launch counts around it: every kernel's
+    count must stay 0 (LR's gather is torch indexing and its gradient
+    autograd's `index_add_`, as both are XLA ops in the JAX package). Then
+    one step from the trained checkpoint on the card and on the CPU on
+    `batch` (the shard's first batch, parsed once for the MVM phases):
+    the loss within LOSS_RTOL, w, n and z by `ftrl_errs`. Returns the
+    launch counts."""
+    import math
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import batch_arrays
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    ck = os.path.join(work, "ck_lr")
+    summary, launches = train_cli(path[: -len("-00000")], ck, 2, model=None)
+    want_steps = 2 * -(-SHARD_ROWS // BATCH)
+    if (summary["steps"], summary["bad_steps"], set(summary["occupancy"])) != (
+            want_steps, 0, {"w"}) or not math.isfinite(summary["last_loss"]):
+        fail(f"train with no --model: summary {summary}, expected LR's table w over "
+             f"{want_steps} steps")
+    if any(launches.values()):
+        fail(f"the LR main path launched a kernel ({launches})")
+    lcfg = override(cfg, **{"model.name": "lr", "train.checkpoint_dir": ck})
+    host = batch_arrays(batch, lcfg)
+    if "slots" not in host or "sorted_slots" in host:
+        fail(f"the LR batch is not row-major: {sorted(host)}")
+    st.reset_launches()
+    step_card_vs_cpu(lcfg, host, "lr", f"the LR main path's trained step-{want_steps} state")
+    if any(st.LAUNCHES.values()):
+        fail(f"the LR step launched a kernel ({st.LAUNCHES})")
+    print(f"# lr: every kernel's launch count 0 on the main path ({launches}) and the "
+          "card-vs-CPU step", flush=True)
+    return launches
 
 
 def train_breakdown(cfg, path, kind: str) -> None:
@@ -979,14 +1046,8 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
     # --- row sum (#2) on the product row side's log-space channels
     rows, mask = st.wire_rows(arrays["sorted_row"]), st.wire_mask(arrays["sorted_mask"])
     vals = mvm_product_channels(occ[:K] + 1.0, mask, K).contiguous()
-    got, want = st.row_sums_cuda(vals, rows, BATCH), st.row_sums_plain(vals, rows, BATCH)
-    torch.cuda.synchronize()
-    rel = rel_err(got, want, FLOOR)
-    if not rel <= RTOL:
-        fail(f"row_sums on the MVM product channels differs from its plain version: {rel} > "
-             f"{RTOL} (over a {FLOOR} floor)")
-    out["row_sums"] = {"max_abs_err": (got - want).abs().max().item(),
-                       "ms": cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))}
+    out["row_sums"] = check_row_sums(vals, rows, "on the MVM product's log-space channels")
+    rel = out["row_sums"]["rel_err"]
 
     # --- scatter (#4), bitwise against the CPU plain version and across
     # two launches; fused scatter + FTRL (#3) against its plain version on
@@ -1216,12 +1277,12 @@ WIDE_V_DIMS = (50, 63, 64)  # FM row sides at ch = 104, 128, 136
 
 
 def check_wide_row_sums(cfg, path) -> dict:
-    """The row sum (#2) at channel counts over 96 against its plain version
-    on the first batch's plan, each on FM's own channels at that width
-    (a random `wv [2^22, 1 + v_dim]` ~ N(0, 0.05²) gathered by #1), and
-    the FM forward at v_dim = 64 on the card against the CPU. Returns
-    {ch: {v_dim, rel_err, ms, bound_ms, library_ms}} (library: zeros +
-    index_add_)."""
+    """The row sum (#2) at the wide channel counts (four and five channel
+    groups) against its plain version on the first batch's plan, each on
+    FM's own channels at that width (a random `wv [2^22, 1 + v_dim]` ~
+    N(0, 0.05²) gathered by #1), by `check_row_sums`, and the FM forward
+    at v_dim = 64 on the card against the CPU. Returns {ch: that entry
+    and v_dim}."""
     import torch
 
     from xflow_tpu_torch.config import override
@@ -1240,22 +1301,8 @@ def check_wide_row_sums(cfg, path) -> dict:
         K = 1 + v_dim
         wv = torch.randn((1 << LOG2_SLOTS, K), generator=gen, device=DEVICE) * 0.05
         vals = stack_channels(st.gather_sorted_cuda(wv, ss)[:K] * mask[None, :], K).contiguous()
-        ch = vals.shape[0]
-        got, want = st.row_sums_cuda(vals, rows, BATCH), st.row_sums_plain(vals, rows, BATCH)
-        torch.cuda.synchronize()
-        rel = rel_err(got, want, FLOOR)
-        if not rel <= RTOL:
-            fail(f"row_sums at ch = {ch} differs from its plain version: {rel} > {RTOL}")
-        ms = cuda_ms(lambda: st.row_sums_cuda(vals, rows, BATCH))
-        rows_l = rows.long()
-        lib = cuda_ms(lambda: torch.zeros((BATCH, ch), device=DEVICE).index_add_(0, rows_l, vals.T))
-        # vals and rows read once, the [B, ch] sums written once
-        b_ms, _ = bound_ms(vals.numel() * 4 + rows.numel() * rows.element_size()
-                           + BATCH * ch * 4, vals.numel())
-        out[ch] = {"v_dim": v_dim, "rel_err": rel, "ms": ms, "bound_ms": b_ms, "library_ms": lib}
-        print(f"# row_sums at ch = {ch} (FM v_dim {v_dim}, {ch * 128 * 4} B of shared memory a "
-              f"block): max err {rel:.3g} relative over a {FLOOR} floor, {ms:.4f} ms, "
-              f"zeros + index_add_ {lib:.4f} ms, bound {b_ms:.4f} ms", flush=True)
+        rs = check_row_sums(vals, rows, f"on FM's channels at v_dim {v_dim}")
+        out[rs["ch"]] = {"v_dim": v_dim, **rs}
     predict = make_predict_fn(get_model("fm")(override(cfg, **{"model.v_dim": 64})))
     st.reset_launches()
     p_card = predict({"wv": wv}, arrays).cpu()
@@ -1394,11 +1441,13 @@ def main() -> int:
         mvm_steps_card_vs_cpu(mcfg, mvm_batch)
         eval_launches = run_slice(cfg, gen, path)
         train_launches, two_pass = run_training(cfg, work, path)
+        lr_launches = run_lr(cfg, work, path, mvm_batch)
         segment = run_mvm_training(mcfg, work, path)
         wide = check_wide_row_sums(cfg, path)
         lab_kern = run_lab(work)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
-          f"two-pass epoch {two_pass}, MVM segment path {segment}")
+          f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
+          f"MVM segment path {segment}")
     for k in kern:
         src = {"scatter_sorted": two_pass, "gather_sorted_multi": segment,
                "scatter_sorted_multi": segment}.get(k["name"], train_launches)
@@ -1406,7 +1455,7 @@ def main() -> int:
         if k["name"] in mvm_product:
             k["mvm_product"] = mvm_product[k["name"]]
         if k["name"] == "row_sums":
-            k["wide_channels"] = wide
+            k["widths"].update({32: mvm_product["row_sums"], **wide})
         k.update(hot.get(k["name"], {}))
     kern += lab_kern
     for k in kern:

@@ -16,11 +16,15 @@ empty in a window next to one with a long span there, at K = 5, 10 and
 11 (the MVM and FM widths). The multi-buffer kernels (#5 gather, #6
 scatter) run on stacked plans: a slot every buffer shares, windows empty
 in some buffers, an all-pad buffer, a hot slot of 2,048 occurrences
-across the buffers, both table ends. The row sum (#2) runs at ch = 104, 128 and 136
-(over the 48 KB of shared memory a block gets by default), and FM's
-forward at v_dim = 64 against the CPU. The lab's kernels (#7-#11,
-`ops/lab.py`) run at the mosaic probe's shapes with one slice out of
-range, and `kernel_parity` runs whole.
+across the buffers, both table ends. The row sum (#2) runs at ch = 24,
+32, 104, 128 and 136 (one to five channel groups) and at ch 464 (over
+the old shared-memory limit), with rows out of range and whole zero
+quads, refuses a ch that is not a multiple of 4, and FM's forward runs at
+v_dim = 64 against the CPU. LR's steps (no hand-written kernel) run on
+the card against the CPU. The lab's kernels (#7-#11, `ops/lab.py`) run
+at the mosaic probe's shapes with one slice out of range (#7 also at the
+grids that split a window into 64 pieces and into none), and
+`kernel_parity` runs whole.
 
 Tolerances:
 - gathers: bitwise (a copy);
@@ -29,10 +33,11 @@ Tolerances:
   across two launches;
 - scatter + FTRL: 1e-3 relative over a 1e-4 floor (kernel_parity's
   scatter_ftrl_*), w of never-touched entries bitwise;
-- row sum: 1e-4 relative over a 1e-2 floor (float atomics reorder it);
-  at wide channels, and the lab's row sum, the float32 reorder bound
-  (`bench_lab.reorder_err` < 1: a row of many unit-scale terms reorders
-  past 1e-4 over that floor), the relative error printed beside it;
+- row sum: 1e-4 relative over a 1e-2 floor (float reductions reorder it)
+  and, at the widths' test, the float32 reorder bound too; the lab's row
+  sum within that bound alone (`bench_lab.reorder_err` < 1: a row of many
+  unit-scale terms reorders past 1e-4 over that floor), the relative
+  error printed beside it;
 - the lab's slice probes: bitwise (copies);
 - steps and fits: loss within 1e-5 relative, state within the FTRL
   tolerance.
@@ -211,6 +216,43 @@ def test_train_steps_on_the_card_match_the_cpu(dev, extra):
         assert _rel(t, cpu.opt_state["wv"][leaf], FTRL_FLOOR) <= FTRL_RTOL, leaf
 
 
+def _lr_batch(seed, B=64, F=8, pool=100):
+    rng = np.random.default_rng(seed)
+    hot = rng.choice(S, pool, replace=False).astype(np.int32)
+    mask = (rng.random((B, F)) < 0.8).astype(np.float32)
+    return {"slots": hot[rng.integers(0, pool, (B, F))], "mask": mask,
+            "fields": np.tile(np.arange(F, dtype=np.int32), (B, 1)),
+            "labels": (rng.random(B) < 0.4).astype(np.float32),
+            "row_mask": np.ones(B, np.float32)}
+
+
+@pytest.mark.parametrize("extra", [{}, {"optim.name": "sgd"}, {"data.dedup": "auto"}])
+def test_lr_train_steps_on_the_card_match_the_cpu(dev, extra):
+    """LR (the default model) takes the row-major step: torch indexing
+    and autograd's `index_add_`, no hand-written kernel."""
+    from xflow_tpu_torch.evaluate import HostDedup
+    from xflow_tpu_torch.train.state import init_state
+
+    cfg = override(Config(), **{"data.log2_slots": 14, "data.batch_size": 64,
+                                "data.max_nnz": 8, **extra})
+    model, opt = get_model("lr")(cfg), get_optimizer(cfg.optim.name)
+    step = make_train_step(model, opt, cfg)
+    dedup = HostDedup(cfg)
+    batches = [dedup(_lr_batch(i)) for i in range(2)]
+    assert ("unique_slots" in batches[0]) == (cfg.data.dedup == "auto")
+    cpu, card = init_state(model, opt, cfg, "cpu"), init_state(model, opt, cfg, dev)
+    st.reset_launches()
+    for b in batches:
+        cpu, mc = step(cpu, to_device(b, "cpu"))
+        card, mg = step(card, to_device(b, dev))
+        assert abs(mg["loss"].item() - mc["loss"].item()) <= LOSS_RTOL * abs(mc["loss"].item())
+    torch.cuda.synchronize()
+    assert not any(st.LAUNCHES.values()), st.LAUNCHES
+    assert _rel(card.tables["w"], cpu.tables["w"], FTRL_FLOOR) <= FTRL_RTOL
+    for leaf, t in card.opt_state["w"].items():
+        assert _rel(t, cpu.opt_state["w"][leaf], FTRL_FLOOR) <= FTRL_RTOL, leaf
+
+
 def test_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     (path,) = generate_shards(str(tmp_path / "train"), 1, 200, num_fields=8,
                               ids_per_field=40, seed=5)
@@ -380,29 +422,62 @@ def test_mvm_fit_on_the_card_matches_the_cpu(dev, tmp_path):
 
 # ------------------------------------------------- row sums at wide channels
 
-@pytest.mark.parametrize("ch", [104, 128, 136])
+def _row_sums_case(dev, ch, seed=7):
+    """A small plan's rows (a few out of range, the pads at row 0 with
+    value 0) and [ch, Np] values with whole zero quads (a masked channel
+    group, as MVM's zero counts and FM's padding channels give)."""
+    plan, _ = _inputs("random", 5, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    vals = (rng.normal(size=(ch, plan.sorted_slots.shape[0])).astype(np.float32)
+            * plan.sorted_mask[None, :])
+    vals[ch // 2: ch // 2 + 4] = 0.0
+    rows = plan.sorted_row.copy()
+    n_rows = int(rows.max()) + 1
+    rows[:5] = [-1, n_rows, n_rows + 7, -(2**31), 2**31 - 1]
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(rows).to(dev), n_rows
+
+
+@pytest.mark.parametrize("ch", [24, 32, 104, 128, 136])
 def test_row_sums_kernel_at_wide_channels(dev, ch):
-    """ch over 96 needs more than 48 KB of shared memory a block: FM's
-    row side at v_dim 50 (ch 104) and v_dim 64 (ch 136), and ch 128."""
-    plan, _ = _inputs("random", 5, seed=7)
-    rng = np.random.default_rng(8)
-    vals = torch.from_numpy(rng.normal(size=(ch, plan.sorted_slots.shape[0])).astype(np.float32)
-                            * plan.sorted_mask[None, :]).to(dev)
-    rows = torch.from_numpy(plan.sorted_row).to(dev)
-    n_rows = int(plan.sorted_row.max()) + 1
+    """The main paths' widths, FM's ch 24 and MVM's product ch 32, and the
+    wide ones: FM's row side at v_dim 50 (ch 104) and v_dim 64 (ch 136),
+    and ch 128 (five channel groups at ch 136). Each launches once."""
+    vals, rows, n_rows = _row_sums_case(dev, ch)
     st.reset_launches()
     got = st.row_sums_cuda(vals, rows, n_rows)
     torch.cuda.synchronize()
     assert st.LAUNCHES["row_sums"] == 1
     want = st.row_sums_plain(vals, rows, n_rows)
     print(f"ch {ch}: {_rel(got, want, FLOOR):.3g} relative over a {FLOOR} floor")
-    assert reorder_err(got, want, vals, rows, n_rows) < 1.0
+    keep = (rows >= 0) & (rows < n_rows)
+    assert reorder_err(got, want, vals[:, keep], rows[keep], n_rows) < 1.0
+    assert _rel(got, want, FLOOR) <= RTOL
 
 
-def test_row_sums_kernel_refuses_a_channel_count_over_the_card(dev):
-    vals = torch.zeros((4096, 128), device=dev)
-    with pytest.raises(ValueError, match="this card allows ch <="):
-        st.row_sums_cuda(vals, torch.zeros(128, dtype=torch.int32, device=dev), 4)
+def test_row_sums_kernel_launches_over_the_old_channel_limit(dev):
+    """ch 464: over the 454 channels whose [ch, 128] slab fitted a block's
+    shared memory before the channel-group design (which needs two
+    [256][32] slabs at any ch)."""
+    vals, rows, n_rows = _row_sums_case(dev, 464, seed=11)
+    st.reset_launches()
+    got = st.row_sums_cuda(vals, rows, n_rows)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["row_sums"] == 1
+    assert _rel(got, st.row_sums_plain(vals, rows, n_rows), FLOOR) <= RTOL
+
+
+@pytest.mark.parametrize("ch", [1, 6, 10, 22, 26])
+def test_row_sums_kernel_refuses_a_channel_count_not_a_multiple_of_4(dev, ch):
+    vals = torch.zeros((ch, 128), device=dev)
+    rows = torch.zeros(128, dtype=torch.int32, device=dev)
+    st.reset_launches()
+    with pytest.raises(ValueError, match="must be a multiple of 4"):
+        st.row_sums_cuda(vals, rows, 4)
+    with pytest.raises(ValueError, match="must be a multiple of 4"):
+        st.row_sums_sorted(vals, rows, 4)  # no fallback to the plain version
+    with pytest.raises(ValueError, match="Np=126 must be a multiple of 4"):
+        st.row_sums_cuda(torch.zeros((8, 126), device=dev), rows[:126], 4)
+    assert st.LAUNCHES["row_sums"] == 0
 
 
 def test_fm_forward_at_v_dim_64_on_the_card_matches_the_cpu(dev):
@@ -461,6 +536,22 @@ def test_lab_slice_probes_bitwise_equal_to_plain(dev, probe):
         assert torch.equal(g.cpu(), w)
     if probe != "a":
         assert (want[1][:3] != 0).all() and (want[0][3] == 0).all()
+
+
+@pytest.mark.parametrize("log2_rows", [10, 14, 20])
+def test_lab_block_scale_bitwise_at_every_split(dev, log2_rows):
+    """#7 cuts each [512, 11] window into pieces by the grid it fills: 64
+    pieces of 352 B for 2 windows, 8 of 2,816 B for the probe's 32, one
+    whole window a CTA for 2,048."""
+    from xflow_tpu_torch.ops import lab
+
+    table = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1 << log2_rows, 11), dtype=np.float32))
+    lab.reset_launches()
+    got = lab.block_scale_cuda(table.to(dev))
+    torch.cuda.synchronize()
+    assert lab.LAUNCHES["mosaic_a"] == 1
+    assert torch.equal(got.cpu(), table * 2)
 
 
 def test_lab_tensor_maps_encode_where_the_strides_allow(dev):

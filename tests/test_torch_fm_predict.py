@@ -175,4 +175,4 @@ def test_init_tables_from_generator():
     assert tuple(t["w"].shape) == (S,) and torch.all(t["w"] == 0)
     assert tuple(t["v"].shape) == (S, V)
     with pytest.raises(KeyError, match="unknown model"):
-        get_model("lr")
+        get_model("ffm")  # not ported yet (LR is, since it became the default)

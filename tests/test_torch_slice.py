@@ -198,7 +198,7 @@ def test_cli_evaluate_without_jax(slice_case):
         "from xflow_tpu_torch.__main__ import main\n"
         "sys.exit(main(sys.argv[1:]))\n",
         "evaluate", "--checkpoint-dir", str(slice_case["ck"]),
-        "--test", slice_case["path"], "--device", "cpu",
+        "--test", slice_case["path"], "--device", "cpu", "--model", "fm",
         "--batch-size", str(B), "--log2-slots", str(LOG2_S),
         "--set", f"model.v_dim={V}", "--set", f"data.max_nnz={NNZ}",
     )
@@ -214,7 +214,7 @@ def test_cli_train_without_jax(slice_case, tmp_path):
     r = _run_without_jax(
         "from xflow_tpu_torch.__main__ import main\n"
         "sys.exit(main(sys.argv[1:]))\n",
-        "train", "--train", prefix, "--test", prefix, "--epochs", "2",
+        "train", "--train", prefix, "--test", prefix, "--model", "fm", "--epochs", "2",
         "--batch-size", str(B), "--log2-slots", str(LOG2_S),
         "--checkpoint-dir", str(tmp_path / "ck"), "--device", "cpu",
         "--set", f"model.v_dim={V}", "--set", f"model.num_fields={NF}",

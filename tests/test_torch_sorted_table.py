@@ -163,6 +163,41 @@ def test_row_sums_plain_matches_jax(monkeypatch, wire):
     _close(got, want)
 
 
+@pytest.mark.parametrize("ch", [8, 24, 136])
+def test_row_sums_plain_contract_matches_jax(monkeypatch, ch):
+    """The row-sum contract at the JAX kernel's widths (ch % 8 == 0, Np a
+    multiple of CHUNK): masked occurrences and pads (row 0, value 0) add
+    nothing, rows outside [0, B) are skipped, against `row_sums_sorted`
+    on the CPU (JAX's segment sum drops them)."""
+    slots, mask, _ = _case(ch)
+    plan = _jax_plan(monkeypatch, slots, mask)
+    np_ = plan.sorted_slots.shape[0]
+    assert np_ % CHUNK_N == 0 and (plan.sorted_row[-CHUNK_N:] == 0).all()
+    rng = np.random.default_rng(ch)
+    vals = rng.normal(size=(ch, np_)).astype(np.float32) * plan.sorted_mask[None, :]
+    rows = plan.sorted_row.copy()
+    rows[[3, 11, 40]] = [-1, B, B + 1000]  # out of range: skipped
+    want = np.asarray(jst.row_sums_sorted(jnp.asarray(vals), jnp.asarray(rows), B))
+    got = tst.row_sums_sorted(torch.from_numpy(vals), torch.from_numpy(rows), B).numpy()
+    assert got.shape == (B, ch)
+    _close(got, want)
+    keep = (rows >= 0) & (rows < B) & (plan.sorted_mask > 0)
+    ref = np.zeros((B, ch), np.float64)
+    np.add.at(ref, rows[keep], vals[:, keep].T.astype(np.float64))
+    _close(got, ref)
+    assert not got[np.bincount(rows[keep], minlength=B) == 0].any()
+
+
+def test_row_sums_plain_takes_any_channel_count():
+    rng = np.random.default_rng(1)
+    vals = rng.normal(size=(6, 64)).astype(np.float32)
+    rows = rng.integers(0, 5, 64).astype(np.int32)
+    got = tst.row_sums_sorted(torch.from_numpy(vals), torch.from_numpy(rows), 5).numpy()
+    ref = np.zeros((5, 6), np.float64)
+    np.add.at(ref, rows, vals.T.astype(np.float64))
+    _close(got, ref)
+
+
 def test_row_sums_plain_matches_pallas_interpret(monkeypatch):
     pltpu = pytest.importorskip("jax.experimental.pallas.tpu")
     if not hasattr(pltpu, "force_tpu_interpret_mode"):

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port. Flag names follow `python -m xflow_tpu`.
 
-    python -m xflow_tpu_torch train --train PREFIX [--test PREFIX] [--model fm|mvm] \
+    python -m xflow_tpu_torch train --train PREFIX [--test PREFIX] [--model lr|fm|mvm] \
         [--epochs N] [--batch-size N] [--optimizer ftrl|sgd] [--log2-slots N] \
         [--checkpoint-dir D] [--device cuda] [--set k=v ...]
 
@@ -11,7 +11,7 @@ when given, and prints one JSON summary line {"rank", "steps", "epochs",
 "bad_steps", ["auc", "logloss"], "device"}.
 
     python -m xflow_tpu_torch evaluate --checkpoint-dir D --test F \
-        [--model fm|mvm] [--batch-size N] [--log2-slots N] [--device cuda] [--set k=v ...]
+        [--model lr|fm|mvm] [--batch-size N] [--log2-slots N] [--device cuda] [--set k=v ...]
 
 Loads the newest loadable committed checkpoint under D, evaluates libffm
 file F and prints one JSON line {"auc", "logloss", "step", "device"}.
@@ -102,7 +102,7 @@ def main(argv=None) -> int:
     tr = sub.add_parser("train", help="train a model on one device")
     tr.add_argument("--train", required=True, help="train shard prefix (reads <prefix>-00000)")
     tr.add_argument("--test", default="", help="test shard prefix (evaluates <prefix>-00000)")
-    tr.add_argument("--model", default="fm", help="fm or mvm, or reference index 1 or 2")
+    tr.add_argument("--model", default="lr", help="lr|fm|mvm or reference index 0|1|2")
     tr.add_argument("--epochs", type=int, default=None)
     tr.add_argument("--batch-size", type=int, default=None)
     tr.add_argument("--optimizer", default=None, help="ftrl|sgd")
@@ -121,7 +121,7 @@ def main(argv=None) -> int:
     ev = sub.add_parser("evaluate", help="evaluate a checkpoint on a libffm file")
     ev.add_argument("--checkpoint-dir", required=True)
     ev.add_argument("--test", required=True, help="libffm file to evaluate")
-    ev.add_argument("--model", default="fm", help="fm or mvm, or reference index 1 or 2")
+    ev.add_argument("--model", default="lr", help="lr|fm|mvm or reference index 0|1|2")
     ev.add_argument("--batch-size", type=int, default=None)
     ev.add_argument("--log2-slots", type=int, default=None)
     ev.add_argument("--device", default="cuda")

@@ -80,7 +80,12 @@ class DataConfig:
     for fused FM and MVM; `sorted_bf16` rounds gathered table values
     to bf16; `sorted_sub_batches` is the number NS of row-contiguous
     sub-batches a batch's plan is stacked into (0 = auto:
-    `ops/sorted_table.resolve_sub_batches`)."""
+    `ops/sorted_table.resolve_sub_batches`).
+
+    `dedup` ("auto"|"off") ships a row-major batch as (unique_slots,
+    inverse) when its unique slots fit `dedup_cap_frac * batch_size *
+    max_nnz` (`ops/sorted_table.dedup_slots`): the table gather then
+    moves U rows instead of B*F. Off by default, as in the JAX package."""
 
     train_path: str = ""
     test_path: str = ""
@@ -91,6 +96,8 @@ class DataConfig:
     sorted_layout: str = "auto"
     sorted_bf16: bool = False
     sorted_sub_batches: int = 0
+    dedup: str = "off"
+    dedup_cap_frac: float = 0.5
 
 
 @dataclass(frozen=True)

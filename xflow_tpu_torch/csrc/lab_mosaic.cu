@@ -7,17 +7,23 @@
 // (TMA) can copy into shared memory, and each kernel runs and is checked.
 //
 // Bound on the H100: not by bytes. Each probe moves at most 1.44 MB (the
-// bytes bound is under 1 us) over 4 to 32 blocks; a block's barrier
+// bytes bound is under 1 us) over 4 to 256 blocks; a block's barrier
 // set-up, one copy's round trip to device memory and the store run one
 // after another. `tools/bench_lab.py` reads each probe's device time with
 // torch.profiler: CUDA events around back-to-back calls read the host's
 // dispatch of the launch instead.
 //
-//   #7 (A) out = scale * table, one block per [W, K] row block: a 1-D
-//      bulk copy (`cp.async.bulk`) of the block's W*K*4 B window (22,528 B
-//      at W 512, K 11: 16 B aligned) into shared memory, scaled, stored
-//      back with 16 B stores. A 2-D tensor map cannot describe the table:
-//      its row stride, 44 B, is not a multiple of 16.
+//   #7 (A) out = scale * table over [W, K] row blocks: a 1-D bulk copy
+//      (`cp.async.bulk`) of a 16 B aligned piece of a block's W*K*4 B
+//      window into shared memory, scaled, stored back with 16 B stores.
+//      One CTA a window would leave 32 CTAs on 132 SMs at the probe's
+//      shapes (S 2^14, W 512, K 11: 22,528 B windows), each running its
+//      chain alone; the launch splits every window into the most pieces
+//      (a power of two) that keep the grid within two CTAs a SM, 8
+//      pieces of 2,816 B and 256 CTAs there, and thread 0 issues its
+//      copy before the barrier that publishes the mbarrier to the other
+//      threads. A 2-D tensor map cannot describe the table: its row
+//      stride, 44 B, is not a multiple of 16.
 //   #8 (B), #9 (C) a [R, C] column slice of a [R, N] array at the column
 //      (off[t] / C) * C: a 2-D tensor map over [R, N] (row stride N*4 B),
 //      loaded as C/256 boxes of [R, 256] (a box dimension holds at most
@@ -115,25 +121,25 @@ __device__ __forceinline__ void zero_block(T* out, long long n, T* scalar) {
   if (threadIdx.x == 0) *scalar = T(0);
 }
 
-// #7: dst[block] = scale * src[block], one block of `block_floats` floats
+// #7: dst[piece] = scale * src[piece], one piece of `piece_floats` floats
 // per CUDA block.
 __global__ void scale_blocks_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                                    int block_floats, float scale) {
+                                    int piece_floats, float scale) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   float* tile = reinterpret_cast<float*>(aligned_tile(smem_raw));
-  const long long base = (long long)blockIdx.x * block_floats;
-  const uint32_t bytes = (uint32_t)block_floats * 4u;
-  if (threadIdx.x == 0) bar_init(&bar);
-  __syncthreads();
+  const long long base = (long long)blockIdx.x * piece_floats;
+  const uint32_t bytes = (uint32_t)piece_floats * 4u;
   if (threadIdx.x == 0) {
+    bar_init(&bar);
     bar_expect_tx(&bar, bytes);
     bulk_load(tile, src + base, bytes, &bar);
   }
+  __syncthreads();
   bar_wait(&bar, 0);
   const float4* t4 = reinterpret_cast<const float4*>(tile);
   float4* d4 = reinterpret_cast<float4*>(dst + base);
-  for (int i = threadIdx.x; i < block_floats / 4; i += blockDim.x) {
+  for (int i = threadIdx.x; i < piece_floats / 4; i += blockDim.x) {
     float4 v = t4[i];
     v.x *= scale;
     v.y *= scale;
@@ -266,14 +272,24 @@ extern "C" int xf_lab_tma_encode(const void* ptr, int is_int, long long dim0, lo
 }
 
 // #7. `block_floats` * 4 must be a multiple of 16 and src, dst 16 B aligned.
+// Each block is cut into `pieces` contiguous pieces, a power of two, the
+// most that keep n_blocks * pieces within two CTAs a SM with every piece a
+// multiple of 16 B.
 extern "C" int xf_lab_scale_blocks(const void* src, void* dst, long long n_blocks,
                                    int block_floats, float scale, void* stream) {
   if (n_blocks > 0) {
-    size_t smem = (size_t)block_floats * 4 + SMEM_SLACK;
-    cudaError_t err = allow_smem(scale_blocks_kernel, smem);
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    scale_blocks_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)src, (float*)dst, block_floats, scale);
+    int pieces = 1;
+    while (n_blocks * pieces * 2 <= 2LL * sms && block_floats % (pieces * 8) == 0) pieces *= 2;
+    const int piece_floats = block_floats / pieces;
+    size_t smem = (size_t)piece_floats * 4 + SMEM_SLACK;
+    err = allow_smem(scale_blocks_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    scale_blocks_kernel<<<(unsigned)(n_blocks * pieces), THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)src, (float*)dst, piece_floats, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,7 @@ feed the rank-sum AUC and the mean log-likelihood.
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from xflow_tpu_torch.models.mvm import has_field_duplicates, resolve_mvm_product
 from xflow_tpu_torch.ops.sorted_table import (
     WINDOW,
     compact_plan_wire,
+    dedup_slots,
     plan_sorted_stacked,
     resolve_sub_batches,
 )
@@ -57,12 +58,40 @@ def mvm_wants_fields(batch: SparseBatch, cfg: Config) -> bool:
     return not resolve_mvm_product(excl, dup, 1)
 
 
-def batch_arrays(batch: SparseBatch, cfg: Config) -> dict:
+class HostDedup:
+    """`data.dedup` for the row-major batches of one process (the JAX
+    trainer's `_maybe_dedup`): attach (unique_slots, inverse) in place of
+    `slots` when the batch's unique slots fit the capacity. The first
+    batch decides for the run: if it overflows, later batches skip the
+    host sort. Raises on a mode other than auto|off."""
+
+    def __init__(self, cfg: Config):
+        d = cfg.data
+        if d.dedup not in ("auto", "off"):
+            raise ValueError(f"data.dedup={d.dedup!r}: expected auto|off")
+        self.cap = int(d.batch_size * d.max_nnz * d.dedup_cap_frac) if d.dedup == "auto" else 0
+        self.on: Optional[bool] = None
+
+    def __call__(self, arrays: dict) -> dict:
+        if not self.cap or self.on is False:
+            return arrays
+        got = dedup_slots(arrays["slots"], self.cap)
+        if got is None:
+            if self.on is None:
+                self.on = False
+            return arrays
+        self.on = True
+        arrays = {k: v for k, v in arrays.items() if k != "slots"}
+        arrays["unique_slots"], arrays["inverse"] = got
+        return arrays
+
+
+def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = None) -> dict:
     """Host arrays the step or the forward consumes: the sorted plan
     (stacked into `resolve_sub_batches` sub-batches, with fields when an
     MVM batch takes the segment row side, compacted wire dtypes) plus
-    labels/row_mask, or the row-major arrays. MVM field ids must lie
-    below model.num_fields."""
+    labels/row_mask, or the row-major arrays (through `dedup` when
+    given). MVM field ids must lie below model.num_fields."""
     mvm = cfg.model.name == "mvm"
     if mvm and batch.fields.size and int(batch.fields.max()) >= cfg.model.num_fields:
         raise ValueError(
@@ -72,7 +101,7 @@ def batch_arrays(batch: SparseBatch, cfg: Config) -> dict:
     arrays = {"labels": batch.labels, "row_mask": batch.row_mask}
     if not sorted_layout_on(cfg):
         arrays.update(slots=batch.slots, fields=batch.fields, mask=batch.mask)
-        return arrays
+        return arrays if dedup is None else dedup(arrays)
     want_fields = mvm and mvm_wants_fields(batch, cfg)
     ns = resolve_sub_batches(cfg)
     plan = plan_sorted_stacked(
@@ -102,8 +131,9 @@ def predict_batches(cfg: Config, tables: dict, path: str,
     """(batch, pctr [B] on the host) for every batch of libffm file `path`,
     predicted on `device` with `tables` (already on that device)."""
     step = make_predict_fn(get_model(cfg.model.name)(cfg))
+    dedup = HostDedup(cfg)
     for batch in iter_batches(path, cfg.data):
-        p = step(tables, to_device(batch_arrays(batch, cfg), device))
+        p = step(tables, to_device(batch_arrays(batch, cfg, dedup), device))
         yield batch, p.cpu().numpy()
 
 

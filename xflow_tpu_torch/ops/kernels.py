@@ -34,8 +34,6 @@ SIGNATURES = {
     ],
     "row_sums": [
         ("xf_row_sums", [_P, _P, _P, _I, _L, _L, _P]),
-        ("xf_row_sums_smem_bytes", [_I]),
-        ("xf_row_sums_max_ch", []),
     ],
     "scatter_sorted": [
         ("xf_scatter_sorted", [_P, _P, _P, _P, _L, _I, _L, _I, _P]),

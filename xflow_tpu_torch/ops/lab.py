@@ -71,14 +71,15 @@ def block_scale_plain(table: torch.Tensor, block_rows: int = 512, scale: float =
 
 
 def block_scale_cuda(table: torch.Tensor, block_rows: int = 512, scale: float = 2.0) -> torch.Tensor:
-    """Launch #7 (`csrc/lab_mosaic.cu`) on a CUDA table: one block per
-    [block_rows, K] row block, copied into shared memory by one 1-D bulk
-    copy, scaled, stored with 16 B stores.
+    """Launch #7 (`csrc/lab_mosaic.cu`) on a CUDA table: each [block_rows,
+    K] row block cut into 16 B aligned pieces (8 of 2,816 B at the probe's
+    shapes on an H100: 256 CTAs on 132 SMs), a CTA a piece, copied into
+    shared memory by one 1-D bulk copy, scaled, stored with 16 B stores.
 
     Replaces `suite_mosaic.fa` (xflow_tpu/tools/bench_lab.py:441). At the
-    probe's 720 KB (32 blocks) each block's copy-in, wait and store run one
-    after another, far over the bytes bound (the table read and written
-    once), which holds only where many more blocks overlap their copies."""
+    probe's 720 KB each CTA's copy-in, wait and store run one after
+    another, far over the bytes bound (the table read and written once);
+    the pieces spread those chains over the card's SMs."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(table)

@@ -36,7 +36,6 @@ recognises the JAX package's packed `[S/8, 8K]` layout so
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -236,6 +235,23 @@ def pack_of(table, K: int) -> int:
     )
 
 
+def dedup_slots(slots: np.ndarray, cap: int):
+    """Host-side batch dedup for the row-major paths (`data.dedup`; the
+    reference's per-minibatch unique-key Pull): (unique_slots [cap]
+    padded with the last unique, inverse [B, F] int32), or None when the
+    batch has more than `cap` uniques (or none), in which case the batch
+    ships row-major and the direct gather runs."""
+    flat = np.asarray(slots, np.int32).ravel()
+    u, inv = np.unique(flat, return_inverse=True)
+    if u.size > cap or u.size == 0:
+        return None
+    pad = np.full(cap - u.size, u[-1], np.int32)
+    return (
+        np.concatenate([u.astype(np.int32), pad]),
+        inv.astype(np.int32).reshape(np.asarray(slots).shape),
+    )
+
+
 def table_rows(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Rows ``table[slots]`` of a logical table."""
     return table[slots.long()]
@@ -356,35 +372,28 @@ def table_gather_sorted(table: torch.Tensor, sorted_slots: torch.Tensor,
 # ------------------------------------------------------------------- row sums
 
 def row_sums_plain(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """Plain PyTorch version of the row sum: [num_rows, ch]."""
+    """Plain PyTorch version of the row sum: [num_rows, ch], any ch; rows
+    outside [0, num_rows) skipped."""
     out = torch.zeros((num_rows, vals_t.shape[0]), dtype=vals_t.dtype, device=vals_t.device)
-    return out.index_add_(0, rows.long(), vals_t.T)
-
-
-@functools.lru_cache(maxsize=None)
-def _row_sums_max_ch(device_index: int) -> int:
-    """The widest ch whose slab fits a block's shared memory on the card,
-    read once per device (an error is raised, not cached)."""
-    from xflow_tpu_torch.ops import kernels
-
-    with torch.cuda.device(device_index):
-        max_ch = kernels.load("row_sums").xf_row_sums_max_ch()
-    if max_ch < 0:
-        kernels.check(-max_ch, "row_sums (reading the card's shared memory limit)")
-    return max_ch
+    keep = (rows >= 0) & (rows < num_rows)
+    return out.index_add_(0, rows[keep].long(), vals_t[:, keep].T)
 
 
 def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Launch `csrc/row_sums.cu` on CUDA tensors.
 
     Replaces `_rowsum_pallas` (xflow_tpu/ops/sorted_table.py). Bound by
-    bytes on the H100: (ch + 1) * 4 B read per occurrence. A block reads
-    a [ch, 128] slab of vals with coalesced loads into shared memory and
-    adds it into the rows channel-fastest with float atomics, so the
+    bytes on the H100 ((ch + 1) * 4 B read per occurrence), held in
+    practice by the L2's rate of reductions into the scattered rows:
+    persistent blocks walk (256-position tile, group of at most 32
+    channels) items group by group, stage each tile's channels transposed
+    in shared memory while the previous one reduces, and add each
+    occurrence's four channels with one `red.global.add.v4.f32`. The
     order of the adds, and the last bits of a sum, vary from run to run
-    (tolerance: 1e-4 relative over a 1e-2 floor). Any ch whose slab fits
-    the card's shared memory a block (ch <= 454 on the H100) launches;
-    a wider one raises with the card's limit."""
+    (tolerance: 1e-4 relative over a 1e-2 floor). Shared memory does not
+    grow with ch: any ch that is a multiple of 4 launches (the JAX kernel
+    takes multiples of 8); another ch raises, as do Np not a multiple of
+    4 and inputs not 16 B aligned."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(vals_t, rows)
@@ -393,14 +402,15 @@ def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> to
     ch, np_ = vals_t.shape
     if rows.shape[0] != np_:
         raise ValueError(f"rows has {rows.shape[0]} entries, vals_t {np_} columns")
-    lib = kernels.load("row_sums")
-    max_ch = _row_sums_max_ch(vals_t.device.index)
-    if ch > max_ch:
+    if ch % 4:
+        raise ValueError(f"row_sums: ch={ch} must be a multiple of 4 (16 B output quads)")
+    if np_ % 4 or vals_t.data_ptr() % 16 or rows.data_ptr() % 16:
         raise ValueError(
-            f"row_sums: ch={ch} needs {lib.xf_row_sums_smem_bytes(ch)} B of shared memory a "
-            f"block; this card allows ch <= {max_ch}"
+            f"row_sums loads 16 B aligned quads: Np={np_} must be a multiple of 4 and vals_t "
+            "and rows must start 16 B aligned"
         )
     out = torch.zeros((num_rows, ch), dtype=torch.float32, device=vals_t.device)
+    lib = kernels.load("row_sums")
     with torch.cuda.device(vals_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xf_row_sums(

@@ -27,7 +27,13 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.data.libffm import iter_batches, shard_path
-from xflow_tpu_torch.evaluate import batch_arrays, evaluate, sorted_layout_on, to_device
+from xflow_tpu_torch.evaluate import (
+    HostDedup,
+    batch_arrays,
+    evaluate,
+    sorted_layout_on,
+    to_device,
+)
 from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.optim import get_optimizer
 from xflow_tpu_torch.train import checkpoint as ckpt
@@ -68,6 +74,7 @@ class Trainer:
         # rule); validates data.sorted_layout at construction
         self.sorted = sorted_layout_on(cfg)
         nonfinite_guard_on(cfg)  # validates train.nonfinite_guard
+        self.dedup = HostDedup(cfg)  # row-major batches; validates data.dedup
         self.state: TrainState = init_state(self.model, self.optimizer, cfg, device)
         self.train_step = make_train_step(self.model, self.optimizer, cfg)
         # data-stream position pinned by the next checkpoint's data_state:
@@ -92,7 +99,7 @@ class Trainer:
         for epoch in range(start_epoch, cfg.train.epochs):
             offset = skip if epoch == start_epoch else 0
             for batch in iter_batches(path, cfg.data, skip=offset):
-                arrays = to_device(batch_arrays(batch, cfg), self.device)
+                arrays = to_device(batch_arrays(batch, cfg, self.dedup), self.device)
                 self.state, m = self.train_step(self.state, arrays)
                 rows = int(batch.row_mask.sum())
                 res.steps += 1
