@@ -23,8 +23,11 @@ quads, refuses a ch that is not a multiple of 4, and FM's forward runs at
 v_dim = 64 against the CPU. LR's steps (no hand-written kernel) run on
 the card against the CPU. The lab's kernels (#7-#11, `ops/lab.py`) run
 at the mosaic probe's shapes with one slice out of range (#7 also at the
-grids that split a window into 64 pieces and into none), and
-`kernel_parity` runs whole.
+grids that split a window into 64 pieces and into none), #11 at one to
+34 quads and at B 512, 65,536 and 2^18 (a quad column of 4 MiB), and
+`kernel_parity` runs whole. The multi-buffer gather (#5) also runs on
+windows empty in every buffer and on one buffer whose spans all lie in
+one window, at 1, 4 and the most stacked buffers.
 
 Tolerances:
 - gathers: bitwise (a copy);
@@ -268,7 +271,7 @@ def test_fit_on_the_card_matches_the_cpu(dev, tmp_path):
 
 
 MULTI_CASES = ("shared", "sparse_windows", "all_pad", "hot", "edges", "chunk_cross",
-               "odd_starts", "empty_full")
+               "odd_starts", "empty_full", "empty_windows", "one_window")
 
 
 def _multi_plan(case, seed=0, ns=4):
@@ -287,8 +290,14 @@ def _multi_plan(case, seed=0, ns=4):
         slots[64:128] = rng.integers(0, 50, (64, 8))
     else:
         slots = rng.integers(0, S, (64, 8)).astype(np.int32)
+    if case == "empty_windows":  # two windows hold every slot: the others are empty in
+        # every buffer
+        slots = np.where(rng.random((64, 8)) < 0.5, 5 * st.WINDOW, S - 3 * st.WINDOW)
+        slots = (slots + rng.integers(0, st.WINDOW, (64, 8))).astype(np.int32)
     rows = -(-slots.shape[0] // ns) * ns
     slots = np.resize(slots, (rows, slots.shape[1]))
+    if case == "one_window":  # buffer 0's slots all lie in window 7
+        slots[:rows // ns] = rng.integers(7 * st.WINDOW, 8 * st.WINDOW, (rows // ns, 8))
     if case == "shared":  # one slot in every row of every buffer
         slots[:, 0] = 777
     if case == "sparse_windows":  # buffer i touches windows 2i and 2i+1 only
@@ -306,10 +315,13 @@ def _multi_plan(case, seed=0, ns=4):
 
 
 @pytest.mark.parametrize("case", MULTI_CASES)
-@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("k", [5, 10, 11])
+@pytest.mark.parametrize("nbuf", [1, 4, st.MULTI_MAX_BUFFERS])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_gather_multi_kernel_matches_plain(dev, case, k, bf16):
-    ss, loc, _ = _multi_plan(case)
+def test_gather_multi_kernel_matches_plain(dev, case, k, nbuf, bf16):
+    """Bit-exact at 1, 4 and the most stacked buffers: K = 10 loads 8 B
+    pairs, K = 5 and 11 scalars."""
+    ss, loc, _ = _multi_plan(case, ns=nbuf)
     rng = np.random.default_rng(5)
     table = torch.from_numpy(rng.normal(size=(S, k)).astype(np.float32))
     ss_t, loc_t = torch.from_numpy(ss), torch.from_numpy(loc)
@@ -564,23 +576,28 @@ def test_lab_tensor_maps_encode_where_the_strides_allow(dev):
     assert lab.tma_encode(x["table"], (256, 11)) != 0
 
 
-@pytest.mark.parametrize("ch", [24, 128])
-def test_lab_rowsum_kernel_matches_plain(dev, ch):
-    """The suite's ch 24, and ch 128, whose 64 KB slab needs the opt-in
-    over the 48 KB of shared memory a block gets by default."""
+@pytest.mark.parametrize("ch, num_rows", [(4, 512), (24, 512), (128, 512), (136, 512),
+                                           (24, 65536), (4, 1 << 18), (24, 1 << 18)])
+def test_lab_rowsum_kernel_matches_plain(dev, ch, num_rows):
+    """#11 at one to 34 quads, B 512, 65,536 and 2^18 rows (a quad column
+    of 4 MiB, more than a thread block cluster's shared memory holds),
+    with rows out of range and all-zero quads."""
     from xflow_tpu_torch.ops import lab
 
     rng = np.random.default_rng(10)
-    rows = torch.from_numpy(rng.integers(-2, 514, 8192).astype(np.int32))  # a few out of range
-    vals = torch.from_numpy(rng.normal(size=(ch, 8192)).astype(np.float32))
+    np_ = max(8192, 2 * num_rows)
+    rows = torch.from_numpy(rng.integers(-2, num_rows + 2, np_).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(size=(ch, np_)).astype(np.float32))
+    vals[:, :100] = 0.0  # whole zero occurrences
+    vals[:4, 100::3] = 0.0  # a zero quad beside nonzero ones
     lab.reset_launches()
-    got = lab.rowsum_cuda(vals.to(dev), rows.to(dev), 512)
+    got = lab.rowsum_cuda(vals.to(dev), rows.to(dev), num_rows)
     torch.cuda.synchronize()
     assert lab.LAUNCHES["lab_rowsum"] == 1
-    want = lab.rowsum_plain(vals, rows, 512)
-    print(f"ch {ch}: {_rel(got, want, FLOOR):.3g} relative over a {FLOOR} floor")
-    keep = (rows >= 0) & (rows < 512)
-    assert reorder_err(got, want, vals[:, keep], rows[keep], 512) < 1.0
+    want = lab.rowsum_plain(vals, rows, num_rows)
+    print(f"ch {ch}, B {num_rows}: {_rel(got, want, FLOOR):.3g} relative over a {FLOOR} floor")
+    keep = (rows >= 0) & (rows < num_rows)
+    assert reorder_err(got, want, vals[:, keep], rows[keep], num_rows) < 1.0
 
 
 def test_kernel_parity_on_the_card(dev):

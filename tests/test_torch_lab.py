@@ -131,6 +131,30 @@ def test_plain_rowsum_sums_even_and_odd_apart_and_skips_rows_out_of_range():
     assert got.numpy().tobytes() == (halves[0] + halves[1]).tobytes()
 
 
+@pytest.mark.parametrize("ch, np_, num_rows, zero_share, out_share", [
+    (24, 8192, 512, 0.0, 0.0),  # the suite's kind of input: every quad counts
+    (24, 8192, 512, 0.3, 0.0),
+    (4, 5000, 65536, 0.5, 0.1),
+    (136, 2048, 512, 0.2, 0.2),
+    (8, 1000, 3, 0.0, 0.5),
+    (4, 1, 1, 1.0, 0.0),  # one occurrence, all zero: nothing to send
+])
+def test_rowsum_l2_reductions_count_nonzero_quads_in_range(ch, np_, num_rows, zero_share,
+                                                         out_share):
+    """#11's computed L2 reduction count: one a quad of an occurrence
+    with a nonzero channel and its row in [0, num_rows)."""
+    rng = np.random.default_rng(ch + np_)
+    vals = rng.normal(size=(ch, np_)).astype(np.float32)
+    vals[rng.random((ch, np_)) < zero_share] = 0.0
+    vals[:, rng.random(np_) < zero_share / 2] = 0.0  # whole zero occurrences
+    rows = rng.integers(0, num_rows, np_).astype(np.int32)
+    out = rng.random(np_) < out_share
+    rows[out] = np.where(rng.random(int(out.sum())) < 0.5, -1, num_rows + 7)
+    quads = (vals.reshape(ch // 4, 4, np_) != 0).any(axis=1)
+    want = int((quads & ((rows >= 0) & (rows < num_rows))[None, :]).sum())
+    assert lab.rowsum_l2_reductions(_t(vals), _t(rows), num_rows) == want
+
+
 def test_reorder_err_flags_a_lost_term():
     rows, vals = _rowsum_case(3)
     want = lab.rowsum_plain(_t(vals), _t(rows), 512)
@@ -260,6 +284,7 @@ def test_rowsum_suite_runs_on_the_cpu(capsys):
     assert rec["ok"] and rec["errors"]["bound_np"] < 1 and rec["errors"]["bound_plain"] == 0
     assert set(rec["ms"]) == {"lab rowsum (red.v4)", "row_sums (#2)", "zeros + index_add_",
                               "plain"}
+    assert rec["l2_reductions"] == 8192 * 6  # every quad nonzero, every row in range
     assert "correctness: max abs err" in out and "ns/occurrence" in out
 
 

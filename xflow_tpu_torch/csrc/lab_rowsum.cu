@@ -4,35 +4,43 @@
 //
 // Contract:  out[r, c] += vals[c, j]  for every j with rows[j] = r
 // vals float32 [ch, Np], rows int32 [Np] (any order), out float32 [B, ch],
-// zeroed by the caller; ch a multiple of 4. Rows outside [0, B) are
-// skipped.
+// zeroed by the caller; ch a multiple of 4; any B. Rows outside [0, B)
+// are skipped.
 //
 // Bound on the H100: bytes. Np * (ch + 1) * 4 B read, B * ch * 4 B
 // written (216 MB, 0.0645 ms at 3.35 TB/s for the suite's B 65,536, ch 24,
 // Np 2,098,176); one add per value.
 //
-// The TPU kernel keeps two accumulators to break the scalar core's
-// read-modify-write chain; the card has no such chain, so this keeps the
-// function in one accumulator (a second one, odd occurrences into their
-// own [B, ch] buffer folded in by a second launch, measured slower) and
-// asks the card's own question: can per-float atomics give way to vector
-// reductions? A block stages a tile's [ch, TILE] slab of vals through
-// shared memory with coalesced loads along j (as #2, csrc/row_sums.cu,
-// does), transposed to [TILE][ch] so that one occurrence's four channels
-// are one 16 B shared-memory read, then adds them into the
-// output row with one `red.global.add.v4.f32` (PTX ISA 8.1, sm_90): an
-// output row of ch floats is 16 B aligned at ch % 4 == 0, and the
-// reduction needs a quarter of #2's atomic instructions. A group of four
-// zeros (masked occurrences) is skipped. Float reductions reorder the
-// sums, so the last bits vary from run to run (tolerance: the float32
-// reorder bound, `tools/bench_lab.py::reorder_err`).
+// Design: a grid-stride loop over (position, quad) pairs, quads fastest,
+// with the card's resident threads (SMs x threads an SM). A thread reads
+// its position's row and its quad's four channels (each a coalesced read
+// along the positions across the warp) and sends a nonzero quad of an
+// in-range row to device memory with one `red.global.add.v4.f32` (PTX ISA
+// 8.1, sm_90): an output row is 16 B aligned at ch % 4 == 0. A warp's 32
+// reductions fall on about five rows' neighbouring addresses. One
+// reduction a nonzero quad: 12.59 M a batch at the suite's shape.
+// Measured there (`tools/bench_lab.py --suite rowsum` in `chip_smoke.py`,
+// NVIDIA H100 80GB HBM3, 700.00 W): 0.1533 ms, 42% of the bound, #2
+// (`row_sums.cu`) 0.1564 on the same inputs.
+//
+// The lab's question, whether fewer L2 reductions pay, was answered on
+// the same inputs, script and card: no. Sums privatised in a cluster of
+// 8 blocks' distributed shared memory (one quad's sums of up to 65,536
+// rows, one reduction a nonzero row at the flush: at most 1.18 M a
+// batch) took 0.4932 / 0.4828 ms with an outbox the owners pull from
+// after a cluster barrier, 1.3285 / 1.2892 ms with four scalar DSMEM
+// atomicAdds a quad (a float atomicAdd on shared memory is a
+// compare-and-swap loop on sm_90), against 0.1529 / 0.1431 for these
+// reductions from 8-block groups over a host plan's position shares, and
+// the first port's staged [ch, 128] slab 0.1762 / 0.1681. Float
+// reductions reorder the sums, so the last bits vary from run to run
+// (tolerance: the float32 reorder bound, `tools/bench_lab.py::reorder_err`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 128;
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
@@ -41,46 +49,41 @@ __device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
                : "memory");
 }
 
-__global__ void lab_rowsum_kernel(const float* __restrict__ vals, const int32_t* __restrict__ rows,
-                                  float* __restrict__ out, int ch, long long np,
-                                  long long num_rows) {
-  extern __shared__ float4 slab4[];  // [TILE][ch] floats
-  float* slab = reinterpret_cast<float*>(slab4);
-  const long long j0 = (long long)blockIdx.x * TILE;
-  const int n = (int)((np - j0) < TILE ? (np - j0) : TILE);
-  for (int idx = threadIdx.x; idx < ch * TILE; idx += blockDim.x) {
-    const int c = idx / TILE, t = idx % TILE;
-    slab[t * ch + c] = t < n ? __ldg(vals + (long long)c * np + j0 + t) : 0.0f;
-  }
-  __syncthreads();
-  const int groups = ch / 4;
-  for (int idx = threadIdx.x; idx < n * groups; idx += blockDim.x) {
-    const int t = idx / groups, g = idx % groups;
-    const float4 v = slab4[(t * ch) / 4 + g];
-    const int32_t r = __ldg(rows + j0 + t);
-    if ((v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) && r >= 0 &&
-        (long long)r < num_rows) {
-      red_add_v4(out + (long long)r * ch + 4 * g, v);
-    }
+__global__ void __launch_bounds__(THREADS)
+lab_rowsum_kernel(const float* __restrict__ vals, const int32_t* __restrict__ rows,
+                  float* __restrict__ out, int ch, long long np, long long num_rows) {
+  const int quads = ch / 4;
+  const long long n = np * quads;
+  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < n;
+       idx += (long long)gridDim.x * THREADS) {
+    const long long j = idx / quads;
+    const int g = (int)(idx % quads);
+    const int32_t r = __ldg(rows + j);
+    if (r < 0 || r >= num_rows) continue;
+    const float* v = vals + (long long)(4 * g) * np + j;
+    const float4 x = make_float4(__ldg(v), __ldg(v + np), __ldg(v + 2 * np), __ldg(v + 3 * np));
+    if (x.x != 0.0f || x.y != 0.0f || x.z != 0.0f || x.w != 0.0f)
+      red_add_v4(out + (long long)r * ch + 4 * g, x);
   }
 }
 
 }  // namespace
 
-// out 16 B aligned, ch % 4 == 0, ch * TILE * 4 B of shared memory (ch <=
-// 96 stays under the 48 KB every kernel gets; more is opted in).
+// out 16 B aligned and zeroed, ch % 4 == 0.
 extern "C" int xf_lab_rowsum(const void* vals, const void* rows, void* out, int ch, long long np,
                              long long num_rows, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (np > 0) {
-    size_t smem = (size_t)ch * TILE * sizeof(float);
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(lab_rowsum_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    lab_rowsum_kernel<<<(unsigned)((np + TILE - 1) / TILE), THREADS, smem, s>>>(
-        (const float*)vals, (const int32_t*)rows, (float*)out, ch, np, num_rows);
-  }
+  const long long n = np * (ch / 4);
+  if (n <= 0 || num_rows <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (long long)sms * (per_sm / THREADS);
+  const long long need = (n + THREADS - 1) / THREADS;
+  if (blocks > need) blocks = need;
+  lab_rowsum_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)vals, (const int32_t*)rows, (float*)out, ch, np, num_rows);
   return (int)cudaGetLastError();
 }

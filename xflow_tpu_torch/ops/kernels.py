@@ -44,7 +44,7 @@ SIGNATURES = {
          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _F, _P]),
     ],
     "gather_sorted_multi": [
-        ("xf_gather_sorted_multi", [_P, _P, _P, _P, _L, _I, _I, _L, _I, _L, _I, _P]),
+        ("xf_gather_sorted_multi", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),
     ],
     "scatter_sorted_multi": [
         ("xf_scatter_sorted_multi", [_P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P]),

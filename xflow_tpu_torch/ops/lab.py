@@ -13,7 +13,9 @@ probes #7-#10 of its `mosaic` suite and the row reduction #11 of its
   plain 2-D tensor map of an array (0 = it encodes), the counterpart of
   the TPU probe's OK/FAIL;
 - `lab_rowsum` (#11, `csrc/lab_rowsum.cu`): ``out[B, ch]`` row sums of
-  occurrences in any order (`suite_rowsum.rowsum_pallas`).
+  occurrences in any order (`suite_rowsum.rowsum_pallas`): each nonzero
+  quad of channels one vector reduction into device memory, neighbouring
+  quads from neighbouring threads.
 
 The slice probes return every block's tile and scalar: the TPU kernels
 wrote one scalar at every step of an in-order grid and the last one
@@ -271,9 +273,10 @@ def rowsum_plain(vals: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch
 
 
 def rowsum_cuda(vals: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """Launch #11 (`csrc/lab_rowsum.cu`): [ch, 128] slabs of vals staged
-    through shared memory, four channels an instruction added into the
-    output row by `red.global.add.v4.f32`, into one accumulator.
+    """Launch #11 (`csrc/lab_rowsum.cu`): a grid-stride loop over
+    (position, quad) pairs, quads fastest, each nonzero quad added into
+    its output row with one `red.global.add.v4.f32`, so a warp's
+    reductions fall on neighbouring addresses.
 
     Replaces `suite_rowsum.rowsum_pallas` (xflow_tpu/tools/bench_lab.py:714).
     Bound by bytes on the H100: (ch + 1) * 4 B read per occurrence, the
@@ -289,11 +292,21 @@ def rowsum_cuda(vals: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.
     out = torch.zeros((num_rows, ch), dtype=torch.float32, device=vals.device)
     _aligned16(out)
     lib = kernels.load("lab_rowsum")
-    err = _launch(vals.device, lib.xf_lab_rowsum, vals.data_ptr(), rows.data_ptr(),
-                  out.data_ptr(), ch, np_, num_rows)
-    kernels.check(err, "lab_rowsum")
-    LAUNCHES["lab_rowsum"] += 1
+    if np_ and num_rows and ch:
+        err = _launch(vals.device, lib.xf_lab_rowsum, vals.data_ptr(), rows.data_ptr(),
+                      out.data_ptr(), ch, np_, num_rows)
+        kernels.check(err, "lab_rowsum")
+        LAUNCHES["lab_rowsum"] += 1
     return out
+
+
+def rowsum_l2_reductions(vals: torch.Tensor, rows: torch.Tensor, num_rows: int) -> int:
+    """The L2 vector reductions #11 sends for these inputs, computed from
+    them: one a nonzero quad of an occurrence whose row is in [0,
+    num_rows)."""
+    keep = (rows >= 0) & (rows < num_rows)
+    quads = vals.reshape(vals.shape[0] // 4, 4, -1).ne(0).any(1)
+    return int((quads & keep[None, :]).sum().item())
 
 
 def lab_rowsum(vals: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:

@@ -310,9 +310,11 @@ def gather_sorted_cuda(table: torch.Tensor, sorted_slots: torch.Tensor,
 
     Replaces `_gather_pallas` (xflow_tpu/ops/sorted_table.py). Bound by
     bytes on the H100: a 4 B slot and one K-float row read per
-    occurrence, K8 floats written. One thread per occurrence copies its
-    row down an output column; stores coalesce along the occurrence
-    axis and the slot order keeps row reads in shared L2 sectors."""
+    occurrence, K8 floats written. The flat walk (`csrc/gather_flat.cuh`,
+    #5's body too): one thread per occurrence copies its row (8 B pairs
+    where K is even) down an output column; stores coalesce along the
+    occurrence axis and the slot order keeps row reads in shared L2
+    sectors."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(table, sorted_slots)
@@ -649,23 +651,25 @@ def gather_sorted_multi_cuda(table: torch.Tensor, sorted_slots: torch.Tensor,
     Replaces `_gather_pallas_multi` (xflow_tpu/ops/sorted_table.py).
     Bound by bytes on the H100: each distinct row's sectors read once
     across the buffers, a 4 B slot read and K8 floats written per
-    position. Window-major: a block owns one table window and walks
-    every buffer's span of it, so a row that several sub-batches share
-    is read while its lines are still in L1/L2."""
+    position. The flat walk (`csrc/gather_flat.cuh`, #1's body too): a
+    thread a position of the flattened stream, its row loaded as 8 B
+    pairs where K is even, stored down its output column with
+    evict-first stores; L2 keeps a row that several sub-batches share
+    between their reads. `loc_off` is checked for its shape, not read."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(table, sorted_slots, loc_off)
     _check(table, "table", torch.float32, 2)
     S, K = table.shape
-    nbuf, cap = _check_multi(sorted_slots, loc_off, S)
+    _check_multi(sorted_slots, loc_off, S)
     np_ = sorted_slots.shape[0]
     out = torch.empty((_k8(K), np_), dtype=torch.float32, device=table.device)
     lib = kernels.load("gather_sorted_multi")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xf_gather_sorted_multi(
-            table.data_ptr(), sorted_slots.data_ptr(), loc_off.data_ptr(), out.data_ptr(),
-            S, K, _k8(K), np_, nbuf, cap, int(bool(bf16)), stream,
+            table.data_ptr(), sorted_slots.data_ptr(), out.data_ptr(),
+            S, K, _k8(K), np_, int(bool(bf16)), stream,
         )
     kernels.check(err, "gather_sorted_multi")
     LAUNCHES["gather_sorted_multi"] += 1

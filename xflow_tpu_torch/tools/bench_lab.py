@@ -667,7 +667,9 @@ def suite_rowsum(argv=(), *, device: str = "cuda", batch: int = 65536, ch: int =
     against `np.add.at` (the JAX suite's own check); then the times per
     batch, over the `num_batches` batches, of the lab kernel, of #2 (`row_sums_sorted`: the same
     contract) on the same inputs, of `zeros` + `index_add_` (the JAX
-    suite's `jax.ops.segment_sum`) and of the plain version.
+    suite's `jax.ops.segment_sum`) and of the plain version; and the L2
+    vector reductions the kernel sends a batch (`l2_reductions`, computed
+    from the first batch's inputs: one a nonzero quad in range).
 
     Each error is printed two ways: relative over a 1e-2 floor, and as a
     share of the float32 reorder bound (`reorder_err`). The gate is the
@@ -704,6 +706,9 @@ def suite_rowsum(argv=(), *, device: str = "cuda", batch: int = 65536, ch: int =
     if not (e["bound_plain"] <= 1 and e["bound_np"] <= 1):
         raise AssertionError(f"lab_rowsum beyond the float32 reorder bound: {e}")
 
+    l2 = lab.rowsum_l2_reductions(t_vals[0], t_rows[0], B)
+    print(f"L2 vector reductions a batch (computed from the inputs): {l2:,}")
+
     rows_l = t_rows.long()
     methods = {
         "lab rowsum (red.v4)": lambda i: lab.lab_rowsum(t_vals[i], t_rows[i], B),
@@ -721,7 +726,7 @@ def suite_rowsum(argv=(), *, device: str = "cuda", batch: int = 65536, ch: int =
         times[name] = best * 1e3
         print(f"{name}: {best * 1e3:.4f} ms ({best / Np * 1e9:.4f} ns/occurrence)")
     return {"ok": True, "device": device_name(dev), "errors": e, "ms": times,
-            "bytes": Np * (CH + 1) * 4 + B * CH * 4, "adds": Np * CH}
+            "l2_reductions": l2, "bytes": Np * (CH + 1) * 4 + B * CH * 4, "adds": Np * CH}
 
 
 # -------------------------------------------------------------------- main
