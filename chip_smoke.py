@@ -5,13 +5,24 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. the card: name and power limit as nvidia-smi reports them;
+1. the card: name and power limit as nvidia-smi reports them, and the
+   host's usable cores;
 2. build every CUDA kernel from `xflow_tpu_torch/csrc/` (one nvcc per
    source, started together);
 3. write the inputs from a seed at the FM headline's full width (fused
    `wv [2^22, 11]`, 18 fields, 65,536-row batches): a committed full
    training checkpoint (tables, FTRL n and z with the upper half of the
-   slots never touched) and a libffm shard of 2 x 65,536 rows;
+   slots never touched), a libffm shard of 2 x 65,536 rows, the rate
+   shard of 20 x 65,536 rows (the bulk writer's data) and their `.xfc`
+   caches (the port's `build_cache`, into the work directory).
+   Every path below reads the text through the native MT parser and
+   plans with the native planner (`data/native.py`): the host input
+   plane's call counts (`data/pipeline.host_calls`) are set to 0 just
+   before each train and evaluate path and read just after, and the
+   path fails unless it read native stream (or, where asked, `.xfc`)
+   batches, made native plans (LR plans nothing) and parsed no row in
+   Python. Each phase's first batch is read from the text and from the
+   cache, bitwise equal, with parse and plan timed;
 4. inference kernels on the evaluate path's own inputs (the first
    batch's plan and gathered rows): the gather bit-exact with bf16 off
    and on, the row sum within 1e-4 relative over a 1e-2 floor
@@ -36,8 +47,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. the evaluate path: `evaluate` over the shard on the card, the first
    batch's pCTRs against the CPU's, `predict_rows` against evaluate;
 7. the training main path: `python -m xflow_tpu_torch train` (in
-   process) on the card, 2 epochs over the shard (4 fused steps); then
-   one epoch of the two-pass step (`optim.fused_scatter=off`). Each run
+   process) on the card, 2 epochs over the shard (4 fused steps); two
+   rate runs of one epoch over the rate shard (20 steps, no checkpoint),
+   from the text and from the `.xfc` cache (`data.cache=on`), each
+   printing its `examples_per_sec`; then one epoch of the two-pass step
+   (`optim.fused_scatter=off`). Each run
    has the launch counts set to 0 just before and read just after, and
    each kernel of its path must have launched. Then the default model:
    `train` with no `--model` (LR, `w [2^22]`, row-major, FTRL), 2 epochs
@@ -49,8 +63,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and on the CPU agrees as in phase 5 (at the default FTRL
    hyperparameters and 65,536-row batches nearly every trained w stays
    0, so the end-to-end checks alone would pass a wrong w);
-9. where the time goes: host clock per stage of an evaluate batch and of
-   a train step, CUDA-event times of the forward and of the step (with
+9. where the time goes: host clock per stage (parse, plan, to_device,
+   step or forward) of an evaluate batch and of a train step over the
+   rate shard, from the text (MT parser) and from the `.xfc` cache, and
+   for FM evaluate from the Python parser too (the before column, over
+   the first 2 batches), CUDA-event times of the forward and of the step (with
    the non-finite guard on and off), and the step's device busy time by
    `torch.profiler`;
 10. MVM at bench.py's full width (`v [2^22, 10]`, 18 fields, 65,536-row
@@ -99,7 +116,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the card, every check within its tolerance; (d) `--suite core` at
    its defaults (S = 2^22, N = 2^21, K = 11: 3 cells) into the temporary
    directory, then `micro`, `layout` and `scatter` once each at the JAX
-   shapes. Each suite's output is echoed as comments.
+   shapes; (e) `hostplane` (the host's parse rate per parser thread count
+   and plan rate per pool size, up to the usable cores). The mosaic
+   suite also reads the launch floor (a one-element `torch.zeros` fill by
+   the same profiler), carried as `floor_ms` in #7-#10's entries. Each
+   suite's output is echoed as comments.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
@@ -139,6 +160,11 @@ HOT_SLOT = 12345  # the skewed plan's hot slot (check_hot_scatters)
 # the restored MVM state's init scale: at 18 fields it keeps both factor
 # forms' gradients, and their squares in n, in float32's normal range
 MVM_V_SCALE = 0.5
+# the rate shard: one epoch of RATE_BATCHES steps, so the rates and the
+# stage breakdowns pay an epoch's start (the prefetch thread, the MT
+# parser's pool, the cache's digest check) once, not every 2 steps
+RATE_BATCHES = 20
+PYTHON_BATCHES = 2  # the Python parser's before column reads the rate shard's first batches
 
 
 def fail(msg: str) -> None:
@@ -319,9 +345,13 @@ def write_state(ck_dir: str, name: str, K: int, scale: float, seed: int) -> int:
     return 3 * t.nbytes
 
 
-def make_inputs(work: str, cfg):
-    """The full training checkpoint (step 1) and the shard `<work>/data-00000`."""
-    from xflow_tpu_torch.data.synth import generate_shards
+def make_inputs(work: str, cfg) -> tuple[str, str]:
+    """The full training checkpoint (step 1), the shard `<work>/data-00000`,
+    the rate shard `<work>/rate-00000` (RATE_BATCHES batches, the JAX
+    bulk writer's data) and their `.xfc` caches in cfg.data.cache_dir,
+    packed by the port's `build_cache`. Returns the two shards' paths."""
+    from xflow_tpu_torch.data.shardcache import build_cache
+    from xflow_tpu_torch.data.synth import generate_shards, generate_shards_bulk
 
     t0 = time.perf_counter()
     nbytes = write_state(cfg.train.checkpoint_dir, "wv", 1 + V_DIM, 0.05, SEED)
@@ -331,19 +361,96 @@ def make_inputs(work: str, cfg):
         os.path.join(work, "data"), 1, SHARD_ROWS, num_fields=NUM_FIELDS,
         ids_per_field=IDS_PER_FIELD, seed=SEED,
     )
+    t1 = time.perf_counter()
+    (rate_path,), _ = generate_shards_bulk(
+        os.path.join(work, "rate"), 1, RATE_BATCHES * BATCH, num_fields=NUM_FIELDS,
+        ids_per_field=IDS_PER_FIELD, seed=SEED + 2,
+    )
     print(f"# inputs: checkpoint {nbytes / 1e6:.1f} MB in {t_ck:.1f} s, "
-          f"shard {os.path.getsize(path) / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    return path
+          f"shard {os.path.getsize(path) / 1e6:.1f} MB in {t1 - t0:.1f} s, rate shard "
+          f"{os.path.getsize(rate_path) / 1e6:.1f} MB ({RATE_BATCHES * BATCH} rows) in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    for p, rows in ((path, SHARD_ROWS), (rate_path, RATE_BATCHES * BATCH)):
+        t0 = time.perf_counter()
+        stats = build_cache(p[: -len("-00000")], cfg.data)
+        if (stats["shards"], stats["rows"]) != (1, rows):
+            fail(f"build_cache packed {stats}, expected 1 shard of {rows} rows")
+        print(f"# .xfc cache: {stats} in {time.perf_counter() - t0:.2f} s", flush=True)
+    return path, rate_path
+
+
+def input_sources(cfg) -> dict:
+    """The configurations that read a shard from each source: its text
+    through the native MT parser and its `.xfc` cache (built by `main`
+    into cfg.data.cache_dir)."""
+    from xflow_tpu_torch.config import override
+
+    return {"text": override(cfg, **{"data.cache": "off"}),
+            "xfc": override(cfg, **{"data.cache": "on"})}
+
+
+def python_batches(path, cfg):
+    """The first PYTHON_BATCHES batches of `path` by the Python parser
+    (`libffm.iter_examples`, batched), the input before the port had a
+    native plane; no path of the port reads through it."""
+    import itertools
+
+    from xflow_tpu_torch.data.libffm import iter_examples
+    from xflow_tpu_torch.data.pipeline import examples_to_batches
+
+    d = cfg.data
+    return itertools.islice(examples_to_batches(
+        iter_examples(path, d.log2_slots, d.hash_salt), d.batch_size, d.max_nnz),
+        PYTHON_BATCHES)
+
+
+def check_host_calls(calls: dict, what: str, source: str = "text", planned: bool = True) -> None:
+    """The host input plane a path read through, from
+    `pipeline.host_calls()` set to 0 just before it and read just after:
+    batches of the native parser (or, `source` "xfc", of the `.xfc`
+    cache), native plans where the path plans (`planned`), and not one
+    row of the Python parser."""
+    reader, other = (("native_stream", "cache_batches") if source == "text"
+                     else ("cache_batches", "native_stream"))
+    if calls[reader] < 1 or calls[other] or calls["python_rows"]:
+        fail(f"{what} did not read through {reader} alone: host calls {calls}")
+    if planned and calls["native_plan"] < 1:
+        fail(f"{what} planned no batch with the native planner: host calls {calls}")
 
 
 def first_arrays(cfg, path, device):
-    from xflow_tpu_torch.data.libffm import iter_batches
+    """The first batch's host arrays, read through the input pipeline and
+    planned by `batch_arrays` (the native planner), and their copies on
+    `device`. The same batch is read from the shard's `.xfc` cache too:
+    the batch and its arrays must be bitwise those of the text. Parse and
+    plan of each are timed on the host clock (the first batch: the MT
+    parser's start included)."""
+    import numpy as np
+
+    from xflow_tpu_torch.data.pipeline import batch_iterator
     from xflow_tpu_torch.evaluate import batch_arrays, to_device
 
-    batch = next(iter_batches(path, cfg.data))
-    host = batch_arrays(batch, cfg)
-    return host, to_device(host, device)
+    pc = time.perf_counter
+    got = {}
+    for source, c in input_sources(cfg).items():
+        t0 = pc()
+        it = batch_iterator(path, c.data)
+        batch = next(it)
+        t1 = pc()
+        host = batch_arrays(batch, c)
+        got[source] = (batch, host, (t1 - t0) * 1e3, (pc() - t1) * 1e3)
+        it.close()
+    (tb, th, _, _), (cb, ch, _, _) = got["text"], got["xfc"]
+    same = all(np.asarray(a).tobytes() == np.asarray(b).tobytes() for a, b in zip(tb, cb))
+    same = same and th.keys() == ch.keys() and all(
+        th[k].dtype == ch[k].dtype and th[k].tobytes() == np.asarray(ch[k]).tobytes() for k in th)
+    if not same:
+        fail(f"the first {cfg.model.name} batch or its arrays differ between the text and "
+             "the .xfc cache")
+    print(f"# first {cfg.model.name} batch, host clock: " + "; ".join(
+        f"{s} parse {p:.3f} ms, plan {q:.3f} ms" for s, (_, _, p, q) in got.items())
+        + " (bitwise equal)", flush=True)
+    return th, to_device(th, device)
 
 
 def check_kernels(cfg, gen, path) -> list:
@@ -562,21 +669,25 @@ def first_batch(cfg, tables, path, device):
         it.close()
 
 
-def run_slice(cfg, gen, path) -> dict:
+def run_slice(cfg, gen, path, rate_path) -> dict:
     """The evaluate path on the card, with the launch counts around it."""
     import numpy as np
     import torch
 
+    from xflow_tpu_torch.data import pipeline
     from xflow_tpu_torch.evaluate import evaluate
     from xflow_tpu_torch.ops import sorted_table as st
     from xflow_tpu_torch.serve.runner import ServeRunner
 
     st.reset_launches()
+    pipeline.reset_host_calls()
     t0 = time.perf_counter()
     auc, ll = evaluate(cfg, gen.tables, path, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(st.LAUNCHES)
+    calls = pipeline.host_calls()
+    check_host_calls(calls, "the FM evaluate path")
     n_batches = -(-SHARD_ROWS // BATCH)
     for name in ("gather_sorted", "row_sums"):
         if launches[name] < 1:
@@ -586,7 +697,7 @@ def run_slice(cfg, gen, path) -> dict:
     # the weights are random, so an AUC near 0.5 is what a right path gives
     print(f"# evaluate on cuda: auc={auc} logloss={ll} over {n_batches} batches, "
           f"{wall / n_batches * 1e3:.1f} ms per batch end to end (host parse + plan + "
-          f"forward); launches {launches}", flush=True)
+          f"forward); launches {launches}; host calls {calls}", flush=True)
 
     # first batch: the card against the CPU
     _, p_gpu = first_batch(cfg, gen.tables, path, DEVICE)
@@ -611,63 +722,75 @@ def run_slice(cfg, gen, path) -> dict:
     print(f"# predict_rows on 8 rows (step {sgen.step}) vs evaluate: max abs diff {ds}",
           flush=True)
 
-    stage_breakdown(cfg, gen, path)
+    stage_breakdown(cfg, gen, rate_path)
     return launches
 
 
 def stage_breakdown(cfg, gen, path) -> None:
-    """Where an evaluate batch's time goes: host clock per stage over the
-    shard (each device stage ends in a synchronize), and the forward's
-    CUDA-event time on one resident batch."""
+    """Where an evaluate batch's time goes, from each input source (the
+    text through the MT parser, the `.xfc` cache, and, the before column,
+    the text through the Python parser over its first PYTHON_BATCHES
+    batches): host clock per stage over the rate shard `path`, one stage
+    after another with no prefetch (each device stage ends in a
+    synchronize), and the forward's CUDA-event time on one resident
+    batch."""
     import torch
 
-    from xflow_tpu_torch.data.libffm import iter_batches
+    from xflow_tpu_torch.data.pipeline import batch_iterator
     from xflow_tpu_torch.evaluate import batch_arrays, to_device
     from xflow_tpu_torch.models import get_model
     from xflow_tpu_torch.models.predict import make_predict_fn
 
     step = make_predict_fn(get_model(cfg.model.name)(cfg))
-    acc = dict.fromkeys(("parse", "plan", "to_device", "forward", "to_host"), 0.0)
-    n = 0
     pc = time.perf_counter
-    it = iter_batches(path, cfg.data)
-    while True:
-        t = pc()
-        batch = next(it, None)
-        acc["parse"] += pc() - t
-        if batch is None:
-            break
-        t = pc()
-        host = batch_arrays(batch, cfg)
-        acc["plan"] += pc() - t
-        t = pc()
-        arrays = to_device(host, DEVICE)
-        torch.cuda.synchronize()
-        acc["to_device"] += pc() - t
-        t = pc()
-        p = step(gen.tables, arrays)
-        torch.cuda.synchronize()
-        acc["forward"] += pc() - t
-        t = pc()
-        p.cpu().numpy()
-        acc["to_host"] += pc() - t
-        n += 1
-    print("# evaluate stages, ms per batch (host clock): "
-          + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
+    sources = {s: (c, batch_iterator(path, c.data, enforce_bad_rows=False, quarantine=False))
+               for s, c in input_sources(cfg).items()}
+    sources["python"] = (cfg, python_batches(path, cfg))
+    for source, (c, it) in sources.items():
+        acc = dict.fromkeys(("parse", "plan", "to_device", "forward", "to_host"), 0.0)
+        n = 0
+        while True:
+            t = pc()
+            batch = next(it, None)
+            acc["parse"] += pc() - t
+            if batch is None:
+                break
+            t = pc()
+            host = batch_arrays(batch, c)
+            acc["plan"] += pc() - t
+            t = pc()
+            arrays = to_device(host, DEVICE)
+            torch.cuda.synchronize()
+            acc["to_device"] += pc() - t
+            t = pc()
+            p = step(gen.tables, arrays)
+            torch.cuda.synchronize()
+            acc["forward"] += pc() - t
+            t = pc()
+            p.cpu().numpy()
+            acc["to_host"] += pc() - t
+            n += 1
+        print(f"# evaluate stages ({source}, {n} batches), ms per batch (host clock): "
+              + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
     fwd_ms = cuda_ms(lambda: step(gen.tables, arrays), reps=10)
     print(f"# forward on the card (CUDA events): {fwd_ms:.3f} ms per {BATCH}-row batch",
           flush=True)
 
 
 def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str,
-              model: str | None = "fm") -> tuple[dict, dict]:
+              model: str | None = "fm", source: str = "text") -> tuple[dict, dict]:
     """`python -m xflow_tpu_torch train` in process on the card (`model`
-    None: no `--model`, the CLI's default), with the launch counts set to
-    0 just before and read just after. Returns (summary, launches); the
-    CLI's own stdout is echoed as comments."""
+    None: no `--model`, the CLI's default), with the launch counts and
+    the host input plane's call counts set to 0 just before and read just
+    after: the run must have read through `source` ("text": the native
+    parser; "xfc": the shard's cache) and the native planner (LR plans
+    nothing), never the Python parser. Returns (summary with its
+    `host_calls`, launches); the CLI's own stdout is echoed as comments.
+    An empty `ckpt_dir` writes no checkpoint."""
     import torch
 
     from xflow_tpu_torch.__main__ import main as cli
+    from xflow_tpu_torch.data import pipeline
     from xflow_tpu_torch.ops import sorted_table as st
 
     argv = [
@@ -680,24 +803,30 @@ def train_cli(prefix: str, ckpt_dir: str, epochs: int, *extra: str,
     ]
     out = io.StringIO()
     st.reset_launches()
+    pipeline.reset_host_calls()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(st.LAUNCHES)
+    calls = pipeline.host_calls()
     for line in out.getvalue().splitlines():
         print(f"#   {line}")
     if rc != 0:
         fail(f"train {' '.join(extra)} exited {rc}")
+    what = f"train --model {model or '(the default)'} {' '.join(extra)}"
+    check_host_calls(calls, what, source, planned=model not in (None, "lr"))
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
-    print(f"# train --model {model or '(the default)'} {' '.join(extra)}: {wall:.1f} s wall, "
-          f"launches {launches}", flush=True)
+    summary["host_calls"] = calls
+    print(f"# {what}: {wall:.1f} s wall, {summary['examples_per_sec']} examples/s, "
+          f"launches {launches}, host calls {calls}", flush=True)
     return summary, launches
 
 
-def run_training(cfg, work: str, path: str) -> tuple[dict, dict]:
-    """The training main path, the two-pass epoch, and train -> serve."""
+def run_training(cfg, work: str, path: str, rate_path: str) -> tuple[dict, dict]:
+    """The training main path, the rate runs over the rate shard, the
+    two-pass epoch, and train -> serve."""
     import math
 
     import numpy as np
@@ -722,6 +851,19 @@ def run_training(cfg, work: str, path: str) -> tuple[dict, dict]:
     if launches["scatter_sorted"]:
         fail(f"the fused training path launched the two-pass scatter ({launches})")
 
+    rates = {}
+    for source, extra in (("text", ()), ("xfc", ("--set", "data.cache=on", "--set",
+                                                 f"data.cache_dir={cfg.data.cache_dir}"))):
+        s, rate_launches = train_cli(rate_path[: -len("-00000")], "", 1, *extra,
+                                     source=source)
+        if s["steps"] != RATE_BATCHES or s["bad_steps"] or any(
+                rate_launches[k] < 1 for k in ("gather_sorted", "row_sums", "scatter_ftrl")):
+            fail(f"the FM rate run from {source}: summary {s}, launches {rate_launches}")
+        rates[source] = s["examples_per_sec"]
+    print(f"# train --model fm over one epoch of the rate shard ({RATE_BATCHES} steps): "
+          f"{rates['text']} examples/s from the text (MT parser), {rates['xfc']} from the "
+          f".xfc cache; the 2-epoch main path {summary['examples_per_sec']}", flush=True)
+
     _, two_pass = train_cli(prefix, os.path.join(work, "ck_two_pass"), 1,
                             "--set", "optim.fused_scatter=off")
     for name in ("gather_sorted", "row_sums", "scatter_sorted"):
@@ -741,7 +883,7 @@ def run_training(cfg, work: str, path: str) -> tuple[dict, dict]:
           flush=True)
     step_card_vs_cpu(tcfg, first_arrays(tcfg, path, DEVICE)[0], "fused",
                      f"the main path's trained step-{want_steps} state")
-    train_breakdown(tcfg, path, "fused")
+    train_breakdown(tcfg, rate_path, "fused")
     return launches, two_pass
 
 
@@ -784,42 +926,47 @@ def run_lr(cfg, work: str, path: str, batch) -> dict:
 
 
 def train_breakdown(cfg, path, kind: str) -> None:
-    """Where a train step's time goes: host clock per stage over the
-    shard from a fresh state (each device stage ends in a synchronize),
-    and the step's CUDA-event time on one resident batch."""
+    """Where a train step's time goes, from the text through the MT parser
+    and from the `.xfc` cache: host clock per stage over the rate shard
+    `path` (RATE_BATCHES batches) from a
+    fresh state, one stage after another with no prefetch (each device
+    stage ends in a synchronize), and the step's CUDA-event time on one
+    resident batch."""
     import torch
 
     from xflow_tpu_torch.config import override
-    from xflow_tpu_torch.data.libffm import iter_batches
+    from xflow_tpu_torch.data.pipeline import batch_iterator
     from xflow_tpu_torch.evaluate import batch_arrays, to_device
     from xflow_tpu_torch.train.step import make_train_step
     from xflow_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(override(cfg, **{"train.checkpoint_dir": ""}), device=DEVICE)
-    acc = dict.fromkeys(("parse", "plan", "to_device", "step"), 0.0)
-    n = 0
     pc = time.perf_counter
-    it = iter_batches(path, cfg.data)
-    while True:
-        t = pc()
-        batch = next(it, None)
-        acc["parse"] += pc() - t
-        if batch is None:
-            break
-        t = pc()
-        host = batch_arrays(batch, cfg)
-        acc["plan"] += pc() - t
-        t = pc()
-        arrays = to_device(host, DEVICE)
-        torch.cuda.synchronize()
-        acc["to_device"] += pc() - t
-        t = pc()
-        trainer.state, _ = trainer.train_step(trainer.state, arrays)
-        torch.cuda.synchronize()
-        acc["step"] += pc() - t
-        n += 1
-    print(f"# {cfg.model.name} {kind} train stages, ms per batch (host clock): "
-          + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
+    for source, c in input_sources(cfg).items():
+        trainer = Trainer(override(c, **{"train.checkpoint_dir": ""}), device=DEVICE)
+        acc = dict.fromkeys(("parse", "plan", "to_device", "step"), 0.0)
+        n = 0
+        it = batch_iterator(path, c.data)
+        while True:
+            t = pc()
+            batch = next(it, None)
+            acc["parse"] += pc() - t
+            if batch is None:
+                break
+            t = pc()
+            host = batch_arrays(batch, c)
+            acc["plan"] += pc() - t
+            t = pc()
+            arrays = to_device(host, DEVICE)
+            torch.cuda.synchronize()
+            acc["to_device"] += pc() - t
+            t = pc()
+            trainer.state, _ = trainer.train_step(trainer.state, arrays)
+            torch.cuda.synchronize()
+            acc["step"] += pc() - t
+            n += 1
+        print(f"# {cfg.model.name} {kind} train stages ({source}, {n} batches), ms per batch "
+              "(host clock): "
+              + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
     state = trainer.state
     step_ms = cuda_ms(lambda: trainer.train_step(state, arrays), reps=10)
     unguarded = make_train_step(
@@ -1193,7 +1340,7 @@ def mvm_steps_card_vs_cpu(mcfg, batch) -> None:
                              "the restored MVM step-1 state", leaves=False)
 
 
-def run_mvm_training(mcfg, work: str, path: str) -> dict:
+def run_mvm_training(mcfg, work: str, path: str, rate_path: str) -> dict:
     """The MVM main paths through the train CLI, then train -> serve on
     the segment run's checkpoint and the segment step's breakdown.
     Returns the segment run's launch counts."""
@@ -1202,6 +1349,7 @@ def run_mvm_training(mcfg, work: str, path: str) -> dict:
     import numpy as np
 
     from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data import pipeline
     from xflow_tpu_torch.evaluate import evaluate
     from xflow_tpu_torch.ops import sorted_table as st
     from xflow_tpu_torch.serve.runner import ServeRunner
@@ -1251,8 +1399,10 @@ def run_mvm_training(mcfg, work: str, path: str) -> dict:
     gen = runner.load()
     if gen.step != want_steps:
         fail(f"the MVM segment checkpoint serves step {gen.step}, expected {want_steps}")
+    pipeline.reset_host_calls()
     auc, ll = evaluate(scfg, gen.tables, path, device=DEVICE)
     launches = dict(st.LAUNCHES)
+    check_host_calls(pipeline.host_calls(), "MVM evaluate")
     if launches["gather_sorted_multi"] < 1:
         fail(f"MVM evaluate did not launch gather_sorted_multi ({launches})")
     if not (np.isfinite(auc) and np.isfinite(ll) and 0.0 <= auc <= 1.0):
@@ -1268,7 +1418,7 @@ def run_mvm_training(mcfg, work: str, path: str) -> dict:
         fail(f"MVM predict_rows (row-major) differs from evaluate (sorted) by {ds}")
     print(f"# mvm predict_rows on 8 rows vs evaluate: max abs diff {ds} "
           f"(pctrs {served[:3]})", flush=True)
-    train_breakdown(scfg, path, "segment")
+    train_breakdown(scfg, rate_path, "segment")
     print(f"# mvm launches: product {product}, fused {fused}, segment {segment}", flush=True)
     return segment
 
@@ -1349,8 +1499,8 @@ def run_lab(work: str) -> list:
     mosaic = echo(lambda: bench_lab.suite_mosaic(device=DEVICE))
     rowsum = echo(lambda: bench_lab.suite_rowsum(device=DEVICE))
     launches = dict(lab.LAUNCHES)
-    print(f"# lab mosaic + rowsum: {time.perf_counter() - t0:.1f} s, launches {launches}",
-          flush=True)
+    print(f"# lab mosaic + rowsum: {time.perf_counter() - t0:.1f} s, launches {launches}; "
+          f"launch floor {mosaic['floor_ms']} ms by {mosaic['floor_by']}", flush=True)
     if not mosaic["ok"]:
         fail(f"the mosaic suite failed: probes {mosaic['probes_ok']}, TMA {mosaic['tma']}")
     for name, n in launches.items():
@@ -1371,6 +1521,12 @@ def run_lab(work: str) -> list:
     for suite in ("micro", "layout", "scatter"):
         echo(lambda suite=suite: bench_lab.SUITES[suite]((), device=DEVICE))
     print(f"# lab core, micro, layout, scatter: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cores = len(os.sched_getaffinity(0))
+    caps = ",".join(str(c) for c in (1, 2, 4, 8, 16) if c <= max(cores, 1))
+    host = echo(lambda: bench_lab.suite_hostplane(["--caps", caps]))
+    print(f"# lab hostplane (host only, {cores} usable cores): {time.perf_counter() - t0:.1f} s, "
+          + ", ".join(f"{k} {v}" for k, v in host.items()), flush=True)
 
     kern = []
     tma = {key: lab.tma_result(code) for key, code in mosaic["tma"].items()}
@@ -1382,6 +1538,7 @@ def run_lab(work: str) -> list:
             "replaces": replaces, "launches": launches[name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": k["library_ms"], "ms_by": k["ms_by"], "host_ms": k["host_ms"],
+            "floor_ms": mosaic["floor_ms"],
             **({"tma_encode": tma} if key == "d" else {}),
         })
     b_ms, b_by = bound_ms(rowsum["bytes"], rowsum["adds"])
@@ -1405,7 +1562,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on a CUDA card only")
     card = card_line()
-    print(f"# card: {card}", flush=True)
+    print(f"# card: {card}; host: {len(os.sched_getaffinity(0))} usable cores", flush=True)
 
     from xflow_tpu_torch.config import Config, override
     from xflow_tpu_torch.ops import kernels
@@ -1423,26 +1580,30 @@ def main() -> int:
             "model.name": "fm", "model.v_dim": V_DIM, "model.num_fields": NUM_FIELDS,
             "data.log2_slots": LOG2_SLOTS, "data.max_nnz": NUM_FIELDS,
             "data.batch_size": BATCH, "train.checkpoint_dir": os.path.join(work, "ck"),
+            # the paths read the text; input_sources reads this cache directory
+            "data.cache": "off", "data.cache_dir": os.path.join(work, "xfc"),
         })
-        path = make_inputs(work, cfg)
+        path, rate_path = make_inputs(work, cfg)
         mcfg = mvm_config(cfg, os.path.join(work, "ck_mvm"))
         write_state(mcfg.train.checkpoint_dir, "v", V_DIM, MVM_V_SCALE, SEED + 1)
-        from xflow_tpu_torch.data.libffm import iter_batches
+        from xflow_tpu_torch.data.pipeline import batch_iterator
         from xflow_tpu_torch.serve.runner import ServeRunner
 
         gen = ServeRunner(cfg, device=DEVICE).load()
         kern = check_kernels(cfg, gen, path)
         kern += check_train_kernels(cfg, path)
-        mvm_batch = next(iter_batches(path, mcfg.data))  # parsed once for the MVM checks
+        it = batch_iterator(path, mcfg.data)
+        mvm_batch = next(it)  # parsed once for the MVM checks
+        it.close()
         seg_cfg = mvm_config(cfg, mcfg.train.checkpoint_dir, **{"model.mvm_exclusive": "off"})
         kern += check_multi_kernels(seg_cfg, mvm_batch)
         mvm_product = check_mvm_product_kernels(mcfg, mvm_batch)
         hot = check_hot_scatters()
         mvm_steps_card_vs_cpu(mcfg, mvm_batch)
-        eval_launches = run_slice(cfg, gen, path)
-        train_launches, two_pass = run_training(cfg, work, path)
+        eval_launches = run_slice(cfg, gen, path, rate_path)
+        train_launches, two_pass = run_training(cfg, work, path, rate_path)
         lr_launches = run_lr(cfg, work, path, mvm_batch)
-        segment = run_mvm_training(mcfg, work, path)
+        segment = run_mvm_training(mcfg, work, path, rate_path)
         wide = check_wide_row_sums(cfg, path)
         lab_kern = run_lab(work)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "

@@ -242,11 +242,23 @@ def test_cli_core_sweeps_bf16_cells(tmp_path):
     assert bf16["bytes_accessed"] == bench_lab.core_bytes("gather", 1 << 7, 1 << 6, 2, 2)
 
 
-@pytest.mark.parametrize("suite", ["nope", "hostplane"])
+@pytest.mark.parametrize("suite", ["nope", "Hostplane"])  # every JAX suite is ported
 def test_cli_unknown_suite_exits_2(suite):
     r = _run_lab("--suite", suite)
     assert r.returncode == 2
     assert "invalid choice" in r.stderr
+
+
+def test_hostplane_suite_runs_on_the_cpu_with_the_jax_record_keys(capsys):
+    argv = ["--rows", "3000", "--batch", "1024", "--log2-slots", "12", "--num-sub", "2",
+            "--caps", "1,2"]
+    rec = bench_lab.suite_hostplane(argv)
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == rec and rec["host_cores"] >= 1
+    assert all(v > 0 for k, v in rec.items() if k.endswith("w"))
+    assert jlab.suite_hostplane(argv) == 0
+    jrec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(rec) == set(jrec)
 
 
 def test_cli_asks_for_the_card_by_default():

@@ -283,10 +283,10 @@ def test_lr_checkpoints_restore_across_packages(fit_case):
 
 
 def test_batch_arrays_dedups_only_row_major_batches(fit_case):
-    from xflow_tpu_torch.data.libffm import iter_batches
+    from xflow_tpu_torch.data.pipeline import batch_iterator
 
     cfg = override(Config(), **_pairs(**{"data.dedup": "auto", "data.dedup_cap_frac": 1.0}))
-    batch = next(iter_batches(fit_case["path"], cfg.data))
+    batch = next(batch_iterator(fit_case["path"], cfg.data))
     arrays = batch_arrays(batch, cfg, HostDedup(cfg))
     assert {"unique_slots", "inverse"} <= arrays.keys() and "slots" not in arrays
     fm = override(cfg, **{"model.name": "fm", "model.v_dim": 4})

@@ -50,7 +50,7 @@ from xflow_tpu.train.state import init_state as jinit_state
 from xflow_tpu.train.step import make_train_step as jmake_train_step
 from xflow_tpu.train.trainer import Trainer as JTrainer
 from xflow_tpu_torch.config import Config, override
-from xflow_tpu_torch.data.libffm import iter_batches
+from xflow_tpu_torch.data.pipeline import batch_iterator
 from xflow_tpu_torch.evaluate import batch_arrays, predict_batches, to_device
 from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.models import mvm as tmvm
@@ -348,7 +348,7 @@ def test_fit_matches_jax_step_for_step(fit_case):
 def test_mixed_shard_takes_both_row_sides(tmp_path):
     path = _mixed_shard(str(tmp_path / "m-00000"))
     cfg = override(Config(), **_pairs())
-    sides = {"sorted_fields" in batch_arrays(b, cfg) for b in iter_batches(path, cfg.data)}
+    sides = {"sorted_fields" in batch_arrays(b, cfg) for b in batch_iterator(path, cfg.data)}
     assert sides == {True, False}
 
 

@@ -5,7 +5,8 @@ port's sorted-window `evaluate` gives the JAX trainer's AUC and logloss
 on the same checkpoint and libffm shard, and `ServeRunner.predict_rows`
 gives the port's evaluate pctrs (the serve == evaluate pin). The package
 imports, and its `evaluate` and `train` commands run (FM, and MVM on
-both row sides), with `jax` and `xflow_tpu` blocked.
+both row sides), with `jax` and `xflow_tpu` blocked: through the native
+parser and planner, and from an `.xfc` cache the port packs.
 """
 
 import json
@@ -187,6 +188,9 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.train.step, xflow_tpu_torch.train.trainer\n"
         "import xflow_tpu_torch.models.mvm, xflow_tpu_torch.ops.lab\n"
         "import xflow_tpu_torch.tools.bench_lab, xflow_tpu_torch.tools.kernel_parity\n"
+        "import xflow_tpu_torch.data.native, xflow_tpu_torch.data.pipeline\n"
+        "import xflow_tpu_torch.data.shardcache, xflow_tpu_torch.jsonl\n"
+        "import xflow_tpu_torch.tools.criteo_convert\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -249,3 +253,51 @@ def test_cli_mvm_train_and_evaluate_without_jax(slice_case, tmp_path, exclusive)
     assert r.returncode == 0, r.stderr
     ev = json.loads(r.stdout.strip().splitlines()[-1])
     assert ev["step"] == 8 and 0.0 <= ev["auc"] <= 1.0 and np.isfinite(ev["logloss"])
+
+
+def test_cli_reads_through_the_native_plane_without_jax(slice_case, tmp_path):
+    """train and evaluate read through the native parser and planner (the
+    Python parser's count stays 0), then train again from the `.xfc`
+    cache `criteo_convert cache` packs, all with jax blocked."""
+    prefix = str(tmp_path / "c")  # a copy: the cache lands beside it
+    path = prefix + "-00000"
+    with open(slice_case["path"], "rb") as src, open(path, "wb") as dst:
+        dst.write(src.read())
+    code = (
+        "import json\n"
+        "from xflow_tpu_torch.__main__ import main\n"
+        "from xflow_tpu_torch.data import pipeline\n"
+        "from xflow_tpu_torch.tools import criteo_convert\n"
+        "ck, prefix, path = sys.argv[1:4]\n"
+        "common = ['--batch-size', '64', '--log2-slots', '14', '--device', 'cpu',\n"
+        "          '--model', 'fm', '--set', 'model.v_dim=4', '--set', 'data.max_nnz=8',\n"
+        "          '--set', 'model.num_fields=8', '--set', 'data.parser_threads=2']\n"
+        "calls = {}\n"
+        "for name, argv in (\n"
+        "        ('train', ['train', '--train', prefix, '--epochs', '1',\n"
+        "                   '--checkpoint-dir', ck + '/a', *common]),\n"
+        "        ('evaluate', ['evaluate', '--checkpoint-dir', ck + '/a', '--test', path,\n"
+        "                      *common]),\n"
+        "        ('pack', None),\n"
+        "        ('cached', ['train', '--train', prefix, '--epochs', '1',\n"
+        "                    '--checkpoint-dir', ck + '/b', '--set', 'data.cache=on',\n"
+        "                    *common])):\n"
+        "    pipeline.reset_host_calls()\n"
+        "    if argv is None:\n"
+        "        rc = criteo_convert.main(['cache', prefix, '--log2-slots', '14',\n"
+        "                                  '--max-nnz', '8'])\n"
+        "    else:\n"
+        "        rc = main(argv)\n"
+        "    assert rc == 0, name\n"
+        "    calls[name] = pipeline.host_calls()\n"
+        "print(json.dumps(calls))\n"
+    )
+    r = _run_without_jax(code, str(tmp_path), prefix, path)
+    assert r.returncode == 0, r.stderr
+    calls = json.loads(r.stdout.strip().splitlines()[-1])
+    for name in ("train", "evaluate"):
+        assert calls[name]["native_stream"] == 4 and calls[name]["native_plan"] == 4, calls
+        assert calls[name]["python_rows"] == 0 and calls[name]["cache_batches"] == 0, calls
+    assert calls["cached"]["cache_batches"] == 4 and calls["cached"]["native_plan"] == 4
+    assert calls["cached"]["native_stream"] == 0 and calls["cached"]["python_rows"] == 0
+    assert os.path.exists(path + ".xfc")

@@ -37,7 +37,8 @@ from xflow_tpu.train.state import init_state as jinit_state
 from xflow_tpu.train.step import make_train_step as jmake_train_step
 from xflow_tpu.train.trainer import Trainer as JTrainer
 from xflow_tpu_torch.config import Config, override
-from xflow_tpu_torch.data.libffm import iter_batches, iter_examples
+from xflow_tpu_torch.data.libffm import iter_examples
+from xflow_tpu_torch.data.pipeline import batch_iterator, examples_to_batches
 from xflow_tpu_torch.evaluate import batch_arrays, to_device
 from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.optim import get_optimizer
@@ -323,8 +324,8 @@ def test_resume_from_interrupted_run_equals_uninterrupted(fit_case, tmp_path):
 
 def test_iter_batches_skip_matches_the_consumed_prefix(fit_case):
     cfg = override(Config(), **fit_case["common"]).data
-    every = list(iter_batches(fit_case["path"], cfg))
-    rest = list(iter_batches(fit_case["path"], cfg, skip=2))
+    every = list(batch_iterator(fit_case["path"], cfg))
+    rest = list(batch_iterator(fit_case["path"], cfg, skip=2))
     assert len(every) == 4 and len(rest) == 2
     for a, b in zip(every[2:], rest):
         for x, y in zip(a, b):
@@ -334,20 +335,27 @@ def test_iter_batches_skip_matches_the_consumed_prefix(fit_case):
 
 def test_iter_examples_skip_counts_what_parse_line_yields(tmp_path):
     # blank lines, a line without a label separator and a label with only
-    # a trailing tab yield no example, so a resumed run's skip passes them
+    # a trailing tab yield no example, so a resumed run's skip (of
+    # one-row batches here) passes them; the Python parser agrees
     path = tmp_path / "mixed"
     path.write_text("\n".join([
         "1\t1:a:1 2:b:1", "", "   ", "0 1:c:1", "label_only", "1\t", "\t0\t3:d:1", "1\t2:e:1",
     ]) + "\n")
-    every = list(iter_examples(str(path), LOG2_S))
-    assert [label for label, _, _ in every] == [1.0, 0.0, 0.0, 1.0]
+    cfg = override(Config(), **{"data.log2_slots": LOG2_S, "data.batch_size": 1,
+                                "data.max_nnz": NNZ}).data
+    every = list(batch_iterator(str(path), cfg))
+    assert [float(b.labels[0]) for b in every] == [1.0, 0.0, 0.0, 1.0]
+    python = list(examples_to_batches(iter_examples(str(path), LOG2_S), 1, NNZ))
+    assert len(python) == len(every)
+    for a, b in zip(every, python):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
     for k in range(len(every) + 1):
-        rest = list(iter_examples(str(path), LOG2_S, skip=k))
+        rest = list(batch_iterator(str(path), cfg, skip=k))
         assert len(rest) == len(every) - k
         for a, b in zip(every[k:], rest):
-            assert a[0] == b[0]
-            np.testing.assert_array_equal(a[1], b[1])
-            np.testing.assert_array_equal(a[2], b[2])
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
 
 
 def test_sgd_occupancy_counts_the_touched_slots(fit_case, tmp_path):

@@ -15,6 +15,11 @@ when given, and prints one JSON summary line {"rank", "steps", "epochs",
 
 Loads the newest loadable committed checkpoint under D, evaluates libffm
 file F and prints one JSON line {"auc", "logloss", "step", "device"}.
+
+Both read their input through the native parser (`--set
+data.parser_threads=N`) or a shard's `.xfc` cache (`data.cache`,
+`data.cache_dir`; `python -m xflow_tpu_torch.tools.criteo_convert cache
+PREFIX` packs them).
 """
 
 from __future__ import annotations

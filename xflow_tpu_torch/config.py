@@ -1,5 +1,6 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
-(FM inference, single-device FM and MVM training) read, with the JAX package's
+(FM inference, single-device LR, FM and MVM training, the host input
+plane) read, with the JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
@@ -85,7 +86,18 @@ class DataConfig:
     `dedup` ("auto"|"off") ships a row-major batch as (unique_slots,
     inverse) when its unique slots fit `dedup_cap_frac * batch_size *
     max_nnz` (`ops/sorted_table.dedup_slots`): the table gather then
-    moves U rows instead of B*F. Off by default, as in the JAX package."""
+    moves U rows instead of B*F. Off by default, as in the JAX package.
+
+    Host input (`data/pipeline.py`): text is read by the C++ parser
+    (`data/native.py`) in `parser_threads` workers (0 = one a usable
+    core, capped at 16; 1 = the sequential parser; batches are
+    byte-identical either way); a short last batch is padded and
+    row-masked. `cache` ("auto"|"on"|"off") reads a
+    shard's packed `.xfc` cache (`data/shardcache.py`) where one is fresh
+    ("on": it must be), beside the shard or under `cache_dir`.
+    `max_bad_rows` is the budget of feature-less rows a training pass
+    may hold (-1 = count and warn only); `quarantine_path` (a JSONL
+    file, "" = off) records each of them."""
 
     train_path: str = ""
     test_path: str = ""
@@ -93,6 +105,11 @@ class DataConfig:
     max_nnz: int = 32
     log2_slots: int = 22
     hash_salt: int = 0
+    parser_threads: int = 0
+    cache: str = "auto"
+    cache_dir: str = ""
+    max_bad_rows: int = -1
+    quarantine_path: str = ""
     sorted_layout: str = "auto"
     sorted_bf16: bool = False
     sorted_sub_batches: int = 0

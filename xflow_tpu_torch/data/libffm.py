@@ -7,17 +7,29 @@ packages parse a file to the same slots and fields:
   feature-id string); the value is never read (features are binary);
 - tokens without a ``:`` are skipped; a line without a label separator
   yields nothing.
+
+This is the Python parser: the plain version the native parser
+(`data/native.py`) is tested against, and no path of the port runs it.
+`CALLS["rows"]` counts the rows it has parsed from files, so a run can
+show that it did not take this path.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Iterator, Optional
 
 import numpy as np
 
-from xflow_tpu_torch.data.schema import SparseBatch, make_batch
 from xflow_tpu_torch.hashing import fnv1a64, slot_of
+from xflow_tpu_torch.jsonl import JsonlAppender
+
+CALLS = {"rows": 0}
+
+
+def reset_calls() -> None:
+    CALLS["rows"] = 0
 
 _NUM_PREFIX = re.compile(r"^[+-]?(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?")
 _HEX_PREFIX = re.compile(r"^[+-]?0[xX][0-9a-fA-F]+(?:\.[0-9a-fA-F]*)?(?:[pP][+-]?\d+)?")
@@ -59,7 +71,7 @@ def _fgid_i32(x: float) -> int:
 def _split_label(line: str) -> Optional[list[str]]:
     """[label, features] of a libffm line, or None when the line is not an
     example (empty, or no label separator). The one rule of what counts
-    as an example: parsing and a resumed run's skip both read it."""
+    as an example: parsing and the row counter both read it."""
     line = line.strip(_ASCII_WS)
     if not line:
         return None
@@ -101,34 +113,47 @@ def shard_path(prefix: str, rank: int) -> str:
 
 
 def iter_examples(
-    path: str, log2_slots: int, salt: int = 0, skip: int = 0
+    path: str, log2_slots: int, salt: int = 0
 ) -> Iterator[tuple[float, np.ndarray, np.ndarray]]:
-    """Stream (label, fields, slots) examples from a libffm file, after
-    passing over its first `skip` examples unparsed."""
+    """Stream (label, fields, slots) examples from a libffm file
+    (`data/pipeline.py` batches them)."""
     with open(path, "r") as f:
         for line in f:
-            if skip > 0:
-                skip -= _split_label(line) is not None
-                continue
             ex = parse_line(line, log2_slots, salt)
             if ex is not None:
+                CALLS["rows"] += 1
                 yield ex
 
 
-def iter_batches(path: str, dcfg, skip: int = 0) -> Iterator[SparseBatch]:
-    """Padded ``[batch_size, max_nnz]`` batches of a libffm file; the last
-    partial batch is padded and row-masked. `skip` passes over the first
-    `skip` batches (a resumed run's consumed prefix)."""
-    bs = dcfg.batch_size
-    labels: list = []
-    fields: list = []
-    slots: list = []
-    for label, f, s in iter_examples(path, dcfg.log2_slots, dcfg.hash_salt, skip * bs):
-        labels.append(label)
-        fields.append(f)
-        slots.append(s)
-        if len(labels) == bs:
-            yield make_batch(fields, slots, labels, bs, dcfg.max_nnz)
-            labels, fields, slots = [], [], []
-    if labels:
-        yield make_batch(fields, slots, labels, bs, dcfg.max_nnz)
+def count_rows(path: str) -> int:
+    """The examples `iter_examples` yields for `path`, without parsing
+    tokens: a row is a stripped line that still holds a label separator."""
+    n = 0
+    with open(path, "r") as f:
+        for line in f:
+            n += _split_label(line) is not None
+    return n
+
+
+def available_shards(prefix: str) -> list[str]:
+    """Every `<prefix>-NNNNN` shard file that exists, in rank order."""
+    out = []
+    while os.path.exists(shard_path(prefix, len(out))):
+        out.append(shard_path(prefix, len(out)))
+    return out
+
+
+class QuarantineWriter(JsonlAppender):
+    """The JSONL sink of bad (feature-less) rows (`data.quarantine_path`):
+    one record a row, with its source path, batch and row index and label,
+    as `xflow_tpu/data/libffm.py::QuarantineWriter` writes them."""
+
+    def __init__(self, path: str = ""):
+        super().__init__(path)
+        self.written = 0
+
+    def write(self, source: str, batch_index: int, row: int, label: float) -> None:
+        if not self.enabled:
+            return
+        self.append({"source": source, "batch": batch_index, "row": row, "label": label})
+        self.written += 1

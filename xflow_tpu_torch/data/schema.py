@@ -22,6 +22,10 @@ class SparseBatch(NamedTuple):
     labels: np.ndarray
     row_mask: np.ndarray
 
+    @property
+    def num_rows(self) -> int:
+        return int(self.row_mask.sum())
+
 
 def make_batch(
     rows_fields: list,

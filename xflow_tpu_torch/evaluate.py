@@ -1,11 +1,13 @@
 """Offline evaluation on one device: the exact single-device path of the
 JAX trainer's `evaluate` (`xflow_tpu/train/trainer.py`).
 
-Each batch of the libffm file is planned on the host (slot-sorted plan,
-stacked into sub-batches where configured, compact wire format) when the
-sorted layout is on, shipped to the device, and run through the shared
-`predict_fn`; the pCTRs of real rows
-feed the rank-sum AUC and the mean log-likelihood.
+Each batch of the libffm file (read by `data/pipeline.batch_iterator`:
+its `.xfc` cache, or the native parser) is planned on the host
+(slot-sorted plan by the native planner, stacked into sub-batches where
+configured, in the compact wire format) when the sorted layout is on, in
+a prefetch thread, then shipped to the device on the caller's thread and
+run through the shared `predict_fn`; the pCTRs of real rows feed the
+rank-sum AUC and the mean log-likelihood.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from xflow_tpu_torch.config import Config
-from xflow_tpu_torch.data.libffm import iter_batches
+from xflow_tpu_torch.data.pipeline import batch_iterator, prefetch
 from xflow_tpu_torch.data.schema import SparseBatch
 from xflow_tpu_torch.metrics import auc_logloss
 from xflow_tpu_torch.models import get_model
@@ -104,9 +106,14 @@ def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = N
         return arrays if dedup is None else dedup(arrays)
     want_fields = mvm and mvm_wants_fields(batch, cfg)
     ns = resolve_sub_batches(cfg)
+    rows_bound = cfg.data.batch_size // ns
     plan = plan_sorted_stacked(
         batch.slots, batch.mask, cfg.num_slots,
         fields=batch.fields if want_fields else None, num_sub=ns,
+        # the config's bounds, the rule compact_plan_wire applies: the
+        # native planner then emits the wire dtypes itself
+        wire=rows_bound <= (1 << 16)
+        and (not want_fields or cfg.model.num_fields <= (1 << 8)),
     )
     arrays.update(
         sorted_slots=plan.sorted_slots,
@@ -117,24 +124,43 @@ def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = N
     if want_fields:
         arrays["sorted_fields"] = plan.sorted_fields
     return compact_plan_wire(
-        arrays, rows_bound=cfg.data.batch_size // ns,
+        arrays, rows_bound=rows_bound,
         fields_bound=cfg.model.num_fields if want_fields else 0,
     )
 
 
+def _host_array(v) -> np.ndarray:
+    """A contiguous, writable array: views of a read-only `.xfc` memmap
+    are copied, as torch does not take a read-only buffer."""
+    a = np.ascontiguousarray(v)
+    return a if a.flags.writeable else a.copy()
+
+
 def to_device(arrays: dict, device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
+    return {k: torch.from_numpy(_host_array(v)).to(device) for k, v in arrays.items()}
 
 
 def predict_batches(cfg: Config, tables: dict, path: str,
                     device="cuda") -> Iterator[tuple[SparseBatch, np.ndarray]]:
     """(batch, pctr [B] on the host) for every batch of libffm file `path`,
-    predicted on `device` with `tables` (already on that device)."""
+    predicted on `device` with `tables` (already on that device). Batches
+    are read and planned in a prefetch thread, counting bad rows without
+    raising or quarantining them (an eval pass, as in the JAX trainer)."""
     step = make_predict_fn(get_model(cfg.model.name)(cfg))
     dedup = HostDedup(cfg)
-    for batch in iter_batches(path, cfg.data):
-        p = step(tables, to_device(batch_arrays(batch, cfg, dedup), device))
-        yield batch, p.cpu().numpy()
+
+    def feed():
+        for batch in batch_iterator(path, cfg.data, enforce_bad_rows=False,
+                                    quarantine=False):
+            yield batch, batch_arrays(batch, cfg, dedup)
+
+    stream = prefetch(feed())
+    try:
+        for batch, host in stream:
+            p = step(tables, to_device(host, device))
+            yield batch, p.cpu().numpy()
+    finally:
+        stream.close()  # an early close stops the reader at once
 
 
 def evaluate(cfg: Config, tables: dict, path: str, device="cuda") -> tuple[float, float]:

@@ -2,8 +2,9 @@
 the FM and MVM inference and training paths.
 
 The host sorts each batch's feature occurrences by table slot
-(`plan_sorted_batch`, bit-identical to the JAX package's numpy planner)
-and ships `sorted_slots [Np]`, `sorted_row [Np]`, `sorted_mask [Np]` and
+(`plan_sorted_batch`: the native radix sort of `data/native.py`,
+bit-identical to the JAX package's planners and to the numpy one here,
+`plan_sorted_plain`) and ships `sorted_slots [Np]`, `sorted_row [Np]`, `sorted_mask [Np]` and
 `win_off [S/WINDOW + 1]`. On the device:
 
 - `table_gather_sorted` returns each occurrence's table row, transposed:
@@ -36,6 +37,8 @@ recognises the JAX package's packed `[S/8, 8K]` layout so
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -77,15 +80,17 @@ class SortedPlan(NamedTuple):
     sorted_fields: Optional[np.ndarray] = None  # int32 [Np]
 
 
-def plan_sorted_batch(
+def plan_sorted_plain(
     slots: np.ndarray,
     mask: np.ndarray,
     num_slots: int,
     fields: Optional[np.ndarray] = None,
 ) -> SortedPlan:
-    """Sort a [B, F] batch's occurrences by table slot (stable), pad to
-    `padded_len`, and record each WINDOW's first position in `win_off`.
-    Masked occurrences keep their slot; their mask zeroes them later."""
+    """The numpy planner (the JAX package's): sort a [B, F] batch's
+    occurrences by table slot (stable argsort), pad to `padded_len`, and
+    record each WINDOW's first position in `win_off`. Masked occurrences
+    keep their slot; their mask zeroes them later. The plain version the
+    native planner is held to, in the tests."""
     flat_slots = np.ascontiguousarray(slots, np.int32).ravel()
     flat_mask = np.ascontiguousarray(mask, np.float32).ravel()
     if flat_slots.size and (
@@ -115,6 +120,60 @@ def plan_sorted_batch(
     )
 
 
+def plan_sorted_batch(
+    slots: np.ndarray,
+    mask: np.ndarray,
+    num_slots: int,
+    fields: Optional[np.ndarray] = None,
+    wire: bool = False,
+) -> SortedPlan:
+    """The slot-sorted plan of a [B, F] batch, bit-identical to
+    `plan_sorted_plain`, by the native radix sort (`data/native.py`,
+    O(n), the GIL released). `num_slots` must be a multiple of WINDOW,
+    as every kernel of the plan requires. `wire=True` has the native
+    planner emit the compact wire dtypes directly (uint16 rows, uint8
+    mask and fields); the caller has checked the config bounds (rows <=
+    2^16, fields < 2^8), and `compact_plan_wire` passes the result
+    through untouched. A failed build of the native planner raises."""
+    if num_slots % WINDOW:
+        raise ValueError(f"num_slots={num_slots} is not a multiple of WINDOW={WINDOW}")
+    from xflow_tpu_torch.data.native import native_plan_sorted, native_plan_sorted_wire
+
+    plan = native_plan_sorted_wire if wire else native_plan_sorted
+    ss, row, m, f, off = plan(
+        np.ascontiguousarray(slots, np.int32), mask, fields, num_slots, WINDOW,
+        padded_len(slots.size),
+    )
+    return SortedPlan(ss, row, m, off, f)
+
+
+_PLAN_POOL = None  # one fixed-size executor a process, never shut down
+_PLAN_POOL_LOCK = threading.Lock()
+
+
+def _plan_pool():
+    """The shared planning thread pool, one worker a usable core (at most
+    16), created once and never resized, so concurrent callers' map()
+    calls never race a pool's shutdown."""
+    global _PLAN_POOL
+    with _PLAN_POOL_LOCK:
+        if _PLAN_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            size = max(1, min(len(os.sched_getaffinity(0)), 16))
+            _PLAN_POOL = ThreadPoolExecutor(max_workers=size, thread_name_prefix="xflow-plan")
+        return _PLAN_POOL
+
+
+def map_host_parallel(fn, n: int) -> list:
+    """[fn(0), ..., fn(n - 1)] on the shared planning pool (the native
+    planner releases the GIL, so plans run on the host's cores), in
+    order."""
+    if n <= 1:
+        return [fn(i) for i in range(n)]
+    return list(_plan_pool().map(fn, range(n)))
+
+
 def plan_sorted_stacked(
     slots: np.ndarray,
     mask: np.ndarray,
@@ -122,29 +181,32 @@ def plan_sorted_stacked(
     fields: Optional[np.ndarray] = None,
     num_sub: int = 1,
     always_stack: bool = False,
+    wire: bool = False,
 ) -> SortedPlan:
     """Per-sub-batch sorted plans stacked on a leading [NS] axis: the
     [B, F] batch is split into `num_sub` row-contiguous sub-batches,
-    each planned on its own (row ids LOCAL to the sub-batch), one after
-    another. `num_sub=1` returns the FLAT plan unless `always_stack`.
-    Each stacked `win_off[i]` ends at the sub-plan's length, the
-    `loc_off` contract of `table_gather_sorted_multi`."""
+    each planned on its own (row ids LOCAL to the sub-batch), on the
+    shared planning pool. `num_sub=1`
+    returns the FLAT plan unless `always_stack`. Each stacked
+    `win_off[i]` ends at the sub-plan's length, the `loc_off` contract
+    of `table_gather_sorted_multi`. `wire` as in `plan_sorted_batch`."""
     B = slots.shape[0]
     if num_sub <= 1:
-        p = plan_sorted_batch(slots, mask, num_slots, fields=fields)
+        p = plan_sorted_batch(slots, mask, num_slots, fields=fields, wire=wire)
         if not always_stack:
             return p
         return SortedPlan(*(None if a is None else a[None] for a in p))
     if B % num_sub:
         raise ValueError(f"batch {B} not divisible by num_sub {num_sub}")
     bs = B // num_sub
-    plans = [
-        plan_sorted_batch(
+
+    def one(i):
+        return plan_sorted_batch(
             slots[i * bs : (i + 1) * bs], mask[i * bs : (i + 1) * bs], num_slots,
-            fields=None if fields is None else fields[i * bs : (i + 1) * bs],
+            fields=None if fields is None else fields[i * bs : (i + 1) * bs], wire=wire,
         )
-        for i in range(num_sub)
-    ]
+
+    plans = map_host_parallel(one, num_sub)
     return SortedPlan(*(
         None if parts[0] is None else np.stack(parts) for parts in zip(*plans)
     ))
@@ -193,7 +255,9 @@ def compact_plan_wire(arrays: dict, rows_bound: int, fields_bound: int = 0) -> d
     """Shrink the plan's host-to-device wire format: row ids to uint16
     (when `rows_bound` <= 2^16), fields to uint8 (when `fields_bound` <=
     2^8), the 0/1 mask to uint8. The device side widens them with
-    `wire_rows` / `wire_mask`. Raises on a mask that is not 0/1."""
+    `wire_rows` / `wire_mask`. Raises on a mask that is not 0/1. Arrays
+    already compact (the native planner's wire form) pass through
+    untouched."""
     out = dict(arrays)
     if rows_bound <= (1 << 16) and _dtype(out, "sorted_row") == np.int32:
         out["sorted_row"] = np.asarray(out["sorted_row"]).astype(np.uint16)

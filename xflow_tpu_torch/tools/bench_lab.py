@@ -3,6 +3,7 @@ hot-path probe, the counterpart of `xflow_tpu/tools/bench_lab.py`.
 
     python -m xflow_tpu_torch.tools.bench_lab --suite core [--device cpu] [core flags]
     python -m xflow_tpu_torch.tools.bench_lab --suite micro|layout|mosaic|scatter|rowsum
+    python -m xflow_tpu_torch.tools.bench_lab --suite hostplane [--rows N] [--caps 1,2,4]
 
 The suites run on the card unless `--device cpu` is given; a CUDA device
 that is asked for and missing is an error, never a fall back to the CPU.
@@ -32,8 +33,12 @@ that is asked for and missing is an error, never a fall back to the CPU.
   and `np.add.at`, timed beside #2 (`row_sums_cuda`, the same contract),
   `zeros` + `index_add_` and the plain version.
 
-The JAX lab's `hostplane` suite (native parser and planner, threaded
-input pipeline) has no counterpart until the port has those.
+- `hostplane`: the host data plane (`data/native.py`), on the host: the
+  native parser's rows a second at 1, 2, 4 threads and the native
+  planner's with 8 sub-batch plans on pools of 1, 2, 4 workers.
+
+`mosaic` also reads the launch floor: a one-element `torch.zeros` fill
+by the same profiler (`floor_ms`).
 
 Each suite function takes its shapes as keyword arguments with the JAX
 values as defaults (so tests run them small), prints what the JAX suite
@@ -510,6 +515,15 @@ def suite_mosaic(argv=(), *, device: str = "cuda", block_rows: int = 512, chunk:
               f"{t['library']:.4f}) by {by}; back-to-back calls {host['kernel']:.4f} (plain "
               f"{host['plain']:.4f}, library {host['library']:.4f})")
 
+    # the launch floor: one one-element fill, read as the probes are
+    fill = lambda: torch.zeros(1, device=dev)  # noqa: E731
+    floor = device_ms(fill) if dev.type == "cuda" else None
+    floor_by = "torch.profiler" if floor is not None else "perf_counter"
+    if floor is None:
+        floor, floor_by = timeit(fill, dev, iters=iters, inner=inner) * 1e3, (
+            "CUDA events" if dev.type == "cuda" else "perf_counter")
+    print(f"launch floor (torch.zeros(1) fill): {floor:.5f} ms by {floor_by}")
+
     # E: transpose cost [4M, 11] <-> [11, 4M]
     big = torch.ones((1 << transpose_log2, K), device=dev)
     s = [0.0]
@@ -522,7 +536,8 @@ def suite_mosaic(argv=(), *, device: str = "cuda", block_rows: int = 512, chunk:
     print(f"E transpose [{big.shape[0]},{K}]->[{K},{big.shape[0]}]: {t_e * 1e3:.3f} ms")
     gate = all(ok.values()) and (dev.type != "cuda" or (tma["b"] == 0 and tma["c"] == 0))
     return {"ok": gate, "device": device_name(dev), "probes_ok": ok, "tma": tma,
-            "kernels": rec, "transpose_ms": t_e * 1e3, "off": off[:grid].tolist()}
+            "kernels": rec, "transpose_ms": t_e * 1e3, "off": off[:grid].tolist(),
+            "floor_ms": floor, "floor_by": floor_by}
 
 
 # ------------------------------------------- suite: scatter (windowed plan)
@@ -732,6 +747,98 @@ def suite_rowsum(argv=(), *, device: str = "cuda", batch: int = 65536, ch: int =
 # -------------------------------------------------------------------- main
 
 
+# ---------------------------------------------- suite: hostplane (CPU side)
+
+
+def _hostplane_parse(path: str, caps, cfg) -> dict:
+    """Rows a second the input pipeline reads from `path` at each parser
+    thread count (a warm pass first: the page cache and the pool)."""
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+
+    out = {}
+    for cap in caps:
+        c = override(cfg, **{"data.parser_threads": cap})
+        for _ in batch_iterator(path, c.data):
+            pass
+        t0 = time.perf_counter()
+        n = sum(b.num_rows for b in batch_iterator(path, c.data))
+        out[f"parse_rows_per_sec_{cap}w"] = round(n / (time.perf_counter() - t0), 1)
+    return out
+
+
+def _hostplane_plan(caps, batch: int, nnz: int, log2_slots: int, num_sub: int) -> dict:
+    """Rows a second the native planner plans, `num_sub` sub-batch plans
+    at a time on a pool of each size (the trainer's parallel unit)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from xflow_tpu_torch.data.native import native_plan_sorted
+    from xflow_tpu_torch.ops.sorted_table import WINDOW, padded_len
+
+    S = 1 << log2_slots
+    rng = np.random.default_rng(0)
+    bs = batch // num_sub
+    subs = [np.ascontiguousarray(rng.integers(0, S, (bs, nnz)).astype(np.int32))
+            for _ in range(num_sub)]
+    mask = np.ones((bs, nnz), np.float32)
+
+    def one(i):
+        return native_plan_sorted(subs[i], mask, None, S, WINDOW, padded_len(bs * nnz))
+
+    out = {}
+    for cap in caps:
+        with ThreadPoolExecutor(max_workers=cap) as pool:
+            list(pool.map(one, range(num_sub)))  # warm
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                list(pool.map(one, range(num_sub)))
+            dt = (time.perf_counter() - t0) / reps
+        out[f"plan_rows_per_sec_{cap}w"] = round(batch / dt, 1)
+    return out
+
+
+def suite_hostplane(argv=(), *, device: str = "cpu", rows: int = 500_000,
+                    batch: int = 65536, nnz: int = 18, log2_slots: int = 22,
+                    num_sub: int = 8, caps: str = "1,2,4") -> dict:
+    """The host data plane's scaling, after the JAX lab's `hostplane`:
+    the native parser's rows a second at each thread count in `caps`,
+    over a bulk synthetic shard of `rows` rows (200,000 ids a field),
+    and the native planner's rows a second with `num_sub` sub-batch
+    plans on a pool of each size. Host only: `device` is not used.
+    `host_cores` is the cores this process may run on."""
+    import tempfile
+
+    ap = argparse.ArgumentParser(prog="bench_lab --suite hostplane")
+    ap.add_argument("--rows", type=int, default=rows)
+    ap.add_argument("--batch", type=int, default=batch)
+    ap.add_argument("--nnz", type=int, default=nnz)
+    ap.add_argument("--log2-slots", type=int, default=log2_slots)
+    ap.add_argument("--num-sub", type=int, default=num_sub,
+                    help="concurrent sub-batch plans (the trainer's parallelism unit)")
+    ap.add_argument("--caps", default=caps)
+    args = ap.parse_args(list(argv))
+
+    from xflow_tpu_torch.config import Config, override
+    from xflow_tpu_torch.data.synth import generate_shards_bulk
+
+    cap_list = [int(c) for c in args.caps.split(",")]
+    record = {"host_cores": len(os.sched_getaffinity(0))}
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "t")
+        generate_shards_bulk(prefix, 1, args.rows, num_fields=args.nnz,
+                             ids_per_field=200_000, seed=0)
+        cfg = override(Config(), **{
+            "data.batch_size": args.batch, "data.max_nnz": args.nnz,
+            "data.log2_slots": args.log2_slots, "model.num_fields": args.nnz,
+        })
+        record.update(_hostplane_parse(prefix + "-00000", cap_list, cfg))
+    record.update(_hostplane_plan(cap_list, args.batch, args.nnz, args.log2_slots,
+                                  args.num_sub))
+    print(json.dumps(record))
+    return record
+
+
 SUITES = {
     "core": suite_core,
     "micro": suite_micro,
@@ -739,6 +846,7 @@ SUITES = {
     "mosaic": suite_mosaic,
     "scatter": suite_scatter,
     "rowsum": suite_rowsum,
+    "hostplane": suite_hostplane,
 }
 
 

@@ -1,10 +1,14 @@
 """Single-device training (a subset of `xflow_tpu/train/trainer.py`).
 
 `Trainer(cfg, device).fit()` runs epochs over the rank-0 shard of
-`data.train_path` (`<prefix>-00000`) in file order, no shuffle: each
-batch is parsed, planned on the host (`evaluate.batch_arrays`: the
-slot-sorted plan in its compact wire form when the sorted layout is on),
-moved to the device and fed to the train step. Checkpoints (tables,
+`data.train_path` (`<prefix>-00000`) in file order, no shuffle. A
+prefetch thread reads each batch (`data/pipeline.batch_iterator`: the
+shard's `.xfc` cache, or its text through the native parser, with the
+bad-record monitor; the first epoch quarantines) and plans it on the host
+(`evaluate.batch_arrays`: the native planner's slot-sorted plan in its
+compact wire form when the sorted layout is on), so parsing and planning
+overlap the card's step; the main thread moves the arrays to the device
+and runs the train step. Checkpoints (tables,
 optimizer state, step, data_state) land every `train.checkpoint_every`
 steps and at the end; `maybe_restore` resumes from the newest loadable
 one, and the next `fit` continues the data stream at its stored offset.
@@ -12,11 +16,12 @@ one, and the next `fit` continues the data stream at its stored offset.
 Not taken over from the JAX trainer: the metrics JSONL, heartbeat,
 trace window, signal checkpoint, async and replica checkpoints,
 checkpoint pruning, health norms, the stream tail, the pipeline
-profiler, the prefetch thread and multi-process coordination.
+profiler and multi-process coordination.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -26,7 +31,8 @@ from typing import Optional
 import torch
 
 from xflow_tpu_torch.config import Config
-from xflow_tpu_torch.data.libffm import iter_batches, shard_path
+from xflow_tpu_torch.data import pipeline
+from xflow_tpu_torch.data.libffm import shard_path
 from xflow_tpu_torch.evaluate import (
     HostDedup,
     batch_arrays,
@@ -98,37 +104,40 @@ class Trainer:
         bad_run = 0
         for epoch in range(start_epoch, cfg.train.epochs):
             offset = skip if epoch == start_epoch else 0
-            for batch in iter_batches(path, cfg.data, skip=offset):
-                arrays = to_device(batch_arrays(batch, cfg, self.dedup), self.device)
-                self.state, m = self.train_step(self.state, arrays)
-                rows = int(batch.row_mask.sum())
-                res.steps += 1
-                res.examples += rows
-                self._examples_seen += rows
-                offset += 1
-                self._epoch_pos = (epoch, offset)
-                loss = float(m["loss"])
-                if m.get("update_ok", True):
-                    bad_run = 0
-                    res.last_loss = loss
-                else:
-                    res.bad_steps += 1
-                    bad_run += 1
-                    print(
-                        f"nonfinite update at step {res.steps} discarded "
-                        f"(total {res.bad_steps}, {bad_run} consecutive)",
-                        file=sys.stderr,
-                    )
-                    if halt or 0 < max_consec <= bad_run:
-                        self._halt(res, bad_run)
-                if cfg.train.log_every and res.steps % cfg.train.log_every == 0:
-                    print(f"step {self.state.step} epoch {epoch} loss {loss}", file=sys.stderr)
-                if (
-                    cfg.train.checkpoint_dir
-                    and cfg.train.checkpoint_every
-                    and res.steps % cfg.train.checkpoint_every == 0
-                ):
-                    self.save_checkpoint()
+            # closing: a halt or an error stops the reader thread at once
+            with contextlib.closing(pipeline.prefetch(
+                    self._feed(path, offset, quarantine=epoch == 0))) as stream:
+                for batch, host in stream:
+                    arrays = to_device(host, self.device)
+                    self.state, m = self.train_step(self.state, arrays)
+                    rows = int(batch.row_mask.sum())
+                    res.steps += 1
+                    res.examples += rows
+                    self._examples_seen += rows
+                    offset += 1
+                    self._epoch_pos = (epoch, offset)
+                    loss = float(m["loss"])
+                    if m.get("update_ok", True):
+                        bad_run = 0
+                        res.last_loss = loss
+                    else:
+                        res.bad_steps += 1
+                        bad_run += 1
+                        print(
+                            f"nonfinite update at step {res.steps} discarded "
+                            f"(total {res.bad_steps}, {bad_run} consecutive)",
+                            file=sys.stderr,
+                        )
+                        if halt or 0 < max_consec <= bad_run:
+                            self._halt(res, bad_run)
+                    if cfg.train.log_every and res.steps % cfg.train.log_every == 0:
+                        print(f"step {self.state.step} epoch {epoch} loss {loss}", file=sys.stderr)
+                    if (
+                        cfg.train.checkpoint_dir
+                        and cfg.train.checkpoint_every
+                        and res.steps % cfg.train.checkpoint_every == 0
+                    ):
+                        self.save_checkpoint()
             self._epoch_pos = (epoch + 1, 0)
             res.epochs = epoch + 1
         if self.device != "cpu":
@@ -138,6 +147,15 @@ class Trainer:
         if cfg.train.checkpoint_dir:
             self.save_checkpoint()
         return res
+
+    def _feed(self, path: str, skip: int, quarantine: bool):
+        """(batch, host arrays) of one pass over `path` after its first
+        `skip` batches: run in the prefetch thread, so the read, the
+        parse and the plan overlap the device's step. A generator, so the
+        consumer dropping the stream closes the reader."""
+        for batch in pipeline.batch_iterator(path, self.cfg.data, skip=skip,
+                                             quarantine=quarantine):
+            yield batch, batch_arrays(batch, self.cfg, self.dedup)
 
     def _halt(self, res: TrainResult, bad_run: int) -> None:
         """Abort the run on the guard's verdict; the bad updates were
@@ -191,7 +209,7 @@ class Trainer:
             "shard_batches": {"0": int(batches)},
             "num_shards": 1,
             "world_size": 1,
-            "quarantined_rows": 0,
+            "quarantined_rows": int(pipeline.COUNTERS["quarantined_rows"]),
         }
 
     def _consume_resume_position(self) -> tuple[int, int]:
