@@ -120,11 +120,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and plan rate per pool size, up to the usable cores). The mosaic
    suite also reads the launch floor (a one-element `torch.zeros` fill by
    the same profiler), carried as `floor_ms` in #7-#10's entries. Each
-   suite's output is echoed as comments.
+   suite's output is echoed as comments;
+13. FFM at bench.py's practical shape (`wv [2^22, 73]`: 18 fields, k =
+   4; 131,072-row batches, so the shard is one batch and the rate shard
+   ten; FTRL), run before phase 12, on a committed step-1 FFM state (wv ~
+   N(0, 0.05²), n and z on the lower half) read once. The first batch
+   plans flat and aligned from the text and the cache (int32 rows, u8
+   fields: 131,072 rows exceed the u16 row bound; the placement
+   `ffm_invperm [131072, 18]`); on it #1 bit-exact, #4 bitwise against
+   the CPU and across two launches and #3 by `ftrl_errs`, bf16 off and
+   on, at K = 73 (`check_gather`, `check_scatters`: their times, plain,
+   library and bound under an `ffm` key of each kernel's entry). One
+   fused and one two-pass step card vs CPU as in phase 5, each launching
+   #1 and #3, or #1 and #4, once and nothing else; the first batch with
+   field 0 repeated in column 1 routes row-major (the FFM route counts,
+   `models/ffm.ROUTES`), launches nothing and matches the CPU step. Then
+   `train --model ffm` (2 epochs, fused: #1 and #3 once a step), a rate
+   run over one epoch of the rate shard (`examples_per_sec`), one
+   two-pass epoch (#1 and #4), every aligned batch on the aligned route;
+   evaluate of the trained checkpoint (finite AUC) and `predict_rows` on
+   64 rows against it within 1e-5; and the train step's stage breakdown
+   (`train_breakdown`: the plan's routing and placement also timed on
+   their own).
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
-`widths` hold its entry at each of ch 24, 32, 104, 128 and 136), and
+`widths` hold its entry at each of ch 24, 32, 104, 128 and 136; #1, #3
+and #4 carry their FFM figures and launches under `ffm`), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -165,6 +187,11 @@ MVM_V_SCALE = 0.5
 # parser's pool, the cache's digest check) once, not every 2 steps
 RATE_BATCHES = 20
 PYTHON_BATCHES = 2  # the Python parser's before column reads the rate shard's first batches
+# FFM at bench.py's practical shape (`bench.py:271-273, 473-474`): k = 4
+# over the same 18 fields (K = 73), 131,072-row batches, so the shard is
+# one batch and the rate shard ten
+FFM_V_DIM, FFM_BATCH = 4, 2 * BATCH
+FFM_V_SCALE = 0.05  # the restored FFM state's init scale, as FM's
 
 
 def fail(msg: str) -> None:
@@ -207,7 +234,8 @@ def rel_err(got, want, floor: float) -> float:
     return ((got - want).abs() / (want.abs() + floor)).max().item()
 
 
-def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True) -> dict:
+def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True,
+              flips: bool = False) -> dict:
     """Errors of an FTRL step's (w', n', z') against a reference, from the
     pre-step (w, n, z); all must be within FTRL_RTOL (with `leaves`
     False, the three leaf errors are reported and only `g` and `w_rule`
@@ -234,23 +262,36 @@ def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True) -> dict:
     - `w_rule`: the new w against the FTRL rule on the same side's own
       (z', n'), with the lazy-init guard, over 1e-2 of the largest |w|
       the rule gives off the guard. The table may be FM's `wv` or MVM's
-      `v`."""
+      `v`.
+
+    With `flips`, w's leaf error leaves out the entries where the
+    lazy-init guard ran on one side only (counted as `lazy_flips`): a
+    (slot, channel) sum whose terms cancel to exactly 0 on one side
+    keeps w there, while the other side's sum, of terms that differ in a
+    last bit, is a few ulps off 0 and moves w by the rule. Two terms of
+    unit scale cancel exactly about once in 2^24 sums, so at FFM's 10^8
+    sums a step makes a few such entries; `g` holds their gradients to
+    agree all the same."""
     import torch
 
     from xflow_tpu_torch.optim.ftrl import weight_of
 
-    errs = {name: rel_err(a.to(b.device), b, FTRL_FLOOR) for name, a, b in zip("wnz", got, want)}
+    # compared on got's device (the card's elementwise float32 ops round as
+    # the CPU's do); each side's implied g on its own device, with its sqrt
+    dev = got[2].device
+    want_d, prev_d = (tuple(t.to(dev) for t in ts) for ts in (want, prev))
+    errs = {name: rel_err(a, b, FTRL_FLOOR) for name, a, b in zip("wnz", got, want_d)}
 
     def implied_g(out):
         w, n, z = (p.to(out[2].device) for p in prev)
         return (out[2] - z) + (torch.sqrt(out[1]) - torch.sqrt(n)) / hp.alpha * w
 
-    g_want = implied_g(want)
+    g_want = implied_g(want).to(dev)
     scale = g_want.abs().max().item()
     if not scale > 0:
         fail(f"{what}: the FTRL step moved no z: the gradient is all zero")
-    g_got = implied_g(got).to(g_want.device)
-    mag = torch.maximum(want[2].abs(), prev[2].to(g_want.device).abs())
+    g_got = implied_g(got)
+    mag = torch.maximum(want_d[2].abs(), prev_d[2].abs())
     ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
     g_err = ((g_got - g_want).abs() - ulp).clamp(min=0) / (g_want.abs() + 1e-2 * scale)
     errs["g"] = g_err.max().item()
@@ -262,14 +303,21 @@ def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True) -> dict:
              f"z' {at(got[2])} vs {at(want[2])}, n {at(prev[1])}, n' {at(got[1])} vs "
              f"{at(want[1])}, w {at(prev[0])}")
     w_new, n_new, z_new = got
-    w, n, z = (p.to(w_new.device) for p in prev)
+    w, n, z = prev_d
     # the lazy-init guard ran where the step left n = 0 and z as they were
     # (a gradient whose square underflows leaves n' = 0 but moves z)
     lazy = (n == 0) & (n_new == 0) & (z_new == z)
     rule = weight_of(z_new, n_new, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
     floor = max(1e-2 * rule[~lazy].abs().max().item(), 1e-30)
     errs["w_rule"] = rel_err(w_new, torch.where(lazy, w, rule), floor)
+    if flips:
+        w_want, n_want, z_want = want_d
+        flip = lazy ^ ((n == 0) & (n_want == 0) & (z_want == z))
+        errs["w"] = rel_err(torch.where(flip, w, w_new), torch.where(flip, w, w_want),
+                            FTRL_FLOOR)
+        errs["lazy_flips"] = int(flip.sum())
     gated = errs if leaves else {k: errs[k] for k in ("g", "w_rule")}
+    gated = {k: v for k, v in gated.items() if k != "lazy_flips"}
     if not all(e <= FTRL_RTOL for e in gated.values()):
         fail(f"{what}: {errs} beyond {FTRL_RTOL} relative")
     return errs
@@ -311,15 +359,16 @@ def check_row_sums(vals, rows, what: str) -> dict:
 
 def gather_bytes(sorted_slots, K: int, K8: int) -> float:
     """Bytes the gather must move for this plan: each slot read once, the
-    32 B sectors that hold the distinct rows it touches, the output
-    written once."""
+    32 B sectors that hold the distinct rows it touches (a 4K-byte row
+    spans at most ceil(4K / 32) + 1 of them), the output written once."""
     import torch
 
     u = torch.unique(sorted_slots.long())
     first = (u * K * 4) // 32
     last = (u * K * 4 + K * 4 - 1) // 32
-    sectors = torch.cat([first + d for d in range(3)])
-    keep = torch.cat([first + d <= last for d in range(3)])
+    span = range(-(-4 * K // 32) + 1)
+    sectors = torch.cat([first + d for d in span])
+    keep = torch.cat([first + d <= last for d in span])
     n_sectors = torch.unique(sectors[keep]).numel()
     np_ = sorted_slots.numel()
     return np_ * 4 + n_sectors * 32 + K8 * np_ * 4
@@ -453,6 +502,35 @@ def first_arrays(cfg, path, device):
     return th, to_device(th, device)
 
 
+def check_gather(table, ss, what: str) -> dict:
+    """#1 on `table [S, K]` and a plan's slots `ss`: bit-exact against its
+    plain version with bf16 off and on; its time, its plain version's,
+    `index_select` + transpose's, and its bound (`gather_bytes`)."""
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    K = table.shape[1]
+    for bf16 in (False, True):
+        got = st.gather_sorted_cuda(table, ss, bf16)
+        want = st.gather_sorted_plain(table, ss, bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather_sorted{what} (bf16={bf16}) differs from its plain version: "
+                 f"max abs err {(got - want).abs().max().item()}")
+        print(f"# gather_sorted{what} bf16={bf16}: bit-exact over {tuple(got.shape)}",
+              flush=True)
+    g_bound, g_by = bound_ms(gather_bytes(ss, K, st._k8(K)), 0.0)
+    return {
+        "max_abs_err": (st.gather_sorted_cuda(table, ss)
+                        - st.gather_sorted_plain(table, ss)).abs().max().item(),
+        "ms": cuda_ms(lambda: st.gather_sorted_cuda(table, ss)),
+        "plain_ms": cuda_ms(lambda: st.gather_sorted_plain(table, ss)),
+        "bound_ms": g_bound, "bound_by": g_by,
+        "library_ms": cuda_ms(lambda: torch.index_select(table, 0, ss).T.contiguous()),
+    }
+
+
 def check_kernels(cfg, gen, path) -> list:
     """The inference kernels against their plain versions on the
     evaluate path's inputs."""
@@ -464,34 +542,17 @@ def check_kernels(cfg, gen, path) -> list:
     _, arrays = first_arrays(cfg, path, DEVICE)
     table = gen.tables["wv"]
     ss = arrays["sorted_slots"]
-    S, K = table.shape
-    K8, np_ = st._k8(K), ss.numel()
+    K, np_ = table.shape[1], ss.numel()
     if np_ != st.padded_len(BATCH * NUM_FIELDS):
         fail(f"plan length {np_} is not the full-width {st.padded_len(BATCH * NUM_FIELDS)}")
 
-    results = []
-    # --- gather (bit-exact, bf16 off and on)
-    for bf16 in (False, True):
-        got = st.gather_sorted_cuda(table, ss, bf16)
-        want = st.gather_sorted_plain(table, ss, bf16)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"gather_sorted (bf16={bf16}) differs from its plain version: "
-                 f"max abs err {(got - want).abs().max().item()}")
-        print(f"# gather_sorted bf16={bf16}: bit-exact over {tuple(got.shape)}", flush=True)
-    occ_t = st.gather_sorted_cuda(table, ss)
-    g_err = (occ_t - st.gather_sorted_plain(table, ss)).abs().max().item()
-    g_ms = cuda_ms(lambda: st.gather_sorted_cuda(table, ss))
-    g_plain = cuda_ms(lambda: st.gather_sorted_plain(table, ss))
-    g_lib = cuda_ms(lambda: torch.index_select(table, 0, ss).T.contiguous())
-    g_bound, g_by = bound_ms(gather_bytes(ss, K, K8), 0.0)
-    results.append({
+    results = [{
         "name": "gather_sorted", "route": "cuda",
         "source": "xflow_tpu_torch/csrc/gather_sorted.cu",
         "replaces": "xflow_tpu/ops/sorted_table.py:775",
-        "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain,
-        "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib,
-    })
+        **check_gather(table, ss, ""),
+    }]
+    occ_t = st.gather_sorted_cuda(table, ss)
 
     # --- row sum on the main path's stacked channels
     rows = st.wire_rows(arrays["sorted_row"])
@@ -509,15 +570,17 @@ def check_kernels(cfg, gen, path) -> list:
     return results
 
 
-def restored_state(cfg, device):
-    """The step-1 training checkpoint as a TrainState on `device`."""
+def restored_state(cfg, device, restored=None):
+    """The step-1 training checkpoint as a TrainState on `device`, from
+    `restored` (the host arrays `restore_state` read once) where given."""
     import torch
 
     from xflow_tpu_torch.train.checkpoint import restore_state
     from xflow_tpu_torch.train.state import TrainState
     from xflow_tpu_torch.weights import table_shapes
 
-    tables, opt, step = restore_state(cfg.train.checkpoint_dir, table_shapes(cfg), ("n", "z"))
+    tables, opt, step = restored or restore_state(
+        cfg.train.checkpoint_dir, table_shapes(cfg), ("n", "z"))
     put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return TrainState(
         {k: put(v) for k, v in tables.items()},
@@ -526,28 +589,24 @@ def restored_state(cfg, device):
     )
 
 
-def check_train_kernels(cfg, path) -> list:
-    """The training kernels against their plain versions on the training
-    path's inputs, and one fused step on the card against the CPU's."""
+def check_scatters(d_occ, ss, wo, w, n, z, hp, what: str) -> tuple[dict, dict]:
+    """#4 and #3 on one path's occurrence cotangent `d_occ`, plan (`ss`,
+    `wo`) and FTRL state (w, n, z), bf16 off and on: the scatter bitwise
+    equal to its plain version on the CPU (which sums each slot's run in
+    plan order, as the kernel does; on the card the plain version's
+    atomics reorder sums) and across two launches; the fused scatter +
+    FTRL against its plain version by `ftrl_errs`, with w of never-touched
+    entries bitwise kept. Returns their entries: the times of each kernel,
+    its plain version and a library call (`zeros` + `index_add_`; for #3
+    the composition with the torch FTRL expression), `zeros_ms` (the
+    dense write any scatter into a fresh output pays), and the bounds."""
     import torch
 
     from xflow_tpu_torch.ops import sorted_table as st
     from xflow_tpu_torch.optim.ftrl import update_one
-    from xflow_tpu_torch.train.step import fused_cotangent
 
-    state = restored_state(cfg, DEVICE)
-    host, arrays = first_arrays(cfg, path, DEVICE)
-    w, n, z = state.tables["wv"], state.opt_state["wv"]["n"], state.opt_state["wv"]["z"]
-    ss, wo = arrays["sorted_slots"], arrays["win_off"]
     S, K = w.shape
     np_ = ss.numel()
-    _, d_occ = fused_cotangent(w, arrays, cfg)
-    hp = cfg.optim.ftrl
-    results = []
-
-    # --- scatter (#4): the gather's VJP. The plain version on the CPU sums
-    # each slot's run in plan order, as the kernel does, so the two agree
-    # bit for bit (on the card the plain version's atomics reorder sums).
     d_cpu, ss_cpu = d_occ.cpu(), ss.cpu()
     for bf16 in (False, True):
         got = st.scatter_sorted_cuda(d_occ, ss, wo, S, K, bf16)
@@ -555,80 +614,97 @@ def check_train_kernels(cfg, path) -> list:
         want = st.scatter_sorted_plain(d_cpu, ss_cpu, S, K, bf16)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
-            fail(f"scatter_sorted (bf16={bf16}) gave different bits on two launches")
+            fail(f"scatter_sorted{what} (bf16={bf16}) gave different bits on two launches")
         got = got.cpu()
         if not torch.equal(got, want):
-            fail(f"scatter_sorted (bf16={bf16}) differs from its plain version on the CPU: "
-                 f"max abs err {(got - want).abs().max().item()} "
+            fail(f"scatter_sorted{what} (bf16={bf16}) differs from its plain version on the "
+                 f"CPU: max abs err {(got - want).abs().max().item()} "
                  f"(largest |want| {want.abs().max().item()})")
-        print(f"# scatter_sorted bf16={bf16}: bit-exact against the CPU plain version and "
-              f"across two launches, over {tuple(got.shape)} "
+        print(f"# scatter_sorted{what} bf16={bf16}: bit-exact against the CPU plain version "
+              f"and across two launches, over {tuple(got.shape)} "
               f"(largest |g| {want.abs().max().item():.3g})", flush=True)
         if not bf16:
             s_err = (got - want).abs().max().item()
-    s_ms = cuda_ms(lambda: st.scatter_sorted_cuda(d_occ, ss, wo, S, K))
-    s_plain = cuda_ms(lambda: st.scatter_sorted_plain(d_occ, ss, S, K))
     ss_l = ss.long()
-    s_lib = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T))
-    s_zeros = cuda_ms(lambda: torch.zeros((S, K), device=DEVICE))  # the write floor
     s_bound, s_by = bound_ms(S * K * 4 + K * np_ * 4 + np_ * 4 + wo.numel() * 4, K * np_)
-    print(f"# scatter_sorted {s_ms:.4f} ms, zeros + index_add_ {s_lib:.4f} ms, zeros "
-          f"{s_zeros:.4f} ms, bound {s_bound:.4f} ms", flush=True)
-    results.append({
-        "name": "scatter_sorted", "route": "cuda",
-        "source": "xflow_tpu_torch/csrc/scatter_sorted.cu",
-        "replaces": "xflow_tpu/ops/sorted_table.py:938",
-        "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
-        "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib, "zeros_ms": s_zeros,
-    })
+    scatter = {
+        "max_abs_err": s_err, "ms": cuda_ms(lambda: st.scatter_sorted_cuda(d_occ, ss, wo, S, K)),
+        "plain_ms": cuda_ms(lambda: st.scatter_sorted_plain(d_occ, ss, S, K)),
+        "bound_ms": s_bound, "bound_by": s_by,
+        "library_ms": cuda_ms(
+            lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T)),
+        "zeros_ms": cuda_ms(lambda: torch.zeros((S, K), device=DEVICE)),  # the write floor
+    }
+    print(f"# scatter_sorted{what} {scatter['ms']:.4f} ms, zeros + index_add_ "
+          f"{scatter['library_ms']:.4f} ms, zeros {scatter['zeros_ms']:.4f} ms, bound "
+          f"{s_bound:.4f} ms", flush=True)
 
-    # --- fused scatter + FTRL (#3)
     for bf16 in (False, True):
         got = st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp, bf16)
         want = st.scatter_ftrl_plain(d_occ, ss, w, n, z, K, hp, bf16)
         g = st.scatter_sorted_plain(d_occ, ss, S, K, bf16)
         torch.cuda.synchronize()
         errs = ftrl_errs(got, want, (w, n, z), hp,
-                         f"scatter_ftrl (bf16={bf16}) against its plain version")
+                         f"scatter_ftrl{what} (bf16={bf16}) against its plain version")
         lazy = (g == 0) & (n == 0)
         n_lazy = int(lazy.sum())
         if n_lazy == 0 or not torch.equal(got[0][lazy], w[lazy]):
-            fail(f"scatter_ftrl (bf16={bf16}) did not keep w of the {n_lazy} "
+            fail(f"scatter_ftrl{what} (bf16={bf16}) did not keep w of the {n_lazy} "
                  "never-touched (slot, channel) entries bitwise")
-        print(f"# scatter_ftrl bf16={bf16}: max err {errs} relative (w, n, z over a "
+        print(f"# scatter_ftrl{what} bf16={bf16}: max err {errs} relative (w, n, z over a "
               f"{FTRL_FLOOR} floor; g, w_rule over 1e-2 of their largest magnitude) "
               f"(tolerance {FTRL_RTOL}); w kept bitwise on {n_lazy} lazy-init entries", flush=True)
         if not bf16:
             f_err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    f_ms = cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp))
-    f_plain = cuda_ms(lambda: st.scatter_ftrl_plain(d_occ, ss, w, n, z, K, hp))
 
     def composition():
         g = torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T)
         return update_one(w, n, z, g, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
 
-    f_lib = cuda_ms(composition)
     f_bound, f_by = bound_ms(
         6 * S * K * 4 + K * np_ * 4 + np_ * 4 + wo.numel() * 4,
         K * np_ + FTRL_OPS_PER_ELEMENT * S * K,
     )
-    results.append({
-        "name": "scatter_ftrl", "route": "cuda",
-        "source": "xflow_tpu_torch/csrc/scatter_ftrl.cu",
-        "replaces": "xflow_tpu/ops/sorted_table.py:1064",
-        "max_abs_err": f_err, "ms": f_ms, "plain_ms": f_plain,
-        "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib,
-    })
-    print(f"# scatter_ftrl library_ms is a composition (index_add_ + the torch FTRL "
-          f"expression): {f_lib:.4f} ms", flush=True)
+    ftrl = {
+        "max_abs_err": f_err,
+        "ms": cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp)),
+        "plain_ms": cuda_ms(lambda: st.scatter_ftrl_plain(d_occ, ss, w, n, z, K, hp)),
+        "bound_ms": f_bound, "bound_by": f_by, "library_ms": cuda_ms(composition),
+    }
+    print(f"# scatter_ftrl{what} library_ms is a composition (index_add_ + the torch FTRL "
+          f"expression): {ftrl['library_ms']:.4f} ms", flush=True)
+    return scatter, ftrl
+
+
+def check_train_kernels(cfg, path) -> list:
+    """The training kernels against their plain versions on the training
+    path's inputs (`check_scatters`), and one fused step on the card
+    against the CPU's."""
+    from xflow_tpu_torch.train.step import fused_cotangent
+
+    state = restored_state(cfg, DEVICE)
+    host, arrays = first_arrays(cfg, path, DEVICE)
+    w, n, z = state.tables["wv"], state.opt_state["wv"]["n"], state.opt_state["wv"]["z"]
+    _, d_occ = fused_cotangent(w, arrays, cfg)
+    scatter, ftrl = check_scatters(d_occ, arrays["sorted_slots"], arrays["win_off"], w, n, z,
+                                   cfg.optim.ftrl, "")
     step_card_vs_cpu(cfg, host, "fused", "the restored step-1 state")
-    return results
+    return [
+        {"name": "scatter_sorted", "route": "cuda",
+         "source": "xflow_tpu_torch/csrc/scatter_sorted.cu",
+         "replaces": "xflow_tpu/ops/sorted_table.py:938", **scatter},
+        {"name": "scatter_ftrl", "route": "cuda",
+         "source": "xflow_tpu_torch/csrc/scatter_ftrl.cu",
+         "replaces": "xflow_tpu/ops/sorted_table.py:1064", **ftrl},
+    ]
 
 
-def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True) -> None:
+def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True,
+                     restored=None, flips: bool = False) -> None:
     """One train step on the host arrays `host` from the checkpoint under
-    cfg.train.checkpoint_dir, on the card and on the CPU: the loss within
-    LOSS_RTOL, the table's (w, n, z) by `ftrl_errs` (`leaves` as there)."""
+    cfg.train.checkpoint_dir (or `restored`, as in `restored_state`), on
+    the card and on the CPU: the loss within LOSS_RTOL, the table's (w, n,
+    z) by `ftrl_errs` (`leaves` and `flips` as there)."""
     from xflow_tpu_torch.evaluate import to_device
     from xflow_tpu_torch.models import get_model
     from xflow_tpu_torch.optim import get_optimizer
@@ -637,8 +713,8 @@ def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True)
     model = get_model(cfg.model.name)(cfg)
     (tname,) = model.table_specs(cfg)  # "wv" (fused FM), "v" (MVM) or "w" (LR)
     step = make_train_step(model, get_optimizer("ftrl"), cfg)
-    s_gpu, m_gpu = step(restored_state(cfg, DEVICE), to_device(host, DEVICE))
-    prev = restored_state(cfg, "cpu")
+    s_gpu, m_gpu = step(restored_state(cfg, DEVICE, restored), to_device(host, DEVICE))
+    prev = restored_state(cfg, "cpu", restored)
     s_cpu, m_cpu = step(prev, to_device(host, "cpu"))
     lg, lc = m_gpu["loss"].item(), m_cpu["loss"].item()
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
@@ -651,7 +727,7 @@ def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True)
     if not m_gpu["update_ok"]:
         fail(f"{kind} step from {what} on the card: update_ok is false")
     errs = ftrl_errs(state_leaves(s_gpu), state_leaves(s_cpu), state_leaves(prev),
-                     cfg.optim.ftrl, f"{kind} step from {what}, card vs CPU", leaves)
+                     cfg.optim.ftrl, f"{kind} step from {what}, card vs CPU", leaves, flips)
     trained = s_cpu.tables[tname][s_cpu.opt_state[tname]["n"] > 0]
     print(f"# {kind} step from {what}, card vs CPU: loss {lg} vs {lc}; max err {errs}; "
           f"w' of the {trained.numel()} trained entries (n' > 0): "
@@ -936,14 +1012,18 @@ def train_breakdown(cfg, path, kind: str) -> None:
 
     from xflow_tpu_torch.config import override
     from xflow_tpu_torch.data.pipeline import batch_iterator
-    from xflow_tpu_torch.evaluate import batch_arrays, to_device
+    from xflow_tpu_torch.evaluate import batch_arrays, ffm_takes_aligned, to_device
+    from xflow_tpu_torch.models.ffm import ffm_invperm
     from xflow_tpu_torch.train.step import make_train_step
     from xflow_tpu_torch.train.trainer import Trainer
 
     pc = time.perf_counter
+    ffm = cfg.model.name == "ffm"
     for source, c in input_sources(cfg).items():
         trainer = Trainer(override(c, **{"train.checkpoint_dir": ""}), device=DEVICE)
         acc = dict.fromkeys(("parse", "plan", "to_device", "step"), 0.0)
+        if ffm:  # FFM's routing and placement, timed again on their own
+            acc["of the plan, route + ffm_invperm"] = 0.0
         n = 0
         it = batch_iterator(path, c.data)
         while True:
@@ -955,6 +1035,12 @@ def train_breakdown(cfg, path, kind: str) -> None:
             t = pc()
             host = batch_arrays(batch, c)
             acc["plan"] += pc() - t
+            if ffm:
+                t = pc()
+                ffm_takes_aligned(batch, c)
+                ffm_invperm(host["sorted_row"], host["sorted_fields"], host["sorted_mask"],
+                            len(batch.labels), c.model.num_fields)
+                acc["of the plan, route + ffm_invperm"] += pc() - t
             t = pc()
             arrays = to_device(host, DEVICE)
             torch.cuda.synchronize()
@@ -974,7 +1060,7 @@ def train_breakdown(cfg, path, kind: str) -> None:
     )
     off_ms = cuda_ms(lambda: unguarded(state, arrays), reps=10)
     print(f"# {cfg.model.name} {kind} train step on the card (CUDA events): {step_ms:.3f} ms per "
-          f"{BATCH}-row batch; {off_ms:.3f} ms with the non-finite guard off "
+          f"{cfg.data.batch_size}-row batch; {off_ms:.3f} ms with the non-finite guard off "
           "(no isfinite sweep, no host read)", flush=True)
     profile_step(lambda: trainer.train_step(state, arrays), f"{cfg.model.name} {kind}")
 
@@ -1423,6 +1509,205 @@ def run_mvm_training(mcfg, work: str, path: str, rate_path: str) -> dict:
     return segment
 
 
+def ffm_config(cfg, ck_dir: str, **extra):
+    """FFM at bench.py's practical shape: 18 one-feature-per-field fields,
+    k = 4, the fused `wv [2^22, 73]`, 131,072-row batches, FTRL."""
+    from xflow_tpu_torch.config import override
+
+    return override(cfg, **{"model.name": "ffm", "model.v_dim": FFM_V_DIM,
+                            "data.batch_size": FFM_BATCH, "train.checkpoint_dir": ck_dir,
+                            **extra})
+
+
+def check_ffm_kernels(fcfg, arrays, restored) -> dict:
+    """#1, #4 and #3 at FFM's width (K = 73, K8 = 80) on the FFM path's own
+    inputs: the first batch's flat plan and the fused step's occurrence
+    cotangent on the restored state, by `check_gather` and
+    `check_scatters`. Returns their entries by name."""
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.train.step import fused_cotangent
+
+    state = restored_state(fcfg, DEVICE, restored)
+    w, n, z = state.tables["wv"], state.opt_state["wv"]["n"], state.opt_state["wv"]["z"]
+    ss, wo = arrays["sorted_slots"], arrays["win_off"]
+    K = w.shape[1]
+    out = {"gather_sorted": check_gather(w, ss, " at FFM's K = 73")}
+    _, d_occ = fused_cotangent(w, arrays, fcfg)
+    if d_occ.shape != (st._k8(K), ss.numel()) or d_occ[K:].any() or not d_occ[:K].any():
+        fail(f"the FFM occurrence cotangent {tuple(d_occ.shape)} is not [80, Np] with "
+             "rows 73..80 zero and a nonzero gradient")
+    out["scatter_sorted"], out["scatter_ftrl"] = check_scatters(
+        d_occ, ss, wo, w, n, z, fcfg.optim.ftrl, " at FFM's K = 73")
+    return out
+
+
+def run_ffm(cfg, work: str, path: str, rate_path: str) -> dict:
+    """Phase 13, FFM: the kernels at K = 73 (`check_ffm_kernels`), one
+    fused and one two-pass step on the card against the CPU, the
+    repeated-field batch on the row-major route, the train CLI's main
+    path, rate run and two-pass epoch, evaluate and `predict_rows` of the
+    trained checkpoint, and the train step's stage breakdown. Every path
+    has the launch counts, the FFM routes and the host calls set to 0
+    just before and read just after. Returns the three kernels' FFM
+    entries, each with the launches of its FFM main path."""
+    import math
+
+    import numpy as np
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data import pipeline
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+    from xflow_tpu_torch.evaluate import batch_arrays, evaluate, to_device
+    from xflow_tpu_torch.models import ffm, get_model
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.serve.runner import ServeRunner
+    from xflow_tpu_torch.train.checkpoint import restore_state
+    from xflow_tpu_torch.train.step import make_train_step
+    from xflow_tpu_torch.weights import table_shapes
+
+    fcfg = ffm_config(cfg, os.path.join(work, "ck_ffm"))
+    K = 1 + NUM_FIELDS * FFM_V_DIM
+    laps = [time.perf_counter()]
+
+    def lap(what: str) -> None:  # the phase's own time, part by part
+        laps.append(time.perf_counter())
+        print(f"# ffm phase: {what} in {laps[-1] - laps[-2]:.1f} s", flush=True)
+
+    nbytes = write_state(fcfg.train.checkpoint_dir, "wv", K, FFM_V_SCALE, SEED + 3)
+    lap(f"the state's {nbytes / 1e6:.1f} MB written")
+    restored = restore_state(fcfg.train.checkpoint_dir, table_shapes(fcfg), ("n", "z"))
+    lap("the state restored")
+
+    def counts_are(launches: dict, want: dict, what: str) -> None:
+        got = {k: v for k, v in launches.items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"{what} launched {launches}, expected {want} and nothing else")
+
+    # --- the first batch (the whole shard): its wire plan, and the kernels on it
+    ffm.reset_routes()
+    host, arrays = first_arrays(fcfg, path, DEVICE)
+    if ffm.ROUTES != {"aligned": 2, "row_major": 0} or arrays["sorted_slots"].ndim != 1:
+        fail(f"the FFM batch did not plan flat and aligned from the text and the cache: "
+             f"routes {ffm.ROUTES}, arrays {sorted(host)}")
+    rows_wire = np.int32 if FFM_BATCH > 1 << 16 else np.uint16  # the u16 row bound
+    if (host["sorted_row"].dtype, host["sorted_fields"].dtype, host["ffm_invperm"].shape) != (
+            rows_wire, np.uint8, (FFM_BATCH, NUM_FIELDS)):
+        fail(f"FFM wire plan: rows {host['sorted_row'].dtype}, fields "
+             f"{host['sorted_fields'].dtype}, placement {host['ffm_invperm'].shape}")
+    if arrays["sorted_slots"].numel() != st.padded_len(FFM_BATCH * NUM_FIELDS):
+        fail(f"FFM plan length {arrays['sorted_slots'].numel()} is not the full width")
+    kern = check_ffm_kernels(fcfg, arrays, restored)
+    lap("the first batch and the kernels at K = 73")
+
+    # --- one fused and one two-pass step, card against CPU, and their times
+    state, batch_dev, step_ms = restored_state(fcfg, DEVICE, restored), to_device(host, DEVICE), {}
+    for kind, extra, scatter in (("fused", {}, "scatter_ftrl"),
+                                 ("two-pass", {"optim.fused_scatter": "off"}, "scatter_sorted")):
+        c = override(fcfg, **extra)
+        st.reset_launches()
+        step_card_vs_cpu(c, host, f"ffm {kind}", "the restored FFM step-1 state",
+                         restored=restored, flips=True)
+        counts_are(st.LAUNCHES, {"gather_sorted": 1, scatter: 1}, f"the ffm {kind} step")
+        step = make_train_step(get_model("ffm")(c), get_optimizer("ftrl"), c)
+        step_ms[kind] = cuda_ms(lambda step=step: step(state, batch_dev), reps=5, warmup=1)
+    del state, batch_dev
+    print(f"# ffm train step on the card (CUDA events, guard on): fused {step_ms['fused']:.3f} "
+          f"ms, two-pass {step_ms['two-pass']:.3f} ms per {FFM_BATCH}-row batch", flush=True)
+
+    # --- the first batch with field 0 repeated in column 1: row-major, no kernel
+    it = batch_iterator(path, fcfg.data)
+    batch = next(it)
+    it.close()
+    fields = batch.fields.copy()
+    fields[:, 1] = 0
+    ffm.reset_routes()
+    dup = batch_arrays(batch._replace(fields=fields), fcfg)
+    if "slots" not in dup or "sorted_slots" in dup or ffm.ROUTES != {"aligned": 0,
+                                                                     "row_major": 1}:
+        fail(f"the repeated-field FFM batch did not route row-major: {sorted(dup)}, "
+             f"routes {ffm.ROUTES}")
+    st.reset_launches()
+    step_card_vs_cpu(fcfg, dup, "ffm row-major (field 0 repeated)",
+                     "the restored FFM step-1 state", restored=restored, flips=True)
+    counts_are(st.LAUNCHES, {}, "the row-major ffm step")
+    del restored
+    lap("three steps, card vs CPU, and two timed")
+
+    # --- the train CLI: main path (fused), a rate run, a two-pass epoch
+    fargs = ("--set", f"model.v_dim={FFM_V_DIM}", "--set", f"data.batch_size={FFM_BATCH}")
+
+    def train(prefix, ck, epochs, *extra, source="text"):
+        ffm.reset_routes()
+        summary, launches = train_cli(prefix, ck, epochs, *fargs, *extra, model="ffm",
+                                      source=source)
+        return summary, launches, dict(ffm.ROUTES)
+
+    n_batches = -(-SHARD_ROWS // FFM_BATCH)
+    ck = os.path.join(work, "ck_ffm_train")
+    summary, main_path, routes = train(path[: -len("-00000")], ck, 2)
+    steps = 2 * n_batches
+    if (summary["steps"], summary["bad_steps"]) != (steps, 0) or not math.isfinite(
+            summary["last_loss"]) or routes != {"aligned": steps, "row_major": 0}:
+        fail(f"ffm train summary {summary}, routes {routes}")
+    counts_are(main_path, {"gather_sorted": steps, "scatter_ftrl": steps}, "the FFM main path")
+    rate_steps = RATE_BATCHES * BATCH // FFM_BATCH
+    rate, rate_launches, routes = train(rate_path[: -len("-00000")], "", 1)
+    if rate["steps"] != rate_steps or rate["bad_steps"] or routes["row_major"]:
+        fail(f"the FFM rate run: summary {rate}, routes {routes}")
+    counts_are(rate_launches, {"gather_sorted": rate_steps, "scatter_ftrl": rate_steps},
+               "the FFM rate run")
+    _, two_pass, routes = train(path[: -len("-00000")], "", 1, "--set",
+                                "optim.fused_scatter=off")
+    counts_are(two_pass, {"gather_sorted": n_batches, "scatter_sorted": n_batches},
+               "the FFM two-pass epoch")
+    print(f"# ffm train: {summary['examples_per_sec']} examples/s over the 2-epoch main path "
+          f"({steps} steps), {rate['examples_per_sec']} over one epoch of the rate shard "
+          f"({rate_steps} steps of {FFM_BATCH} rows, text); launches: main {main_path}, "
+          f"rate {rate_launches}, two-pass {two_pass}", flush=True)
+    lap("the train CLI runs")
+
+    # --- evaluate and serve the trained checkpoint
+    tcfg = override(fcfg, **{"train.checkpoint_dir": ck})
+    runner = ServeRunner(tcfg, device=DEVICE)
+    gen = runner.load()
+    if gen.step != steps:
+        fail(f"the FFM checkpoint serves step {gen.step}, expected {steps}")
+    st.reset_launches()
+    ffm.reset_routes()
+    pipeline.reset_host_calls()
+    auc, ll = evaluate(tcfg, gen.tables, path, device=DEVICE)
+    launches, calls = dict(st.LAUNCHES), pipeline.host_calls()
+    check_host_calls(calls, "FFM evaluate")
+    counts_are(launches, {"gather_sorted": n_batches}, "FFM evaluate")
+    if ffm.ROUTES != {"aligned": n_batches, "row_major": 0}:
+        fail(f"FFM evaluate routes {ffm.ROUTES}")
+    if not (np.isfinite(auc) and np.isfinite(ll) and 0.0 <= auc <= 1.0):
+        fail(f"the trained FFM model evaluates to auc={auc} logloss={ll}")
+    _, p_eval = first_batch(tcfg, gen.tables, path, DEVICE)
+    with open(path) as f:
+        rows = [next(f).split("\t", 1)[1].strip() for _ in range(64)]
+    served, _ = runner.predict_rows(rows)
+    ds = float(np.abs(served - p_eval[:64]).max())
+    if not ds <= PCTR_ATOL:
+        fail(f"FFM predict_rows (row-major) differs from evaluate (aligned) by {ds}")
+    print(f"# ffm train -> serve: step {gen.step}, auc={auc} logloss={ll} on the training "
+          f"shard; evaluate launches {launches}; predict_rows on 64 rows vs evaluate: max abs "
+          f"diff {ds}", flush=True)
+    del gen, runner
+    lap("evaluate and serve")
+    train_breakdown(tcfg, rate_path, "fused")
+    lap("the stage breakdown")
+
+    out = {}
+    for name, launched in (("gather_sorted", main_path), ("scatter_ftrl", main_path),
+                           ("scatter_sorted", two_pass)):
+        e = dict(kern[name], launches=launched[name])
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        out[name] = e
+    return out
+
+
 WIDE_V_DIMS = (50, 63, 64)  # FM row sides at ch = 104, 128, 136
 
 
@@ -1604,6 +1889,7 @@ def main() -> int:
         train_launches, two_pass = run_training(cfg, work, path, rate_path)
         lr_launches = run_lr(cfg, work, path, mvm_batch)
         segment = run_mvm_training(mcfg, work, path, rate_path)
+        ffm_kern = run_ffm(cfg, work, path, rate_path)
         wide = check_wide_row_sums(cfg, path)
         lab_kern = run_lab(work)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
@@ -1615,6 +1901,8 @@ def main() -> int:
         k["launches"] = src[k["name"]]
         if k["name"] in mvm_product:
             k["mvm_product"] = mvm_product[k["name"]]
+        if k["name"] in ffm_kern:
+            k["ffm"] = ffm_kern[k["name"]]
         if k["name"] == "row_sums":
             k["widths"].update({32: mvm_product["row_sums"], **wide})
         k.update(hot.get(k["name"], {}))

@@ -12,15 +12,17 @@ The scatters (#4, and #6 at 1, 4 and the most stacked buffers) also run
 on the edges of their staged design: runs across 160-position staging
 chunks, spans longer than a chunk (in one buffer and split over all of
 them), spans that start at odd positions (not 16 B aligned), a buffer
-empty in a window next to one with a long span there, at K = 5, 10 and
-11 (the MVM and FM widths). The multi-buffer kernels (#5 gather, #6
+empty in a window next to one with a long span there, at K = 5, 10, 11
+and 73 (the MVM, FM and FFM widths). The multi-buffer kernels (#5 gather, #6
 scatter) run on stacked plans: a slot every buffer shares, windows empty
 in some buffers, an all-pad buffer, a hot slot of 2,048 occurrences
 across the buffers, both table ends. The row sum (#2) runs at ch = 24,
 32, 104, 128 and 136 (one to five channel groups) and at ch 464 (over
 the old shared-memory limit), with rows out of range and whole zero
 quads, refuses a ch that is not a multiple of 4, and FM's forward runs at
-v_dim = 64 against the CPU. LR's steps (no hand-written kernel) run on
+v_dim = 64 against the CPU. FFM's steps (the aligned hybrid at K = 73,
+and the row-major route of a batch that repeats a field) and LR's steps
+(no hand-written kernel) run on
 the card against the CPU. The lab's kernels (#7-#11, `ops/lab.py`) run
 at the mosaic probe's shapes with one slice out of range (#7 also at the
 grids that split a window into 64 pieces and into none), #11 at one to
@@ -115,9 +117,10 @@ def _inputs(case, k, seed=0):
     return plan, torch.from_numpy(d)
 
 
-# k = 10 and 11: the MVM and FM main paths' widths
-CASES = [(c, k) for c in ("random", "hot", "edges", "chunk_cross", "odd_starts")
-         for k in (5, 10, 11)]
+# k = 10 and 11: the MVM and FM main paths' widths; FFM's 73 below
+SHAPES = ("random", "hot", "edges", "chunk_cross", "odd_starts")
+CASES = [(c, k) for c in SHAPES for k in (5, 10, 11)]
+FFM_CASES = [(c, 73) for c in SHAPES]
 
 
 @pytest.mark.parametrize("case, k", CASES)
@@ -134,7 +137,28 @@ def test_scatter_kernel_bitwise_equal_to_plain(dev, case, k, bf16):
     assert _rel(got, st.scatter_sorted_plain(d.to(dev), ss.to(dev), S, k, bf16), FLOOR) <= RTOL
 
 
-@pytest.mark.parametrize("case, k", CASES)
+@pytest.mark.parametrize("case, k", FFM_CASES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_kernel_bitwise_equal_to_plain_at_ffm_width(dev, case, k, bf16):
+    """#4 at FFM's K = 73 (128-slot tiles, 20-position chunks): bitwise
+    against the CPU plain version and across two launches; against the
+    card's plain version within the float32 reorder bound
+    (`reorder_err` < 1), as its atomics add in another order (a hot run
+    of 2,048 unit terms over 73 channels reorders past 1e-4 over 1e-2)."""
+    plan, d = _inputs(case, k)
+    ss, wo = torch.from_numpy(plan.sorted_slots), torch.from_numpy(plan.win_off)
+    got = st.scatter_sorted_cuda(d.to(dev), ss.to(dev), wo.to(dev), S, k, bf16)
+    again = st.scatter_sorted_cuda(d.to(dev), ss.to(dev), wo.to(dev), S, k, bf16)
+    want = st.scatter_sorted_plain(d, ss, S, k, bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+    card = st.scatter_sorted_plain(d.to(dev), ss.to(dev), S, k, bf16)
+    terms = d[:k].to(torch.bfloat16).float() if bf16 else d[:k]
+    assert reorder_err(got, card, terms, ss, S) < 1
+
+
+@pytest.mark.parametrize("case, k", CASES + FFM_CASES)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_scatter_ftrl_kernel_matches_plain(dev, case, k, bf16):
     plan, d = _inputs(case, k, seed=1)
@@ -157,7 +181,7 @@ def test_scatter_ftrl_kernel_matches_plain(dev, case, k, bf16):
     assert all(o.data_ptr() != i.data_ptr() for o, i in zip(got, (w, n, z)))
 
 
-@pytest.mark.parametrize("case, k", CASES)
+@pytest.mark.parametrize("case, k", CASES + FFM_CASES)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gather_and_row_sums_kernels_match_plain(dev, case, k, bf16):
     plan, _ = _inputs(case, k, seed=3)
@@ -430,6 +454,72 @@ def test_mvm_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     auc_c, ll_c = card.evaluate(path)
     auc_p, ll_p = cpu.evaluate(path)
     assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)
+
+
+# ------------------------------------------------------------------- FFM
+
+def _ffm_cfg(**extra):
+    return override(Config(), **{
+        "model.name": "ffm", "model.v_dim": 4, "model.num_fields": 18, "data.log2_slots": 14,
+        "data.batch_size": 64, "data.max_nnz": 18, **extra,
+    })
+
+
+def _ffm_batch(seed, cfg, dup_rows=0):
+    """64 rows of one feature a field over 18 fields (60 real rows, a
+    shared slot); the first `dup_rows` rows repeat a field."""
+    from xflow_tpu_torch.data.schema import make_batch
+    from xflow_tpu_torch.evaluate import batch_arrays
+
+    rng = np.random.default_rng(seed)
+    fields, slots = [], []
+    for r in range(60):
+        f = rng.permutation(18)[: int(rng.integers(6, 19))].astype(np.int32)
+        if r < dup_rows:
+            f[-1] = f[0]
+        fields.append(f)
+        slots.append(rng.integers(0, S, f.size).astype(np.int32))
+    slots[1][0] = slots[40][0]
+    labels = list((rng.random(60) < 0.4).astype(np.float32))
+    return batch_arrays(make_batch(fields, slots, labels, 64, 18), cfg)
+
+
+# (config, dup rows, the table kernel of the step's backward or None)
+FFM_VARIANTS = [
+    ({}, 0, "scatter_ftrl"),
+    ({"optim.fused_scatter": "off"}, 0, "scatter_sorted"),
+    ({"optim.name": "sgd"}, 0, "scatter_sorted"),
+    ({"data.sorted_bf16": True}, 0, "scatter_ftrl"),
+    ({}, 3, None),  # a repeated field: the row-major route, no kernel
+]
+
+
+@pytest.mark.parametrize("extra, dup_rows, kernel", FFM_VARIANTS)
+def test_ffm_train_steps_on_the_card_match_the_cpu(dev, extra, dup_rows, kernel):
+    """FFM's aligned hybrid (K = 73: #1, then #3 fused or #4 two-pass) and
+    its row-major route, 3 steps on the card against the CPU."""
+    from xflow_tpu_torch.train.state import init_state
+
+    cfg = _ffm_cfg(**extra)
+    model, opt = get_model("ffm")(cfg), get_optimizer(cfg.optim.name)
+    step = make_train_step(model, opt, cfg)
+    batches = [_ffm_batch(i, cfg, dup_rows) for i in range(3)]
+    assert all(("slots" in b) == (kernel is None) for b in batches)
+    cpu, card = init_state(model, opt, cfg, "cpu"), init_state(model, opt, cfg, dev)
+    losses = []
+    for b in batches:
+        cpu, mc = step(cpu, to_device(b, "cpu"))
+        losses.append(mc["loss"].item())
+    st.reset_launches()
+    for b, loss in zip(batches, losses):
+        card, mg = step(card, to_device(b, dev))
+        assert abs(mg["loss"].item() - loss) <= LOSS_RTOL * abs(loss)
+    torch.cuda.synchronize()
+    want = {} if kernel is None else {"gather_sorted": 3, kernel: 3}
+    assert {k: v for k, v in st.LAUNCHES.items() if v} == want
+    assert _rel(card.tables["wv"], cpu.tables["wv"], FTRL_FLOOR) <= FTRL_RTOL
+    for leaf, t in card.opt_state.get("wv", {}).items():
+        assert _rel(t, cpu.opt_state["wv"][leaf], FTRL_FLOOR) <= FTRL_RTOL, leaf
 
 
 # ------------------------------------------------- row sums at wide channels

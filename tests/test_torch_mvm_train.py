@@ -242,8 +242,7 @@ def test_step_routing_rules():
     from xflow_tpu_torch.train.step import _fused_scatter_eligible
 
     assert not _fused_scatter_eligible(tcfg)  # auto does not fuse MVM
-    with pytest.raises(ValueError, match="ffm is not ported"):
-        _fused_scatter_eligible(override(tcfg, **{"model.name": "ffm"}))
+    assert _fused_scatter_eligible(override(tcfg, **{"model.name": "ffm"}))  # auto fuses FFM
     bad = _sparse_batch(32)
     bad.fields[0, 0] = NF
     with pytest.raises(ValueError, match="model.num_fields"):

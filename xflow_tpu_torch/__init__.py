@@ -21,5 +21,8 @@ serving (`serve/runner.py`); single-device FM training with FTRL or SGD
 (`train/trainer.py`, `python -m xflow_tpu_torch train`); single-device MVM
 training, evaluation and serving (`models/mvm.py`: the product row side,
 and the segment row side over plans stacked into sub-batches through the
-multi-buffer gather and scatter).
+multi-buffer gather and scatter); LR, the default model (row-major, no
+kernel); single-device FFM training, evaluation and serving
+(`models/ffm.py`: the aligned hybrid over the windowed gather and the
+scatters, and the row-major route for batches that repeat a field).
 """

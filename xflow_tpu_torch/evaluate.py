@@ -22,8 +22,9 @@ from xflow_tpu_torch.data.pipeline import batch_iterator, prefetch
 from xflow_tpu_torch.data.schema import SparseBatch
 from xflow_tpu_torch.metrics import auc_logloss
 from xflow_tpu_torch.models import get_model
-from xflow_tpu_torch.models.predict import make_predict_fn
+from xflow_tpu_torch.models.ffm import count_route, ffm_invperm, resolve_ffm_aligned
 from xflow_tpu_torch.models.mvm import has_field_duplicates, resolve_mvm_product
+from xflow_tpu_torch.models.predict import make_predict_fn
 from xflow_tpu_torch.ops.sorted_table import (
     WINDOW,
     compact_plan_wire,
@@ -35,18 +36,17 @@ from xflow_tpu_torch.ops.sorted_table import (
 
 def sorted_layout_on(cfg: Config) -> bool:
     """Whether batches ship as sorted plans: the JAX trainer's
-    single-device rule (fused FM or MVM, S a multiple of WINDOW) under
-    data.sorted_layout "auto", forced by "on", never under "off"."""
+    single-device rule (fused FM, MVM or FFM, S a multiple of WINDOW)
+    under data.sorted_layout "auto", forced by "on", never under "off"."""
     mode = cfg.data.sorted_layout
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"data.sorted_layout={mode!r}: expected auto|on|off")
-    if cfg.model.name == "ffm":
-        raise ValueError("model.name=ffm is not ported to xflow_tpu_torch yet")
-    supported = (cfg.model.name == "fm" and cfg.model.fm_fused) or cfg.model.name == "mvm"
+    supported = (cfg.model.name == "fm" and cfg.model.fm_fused) or cfg.model.name in (
+        "mvm", "ffm")
     if mode == "on" and not (supported and cfg.num_slots % WINDOW == 0):
         raise ValueError(
-            "sorted_layout=on needs model.name=fm with model.fm_fused=true or "
-            f"model.name=mvm, and num_slots divisible by {WINDOW}"
+            "sorted_layout=on needs model.name=fm with model.fm_fused=true, "
+            f"model.name=mvm or model.name=ffm, and num_slots divisible by {WINDOW}"
         )
     return mode == "on" or (mode == "auto" and supported and cfg.num_slots % WINDOW == 0)
 
@@ -88,24 +88,49 @@ class HostDedup:
         return arrays
 
 
+def ffm_takes_aligned(batch: SparseBatch, cfg: Config) -> bool:
+    """Route an FFM batch under the sorted layout (the JAX trainer's
+    single-process rule): the aligned hybrid unless a row repeats a
+    field; such a batch goes row-major, or raises under
+    sorted_layout=on."""
+    if resolve_ffm_aligned(batch.fields, batch.mask):
+        return True
+    if cfg.data.sorted_layout == "on":
+        raise ValueError(
+            "FFM aligned hybrid: a row carries two masked occurrences of the same "
+            "field. sorted_layout=on requires aligned batches; use auto for the "
+            "per-batch row-major fallback"
+        )
+    return False
+
+
 def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = None) -> dict:
     """Host arrays the step or the forward consumes: the sorted plan
     (stacked into `resolve_sub_batches` sub-batches, with fields when an
     MVM batch takes the segment row side, compacted wire dtypes) plus
     labels/row_mask, or the row-major arrays (through `dedup` when
-    given). MVM field ids must lie below model.num_fields."""
-    mvm = cfg.model.name == "mvm"
-    if mvm and batch.fields.size and int(batch.fields.max()) >= cfg.model.num_fields:
+    given). An FFM plan is always flat, with fields and its placement
+    `ffm_invperm`; an FFM batch that repeats a field in a row goes
+    row-major (`ffm_takes_aligned`; both routes counted in
+    `models/ffm.ROUTES`). MVM and FFM field ids must lie below
+    model.num_fields."""
+    mvm, ffm = cfg.model.name == "mvm", cfg.model.name == "ffm"
+    if (mvm or ffm) and batch.fields.size and int(batch.fields.max()) >= cfg.model.num_fields:
         raise ValueError(
             f"libffm field id {int(batch.fields.max())} >= model.num_fields="
             f"{cfg.model.num_fields}; raise model.num_fields"
         )
     arrays = {"labels": batch.labels, "row_mask": batch.row_mask}
-    if not sorted_layout_on(cfg):
+    row_major = not sorted_layout_on(cfg)
+    if not row_major and ffm:
+        row_major = not ffm_takes_aligned(batch, cfg)
+        count_route("row_major" if row_major else "aligned")
+    if row_major:
         arrays.update(slots=batch.slots, fields=batch.fields, mask=batch.mask)
         return arrays if dedup is None else dedup(arrays)
-    want_fields = mvm and mvm_wants_fields(batch, cfg)
-    ns = resolve_sub_batches(cfg)
+    want_fields = ffm or (mvm and mvm_wants_fields(batch, cfg))
+    # FFM's placement is defined over the whole batch: one flat plan
+    ns = 1 if ffm else resolve_sub_batches(cfg)
     rows_bound = cfg.data.batch_size // ns
     plan = plan_sorted_stacked(
         batch.slots, batch.mask, cfg.num_slots,
@@ -123,6 +148,10 @@ def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = N
     )
     if want_fields:
         arrays["sorted_fields"] = plan.sorted_fields
+    if ffm:
+        arrays["ffm_invperm"] = ffm_invperm(plan.sorted_row, plan.sorted_fields,
+                                            plan.sorted_mask, len(batch.labels),
+                                            cfg.model.num_fields)
     return compact_plan_wire(
         arrays, rows_bound=rows_bound,
         fields_bound=cfg.model.num_fields if want_fields else 0,

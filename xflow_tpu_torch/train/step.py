@@ -6,11 +6,11 @@
 Two forms. The two-pass step runs autograd through the model (the
 sorted gather's backward is the windowed scatter kernel, the multi-buffer
 one for a stacked plan) and then the optimizer over whole tables. The
-fused step (fused FM or MVM's product row side, FTRL, a flat sorted plan
-without fields) takes autograd only through the row side, from the
-gathered occurrence rows to the loss, and hands the occurrence cotangent
-to the one `scatter_ftrl_sorted` pass, so the [S, K] gradient never
-exists.
+fused step (FTRL on a flat sorted plan: fused FM, MVM's product row
+side, or FFM's aligned hybrid) takes autograd only through the row
+side, from the gathered occurrence rows to the loss, and hands the
+occurrence cotangent to the one `scatter_ftrl_sorted` pass, so the
+[S, K] gradient never exists.
 
 Masked padded rows contribute zero gradient; the loss mean divides by
 the number of real rows.
@@ -74,36 +74,35 @@ def guard_nonfinite(cfg: Config, state: TrainState, new_state: TrainState, metri
 
 def _fused_scatter_eligible(cfg: Config) -> bool:
     """Whether the fused scatter+FTRL step applies (the JAX rules):
-    "auto" fuses FM only (MVM's product path measured slower fused on
-    the TPU, so it stays an opt-in), "on" takes fused FM or MVM and is a
-    config error elsewhere, not a silent downgrade."""
+    "auto" fuses FM and FFM (MVM's product path measured slower fused on
+    the TPU, so it stays an opt-in), "on" takes fused FM, MVM or FFM and
+    is a config error elsewhere, not a silent downgrade."""
     if cfg.optim.fused_scatter == "off":
         return False
     if cfg.optim.fused_scatter not in ("auto", "on"):
         raise ValueError(
             f"optim.fused_scatter={cfg.optim.fused_scatter!r}: expected auto|on|off"
         )
-    if cfg.model.name == "ffm":
-        raise ValueError("model.name=ffm is not ported to xflow_tpu_torch yet")
     fm_ok = cfg.model.name == "fm" and cfg.model.fm_fused
     mvm_ok = cfg.model.name == "mvm"
+    ffm_ok = cfg.model.name == "ffm"
     ftrl = cfg.optim.name == "ftrl"
     if cfg.optim.fused_scatter == "on":
-        if not (ftrl and (fm_ok or mvm_ok)):
+        if not (ftrl and (fm_ok or mvm_ok or ffm_ok)):
             raise ValueError(
                 "optim.fused_scatter=on requires optim.name=ftrl and model.name=fm "
-                f"(fm_fused=true) or mvm; got optim={cfg.optim.name} "
+                f"(fm_fused=true), mvm or ffm; got optim={cfg.optim.name} "
                 f"model={cfg.model.name} fm_fused={cfg.model.fm_fused}"
             )
         return True
-    return ftrl and fm_ok
+    return ftrl and (fm_ok or ffm_ok)
 
 
 def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
     """(loss, d_occ [K8, Np]) of a flat sorted-plan batch: the gather,
     then autograd of the row-side loss with respect to the gathered
     occurrence rows only (the table is not part of the graph). The row
-    side is FM's, or MVM's product row side."""
+    side is FM's, MVM's product row side, or FFM's aligned hybrid."""
     from xflow_tpu_torch.ops.sorted_table import table_gather_sorted
 
     with torch.no_grad():
@@ -113,7 +112,11 @@ def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
     occ_t.requires_grad_(True)
     rows = batch["labels"].shape[0]
     with torch.enable_grad():
-        if cfg.model.name == "mvm":
+        if cfg.model.name == "ffm":
+            from xflow_tpu_torch.models.ffm import ffm_aligned_logits
+
+            logits = ffm_aligned_logits(occ_t, batch, cfg)
+        elif cfg.model.name == "mvm":
             from xflow_tpu_torch.models.mvm import _product_row_side
 
             plus = 1.0 if cfg.model.mvm_plus_one else 0.0
@@ -133,7 +136,7 @@ def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
 
 def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
     """`fused_cotangent`, then one scatter_ftrl_sorted pass over the table
-    ("wv" for FM, "v" for MVM)."""
+    ("wv" for FM and FFM, "v" for MVM)."""
     from xflow_tpu_torch.ops.sorted_table import scatter_ftrl_sorted
 
     tname = "v" if cfg.model.name == "mvm" else "wv"
@@ -171,11 +174,13 @@ def make_train_step(model: Model, optimizer: Optimizer, cfg: Config) -> Callable
 
     def train_step(state: TrainState, batch: dict):
         # the fused path needs a flat sorted plan without per-occurrence
-        # fields (not a stacked plan, not MVM's segment row side)
+        # fields (not a stacked plan, not MVM's segment row side), except
+        # FFM's aligned hybrid, whose plan carries fields and its placement
         fusable = (
             "sorted_slots" in batch
             and batch["sorted_slots"].ndim == 1
-            and "sorted_fields" not in batch
+            and ("ffm_invperm" in batch if cfg.model.name == "ffm"
+                 else "sorted_fields" not in batch)
         )
         if fuse and fusable:
             new_state, metrics = _fused_sorted_step(state, batch, cfg)
@@ -184,7 +189,8 @@ def make_train_step(model: Model, optimizer: Optimizer, cfg: Config) -> Callable
             raise ValueError(
                 "optim.fused_scatter=on but this batch has no flat "
                 "fields-free sorted plan (sorted_layout off/row-major, "
-                "stacked sub-batch plans, or MVM's segment path): the "
+                "stacked sub-batch plans, MVM's segment path, or an FFM "
+                "batch routed row-major): the "
                 "fused path cannot run; use auto to allow the two-pass "
                 "form on such batches"
             )
