@@ -141,7 +141,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    evaluate of the trained checkpoint (finite AUC) and `predict_rows` on
    64 rows against it within 1e-5; and the train step's stage breakdown
    (`train_breakdown`: the plan's routing and placement also timed on
-   their own).
+   their own);
+14. serving on the card, after the other phases (`run_serve`): two
+   committed full-width FM states (steps 1 and 2, other seeds) and
+   `python -m xflow_tpu_torch serve --device cuda` over step 1 (port 0,
+   2 ms window, max batch 256, ladder 32,64,128,256, poll 0.5 s, a
+   serve stream with 0.5 s windows and 1% trace sampling); its ready
+   line must name the card. The port's `tools/serve_bench.py` drives it
+   closed-loop for 15 s (16 connections, 1-8 rows a request from the
+   shard, trace ids echoed) while step 2 commits by one rename about
+   5 s in: the answers must flip from step 1 to step 2 with 0 failed
+   requests, `/healthz` must report step 2, and the stream must hold
+   windows with every `SERVE_WINDOW_KEYS` key, a reload event and its
+   span. 256 rows POSTed must equal, within PCTR_ATOL, the evaluate
+   path on the step-2 tables (#1 and #2) and an in-process
+   `ServeRunner.predict_rows` (which launches no kernel: serving is
+   row-major); SIGTERM must exit 0. It prints requests/s, rows/s, the
+   client's p50/p90/p99, the mean batch fill, the reload's seconds and
+   the windows' p99 around the swap against the others; in process, at
+   each rung `assemble_batch` and `predict` (host clock, with
+   `to_device` and `.cpu()`), the forward (CUDA events) and the card's
+   busy time of a predict (`torch.profiler`), and from these and the
+   stream's batches an upper bound on the card's busy share of the
+   closed loop; under a predict loop at rung 256, the predict's
+   latency while idle, during a reload, during its parts one at a time
+   (the npz read, the digest in place and of a `tobytes()` copy, the
+   copy to the card) and while 16 threads parse about 1,000 requests/s
+   at the default and a 0.5 ms GIL switch interval, with the card's memory before, at
+   the peak and after (the old generation must be returned); and phase
+   13's FFM checkpoint through one `load()`.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
@@ -374,8 +402,8 @@ def gather_bytes(sorted_slots, K: int, K8: int) -> float:
     return np_ * 4 + n_sectors * 32 + K8 * np_ * 4
 
 
-def write_state(ck_dir: str, name: str, K: int, scale: float, seed: int) -> int:
-    """A committed step-1 training checkpoint of one [2^22, K] table ~
+def write_state(ck_dir: str, name: str, K: int, scale: float, seed: int, step: int = 1) -> int:
+    """A committed training checkpoint (at `step`) of one [2^22, K] table ~
     N(0, scale²), with FTRL state as a run that has touched the lower
     half of the slots: the upper half keeps n = z = 0, so the lazy-init
     guard runs there. Returns its bytes."""
@@ -390,7 +418,7 @@ def write_state(ck_dir: str, name: str, K: int, scale: float, seed: int) -> int:
     z = rng.standard_normal((S, K), dtype=np.float32) * np.float32(1e-4)
     n[S // 2:] = 0.0
     z[S // 2:] = 0.0
-    save_state(ck_dir, {name: t}, {name: {"n": n, "z": z}}, step=1)
+    save_state(ck_dir, {name: t}, {name: {"n": n, "z": z}}, step=step)
     return 3 * t.nbytes
 
 
@@ -1838,6 +1866,415 @@ def run_lab(work: str) -> list:
     return kern
 
 
+SERVE_LADDER = "32,64,128,256"
+SERVE_MAX_BATCH = 256
+SERVE_SECONDS, SERVE_SWAP_AT, SERVE_CONNECTIONS = 15.0, 5.0, 16
+
+
+def stage_step(src: str, dst: str, step: int, link: bool = False) -> str:
+    """Copy committed step `step` of `src` into `dst` under a staging name
+    (hard links with `link`); returns that name. `os.replace` of it onto
+    `step_<N>` commits it in one rename, as a checkpoint shipper does."""
+    import shutil
+
+    os.makedirs(dst, exist_ok=True)
+    tmp = os.path.join(dst, f".staging_step_{step}")
+    shutil.copytree(os.path.join(src, f"step_{step}"), tmp,
+                    copy_function=os.link if link else shutil.copy2)
+    return tmp
+
+
+def commit_step(tmp: str, step: int) -> None:
+    os.replace(tmp, os.path.join(os.path.dirname(tmp), f"step_{step}"))
+
+
+def serve_windows(recs: list, reload_span: dict) -> tuple[list, list]:
+    """The serve stream's window records split into those that overlap the
+    reload span (from its start to its end, widened by one window) and
+    the others. A window record is stamped at its flush, covering the
+    `window_s` before it."""
+    t0 = reload_span["t0"]
+    t1 = t0 + reload_span["dur_ms"] / 1e3
+    around, others = [], []
+    for r in recs:
+        if r.get("kind") != "serve" or "requests" not in r:
+            continue
+        lo, hi = r["ts"] - r["window_s"], r["ts"]
+        (around if lo <= t1 + r["window_s"] and hi >= t0 else others).append(r)
+    return around, others
+
+
+def request_group(fields: list, slots: list) -> list:
+    """Rows as a group of requests of 1, 2, ..., 8, 1, ... rows, as the
+    closed loop sends them."""
+    from xflow_tpu_torch.serve.coalescer import PendingRequest
+
+    group, lo, n = [], 0, 1
+    while lo < len(fields):
+        group.append(PendingRequest(fields=fields[lo:lo + n], slots=slots[lo:lo + n]))
+        lo, n = lo + n, n % 8 + 1
+    return group
+
+
+def device_busy_ms(fn, reps: int = 20):
+    """The card's busy time of one fn() by `torch.profiler`: the sum of
+    the kernels' and copies' own device time over `reps` calls, a call;
+    None when the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / reps / 1e3 if busy_us > 0 else None
+
+
+def run_serve(cfg, work: str, path: str, card: str) -> None:
+    """Phase 14, the online server on the card: `python -m xflow_tpu_torch
+    serve --device cuda` at FM's full width over a committed step 1,
+    driven closed-loop by the port's `serve_bench` (16 connections, 1-8
+    rows a request from the shard) while step 2 commits by one rename
+    about 5 s in: the answers flip from step 1 to step 2 with no failed
+    request, `/healthz` reports step 2, and the serve stream holds
+    complete windows and a reload event. 256 served rows equal the
+    evaluate path (#1 and #2) and an in-process `predict_rows` (no kernel
+    launch) within PCTR_ATOL; SIGTERM exits 0. Then in process: each
+    rung's assemble, forward, predict and card busy time, and the card's
+    busy share of the closed loop they bound; under a predict loop, a
+    reload, its parts, the two digest forms and threads parsing at two
+    GIL switch intervals, with the card's memory before, at the peak and
+    after; and the FFM checkpoint of phase 13 through one `load()`."""
+    import http.client
+    import select
+    import signal
+    import threading
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.evaluate import to_device
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.serve.coalescer import PendingRequest, assemble_batch
+    from xflow_tpu_torch.serve.metrics import SERVE_WINDOW_KEYS
+    from xflow_tpu_torch.serve.runner import ServeRunner, parse_rows
+    from xflow_tpu_torch.tools import serve_bench
+    from xflow_tpu_torch.train import checkpoint as ckpt
+    from xflow_tpu_torch.weights import table_shapes
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    laps = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"# serve phase: {what} in {laps[-1] - laps[-2]:.1f} s", flush=True)
+
+    src, serving = os.path.join(work, "ck_serve_src"), os.path.join(work, "ck_serving")
+    for step in (1, 2):
+        write_state(src, "wv", 1 + V_DIM, 0.05, SEED + 3 + step, step=step)
+    commit_step(stage_step(src, serving, 1), 1)
+    staged = stage_step(src, serving, 2)
+    lap("two full-width FM states written, step 1 committed for serving")
+
+    metrics, errlog = os.path.join(work, "serve.jsonl"), os.path.join(work, "serve.err")
+    argv = [sys.executable, "-m", "xflow_tpu_torch", "serve", "--device", DEVICE,
+            "--checkpoint-dir", serving, "--model", "fm", "--log2-slots", str(LOG2_SLOTS),
+            "--port", "0", "--window-ms", "2", "--max-batch", str(SERVE_MAX_BATCH),
+            "--poll-s", "0.5", "--metrics-path", metrics,
+            "--set", f"serve.ladder={SERVE_LADDER}", "--set", f"model.v_dim={V_DIM}",
+            "--set", f"model.num_fields={NUM_FIELDS}", "--set", f"data.max_nnz={NUM_FIELDS}",
+            "--set", "serve.metrics_every_s=0.5", "--set", "serve.trace_sample_rate=0.01"]
+    with open(errlog, "w") as err:
+        proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        if not select.select([proc.stdout], [], [], 180)[0]:
+            fail("the server printed no ready line within 180 s")
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"the server exited {proc.wait(timeout=30)} before its ready line: "
+                 f"{open(errlog).read()[-2000:]}")
+        ready = json.loads(line)
+        if ready["device"] != torch.cuda.get_device_name(0) or ready["step"] != 1:
+            fail(f"ready line {ready}: expected step 1 on {torch.cuda.get_device_name(0)}")
+        url = f"http://127.0.0.1:{ready['port']}"
+        print(f"# serve: ready {ready}", flush=True)
+        lap("the server started (CUDA context, load, warmup of 4 rungs)")
+
+        args = serve_bench.build_parser().parse_args([
+            "--url", url, "--duration", str(SERVE_SECONDS),
+            "--concurrency", str(SERVE_CONNECTIONS), "--data", path,
+            "--rows-per-request", "1-8", "--trace"])
+        t_start = time.perf_counter()
+        swap = threading.Timer(SERVE_SWAP_AT, commit_step, (staged, 2))
+        swap.start()
+        try:
+            rep = serve_bench.run(args)
+        finally:
+            swap.cancel()
+            swap.join(timeout=30)
+        print(f"# serve_bench: {json.dumps(rep)}", flush=True)
+        if (rep["errors"], rep["trace_echo_miss"], rep["generations"], rep["steps"]) != (
+                0, 0, [1, 2], [1, 2]):
+            fail(f"closed loop over the reload: errors {rep['errors']} "
+                 f"({rep['first_error']}), echo misses {rep['trace_echo_miss']}, "
+                 f"generations {rep['generations']}, steps {rep['steps']}")
+        flip_s = rep["gen_flip_t"][0]
+        lap(f"{SERVE_SECONDS:.0f} s of closed-loop load over the reload")
+
+        conn = http.client.HTTPConnection("127.0.0.1", ready["port"], timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        if (health["step"], health["generation"]) != (2, 2):
+            fail(f"/healthz after the reload: {health}")
+        with open(path) as f:
+            rows = [next(f).split("\t", 1)[1].strip() for _ in range(SERVE_MAX_BATCH)]
+        conn.request("POST", "/predict", json.dumps({"rows": rows}))
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+        conn.close()
+        if resp.status != 200 or payload["step"] != 2:
+            fail(f"POST of {len(rows)} rows: HTTP {resp.status} {str(payload)[:300]}")
+        served_http = np.asarray(payload["pctr"], np.float32)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            rc = "killed after 60 s"
+    if rc != 0:
+        fail(f"the server exited {rc} on SIGTERM: {open(errlog).read()[-2000:]}")
+    lap("/healthz, 256 rows over HTTP, SIGTERM")
+
+    # --- the serve stream
+    recs = read_jsonl(metrics)
+    windows = [r for r in recs if r.get("kind") == "serve" and "requests" in r]
+    events = [r.get("event") for r in recs if r.get("kind") == "serve" and "event" in r]
+    spans = [r for r in recs if r.get("kind") == "span" and r.get("name") == "reload"]
+    incomplete = [r for r in windows if not set(SERVE_WINDOW_KEYS) <= r.keys()]
+    if not windows or incomplete or "reload" not in events or len(spans) != 1:
+        fail(f"serve stream: {len(windows)} windows ({len(incomplete)} incomplete), "
+             f"events {events}, {len(spans)} reload spans")
+    around, others = serve_windows(windows, spans[0])
+    if not around or not others:
+        fail(f"{len(around)} windows around the reload span, {len(others)} others")
+    busy = [w for w in windows if w["rows"]]
+    fill = sum(w["rows"] for w in busy) / sum(w["rows"] / w["batch_fill"] for w in busy)
+
+    # --- parity: the card's evaluate path (#1, #2) and predict_rows, in process
+    scfg = override(cfg, **{"train.checkpoint_dir": serving,
+                            "serve.max_batch": SERVE_MAX_BATCH, "serve.ladder": SERVE_LADDER})
+    runner = ServeRunner(scfg, device=DEVICE)
+    gen = runner.load()
+    st.reset_launches()
+    _, p_eval = first_batch(scfg, gen.tables, path, DEVICE)
+    eval_launches = {k: v for k, v in st.LAUNCHES.items() if v}
+    st.reset_launches()
+    served, sgen = runner.predict_rows(rows)
+    serve_launches = {k: v for k, v in st.LAUNCHES.items() if v}
+    if gen.step != 2 or set(eval_launches) != {"gather_sorted", "row_sums"} or serve_launches:
+        fail(f"step {gen.step}; evaluate launched {eval_launches}, predict_rows "
+             f"{serve_launches} (the serve path is row-major: none)")
+    d_http = float(np.abs(served_http - p_eval[:SERVE_MAX_BATCH]).max())
+    d_rows = float(np.abs(served - p_eval[:SERVE_MAX_BATCH]).max())
+    if not (d_http <= PCTR_ATOL and d_rows <= PCTR_ATOL):
+        fail(f"served pCTRs vs the card's evaluate: HTTP {d_http}, predict_rows {d_rows}")
+    lap("parity in process")
+
+    print(f"# serve on {card}: FM wv [2^{LOG2_SLOTS}, {1 + V_DIM}], ladder {SERVE_LADDER}, window 2 ms, "
+          f"{SERVE_CONNECTIONS} connections closed loop, 1-8 rows a request, "
+          f"{rep['duration_s']} s: {rep['value']} requests/s, {rep['rows_per_s']} rows/s, "
+          f"{rep['requests']} requests, 0 failed; latency p50 {rep['p50_ms']} / p90 "
+          f"{rep['p90_ms']} / p99 {rep['p99_ms']} ms (client clock); mean batch fill "
+          f"{fill:.4f} over {len(busy)} windows; generations {rep['generations']}, flip "
+          f"{flip_s:.2f} s in (step 2 committed at {SERVE_SWAP_AT:.1f} s)", flush=True)
+    print(f"# serve reload: {spans[0]['dur_ms'] / 1e3:.3f} s restore + copy + swap of "
+          f"{spans[0]['bytes'] / 1e6:.1f} MB (server's reload span); window total p99 "
+          f"around the swap {[w['total_p99_ms'] for w in around]} ms vs the other "
+          f"{len(others)} windows' median {float(np.median([w['total_p99_ms'] for w in others])):.3f}"
+          f" and max {max(w['total_p99_ms'] for w in others):.3f} ms; device p99 around "
+          f"{[w['device_p99_ms'] for w in around]} ms, others' median "
+          f"{float(np.median([w['device_p99_ms'] for w in others])):.3f} ms; queue wait p99 "
+          f"median {float(np.median([w['queue_wait_p99_ms'] for w in windows])):.3f} ms",
+          flush=True)
+    print(f"# serve parity: 256 rows over HTTP vs the card's evaluate (launches "
+          f"{eval_launches}): max abs diff {d_http}; in-process predict_rows (0 launches): "
+          f"{d_rows}", flush=True)
+
+    # --- in process: each rung's assemble, forward, predict and card time,
+    # and the handler's parse; then the card's busy share of the closed loop
+    fields, slots = parse_rows(rows, scfg.data)
+    t0 = time.perf_counter()
+    for i in range(200):
+        parse_rows(rows[i % 32:i % 32 + 8], scfg.data)
+    parse_ms = (time.perf_counter() - t0) / 200 * 1e3
+    per_rung, card = [], {}
+    for r in runner.rungs:
+        group = request_group(fields[:r], slots[:r])
+        asm = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            arrays, _ = assemble_batch(group, r, NUM_FIELDS)
+            asm.append((time.perf_counter() - t0) * 1e3)
+        dev = to_device(arrays, DEVICE)
+        ev = cuda_ms(lambda dev=dev: runner._predict(gen.tables, dev), reps=50, warmup=5)
+        host = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            runner.predict(arrays)
+            host.append((time.perf_counter() - t0) * 1e3)
+        card[r] = device_busy_ms(lambda arrays=arrays: runner.predict(arrays))
+        busy_s = "not measured" if card[r] is None else f"{card[r]:.4f} ms"
+        per_rung.append(f"{r} ({len(group)} requests): assemble_batch {np.median(asm):.4f} ms, "
+                        f"forward {ev:.4f} ms CUDA events, predict {np.median(host):.4f} ms "
+                        f"host median (p99 {np.percentile(host, 99):.4f}), card busy {busy_s}")
+    print(f"# serve per rung (assemble_batch of requests of 1-8 rows and predict by the host "
+          f"clock, medians of 50; the forward alone by CUDA events; the card's busy time of "
+          f"one predict, to_device to .cpu(), by torch.profiler): {'; '.join(per_rung)}; "
+          f"parse_rows of an 8-row request {parse_ms:.4f} ms (handler thread)", flush=True)
+    span_s = sum(w["window_s"] for w in windows)
+    if None in card.values():
+        print("# serve card busy: not measured (the profiler saw no device time)", flush=True)
+    else:
+        # an upper bound: a batch at rung r keeps the card busy card[r];
+        # the stream gives each window's batches and padded rows, not
+        # their rungs, so take the larger of the rungs' figures per batch
+        # and per padded row, and the smaller of the two bounds a window
+        per_batch, per_row = max(card.values()), max(card[r] / r for r in card)
+        busy_ms = sum(min(w["batches"] * per_batch, w["rows"] / w["batch_fill"] * per_row)
+                      for w in busy)
+        print(f"# serve card busy: at most {busy_ms / 1e3 / span_s:.2%} of the stream's "
+              f"{len(windows)} windows ({span_s:.3f} s, {sum(w['batches'] for w in busy)} "
+              f"batches): each window's batches x {per_batch:.4f} ms, or its padded rows x "
+              f"{per_row * 1e3:.4f} us, the smaller (the profiler's busy time above)",
+              flush=True)
+    del runner, gen
+    lap("per-rung timings")
+
+    # --- in process, under a predict loop at rung 256: a reload, its
+    # parts one at a time, the two digest forms, and threads parsing
+    # requests at two GIL switch intervals; and the card's memory
+    rdir = os.path.join(work, "ck_reload")
+    commit_step(stage_step(src, rdir, 1, link=True), 1)
+    rcfg = override(scfg, **{"train.checkpoint_dir": rdir})
+    runner = ServeRunner(rcfg, device=DEVICE)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    runner.load()
+    m1 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    arrays, _ = assemble_batch([PendingRequest(fields=fields, slots=slots)], SERVE_MAX_BATCH,
+                               NUM_FIELDS)
+    lat, stop, probes = [], threading.Event(), {}
+
+    def loop():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            _, g = runner.predict(arrays)
+            lat.append((t0, (time.perf_counter() - t0) * 1e3, g.gen))
+
+    def probe(what: str, fn):
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        out = fn()
+        probes[what] = (t0, time.perf_counter())
+        return out
+
+    def parsers(n: int, seconds: float) -> int:
+        """n threads, each parsing a request of 1-8 rows every n ms (about
+        the closed loop's 1,000 requests/s in all) for `seconds`; returns
+        the requests parsed."""
+        done, until = [0] * n, time.perf_counter() + seconds
+
+        def work(k):
+            while time.perf_counter() < until:
+                lo = (k * 7 + done[k]) % 248
+                parse_rows(rows[lo:lo + 1 + done[k] % 8], scfg.data)
+                done[k] += 1
+                time.sleep(n / 1e3)
+
+        ths = [threading.Thread(target=work, args=(k,)) for k in range(n)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=60)
+        return sum(done)
+
+    def copy_to_card():
+        runner._to_device(host)
+
+    switch = sys.getswitchinterval()
+    th = threading.Thread(target=loop)
+    th.start()
+    try:
+        probe("idle", lambda: time.sleep(0.5))
+        commit_step(stage_step(src, rdir, 2, link=True), 2)
+        new = probe("maybe_reload", runner.maybe_reload)
+        peak = torch.cuda.max_memory_allocated()
+        host, _, _ = probe("npz read (restore_tiered, verify off)", lambda: ckpt.restore_tiered(
+            rdir, table_shapes(rcfg), verify="off"))
+        wv = host["wv"]
+        probe("crc32 of a tobytes() copy", lambda: zlib.crc32(wv.tobytes()))
+        probe("array_digest in place", lambda: ckpt.array_digest(wv))
+        probe("copy to the card (_to_device)", copy_to_card)
+        parsed = {f"{switch * 1e3:g}": probe(
+            f"{SERVE_CONNECTIONS} threads parsing paced, switch {switch * 1e3:g} ms",
+            lambda: parsers(SERVE_CONNECTIONS, 1.0))}
+        sys.setswitchinterval(0.0005)
+        parsed["0.5"] = probe(f"{SERVE_CONNECTIONS} threads parsing paced, switch 0.5 ms",
+                              lambda: parsers(SERVE_CONNECTIONS, 1.0))
+        time.sleep(0.3)
+    finally:
+        sys.setswitchinterval(switch)
+        stop.set()
+        th.join(timeout=60)
+    if th.is_alive() or new is None or new.step != 2 or lat[-1][2] != 2:
+        fail(f"in-process reload under a predict loop: {new}, last answer {lat[-1:]}")
+    del new, host, wv
+    torch.cuda.synchronize()
+    m2 = torch.cuda.memory_allocated()
+    table = (1 << LOG2_SLOTS) * (1 + V_DIM) * 4
+    if abs((m2 - m0) - table) > table // 8:
+        fail(f"after the reload {m2 - m0} bytes stay allocated, expected one table ({table})")
+    parts = []
+    for what, (a, b) in probes.items():
+        ms = [d for t, d, _ in lat if t < b and t + d / 1e3 > a]
+        parts.append(f"{what} {b - a:.3f} s: predict median {np.median(ms):.3f} p99 "
+                     f"{np.percentile(ms, 99):.3f} max {max(ms):.3f} ms ({len(ms)})")
+    print(f"# serve under a predict loop at rung {SERVE_MAX_BATCH} (host clock; the predicts "
+          f"that overlap each part): {'; '.join(parts)}; requests parsed in 1 s by "
+          f"{SERVE_CONNECTIONS} paced threads at switch interval (ms) {parsed}; card memory "
+          f"allocated: one generation {(m1 - m0) / 1e6:.1f} MB, peak during the swap "
+          f"{(peak - m0) / 1e6:.1f} MB over the start, after it {(m2 - m0) / 1e6:.1f} MB",
+          flush=True)
+    del runner
+    lap("in process under a predict loop: the reload, its parts, the GIL")
+
+    # --- FFM's 1.2 GB table through one load()
+    fcfg = ffm_config(cfg, os.path.join(work, "ck_ffm"))
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fgen = ServeRunner(fcfg, device=DEVICE).load()
+    t_load = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in fgen.tables.values())
+    print(f"# serve load of phase 13's FFM checkpoint (wv [2^{LOG2_SLOTS}, "
+          f"{1 + NUM_FIELDS * FFM_V_DIM}], "
+          f"step {fgen.step}): {t_load:.3f} s for {nbytes / 1e6:.1f} MB of tables "
+          f"(restore, digest check, copy to the card); allocated "
+          f"{(torch.cuda.memory_allocated() - m0) / 1e6:.1f} MB", flush=True)
+    del fgen
+    lap("the FFM load")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
@@ -1892,6 +2329,7 @@ def main() -> int:
         ffm_kern = run_ffm(cfg, work, path, rate_path)
         wide = check_wide_row_sums(cfg, path)
         lab_kern = run_lab(work)
+        run_serve(cfg, work, path, card)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")

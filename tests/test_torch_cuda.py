@@ -27,7 +27,9 @@ the card against the CPU. The lab's kernels (#7-#11, `ops/lab.py`) run
 at the mosaic probe's shapes with one slice out of range (#7 also at the
 grids that split a window into 64 pieces and into none), #11 at one to
 34 quads and at B 512, 65,536 and 2^18 (a quad column of 4 MiB), and
-`kernel_parity` runs whole. The multi-buffer gather (#5) also runs on
+`kernel_parity` runs whole. The server's runner runs on the card against
+the CPU, through a reload under a predict loop, and returns the old
+generation's memory. The multi-buffer gather (#5) also runs on
 windows empty in every buffer and on one buffer whose spans all lie in
 one window, at 1, 4 and the most stacked buffers.
 
@@ -697,3 +699,75 @@ def test_kernel_parity_on_the_card(dev):
     assert res["backend"] == "cuda"
     assert res["ok"], {n: (e, TOLERANCES[n]) for n, e in res["checks"].items()
                        if e > TOLERANCES[n]}
+
+
+def test_serve_on_the_card_matches_the_cpu_and_returns_the_old_generation(dev, tmp_path):
+    """The server's runner on the card: pCTRs within 1e-5 of the CPU's at
+    every rung and through `handle_predict`; a reload under a predict
+    loop (the copy on the loader's stream) answers at the new step with
+    no failure, and once no batch holds the old generation the card
+    holds one table again."""
+    import json
+    import threading
+    import time
+
+    from xflow_tpu_torch.serve.server import ServeApp
+    from xflow_tpu_torch.serve.runner import ServeRunner
+    from xflow_tpu_torch.train.checkpoint import save_tables
+
+    K, nf = 5, 8
+    rng = np.random.default_rng(11)
+    ck = tmp_path / "ck"
+    cfg = override(Config(), **{"model.name": "fm", "model.v_dim": K - 1,
+                                "data.log2_slots": 14, "data.max_nnz": nf,
+                                "train.checkpoint_dir": str(ck), "serve.max_batch": 64,
+                                "serve.ladder": "8,16,32"})
+    save_tables(str(ck), {"wv": (rng.normal(size=(S, K)) * 0.3).astype(np.float32)}, 1)
+    rows = [" ".join(f"{f}:t{rng.integers(0, 500)}" for f in range(nf)) for _ in range(64)]
+    card, cpu = ServeRunner(cfg, device=dev), ServeRunner(cfg, device="cpu")
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    card.load(), cpu.load()
+    assert card.warmup() == 4
+    table = S * K * 4
+    assert torch.cuda.memory_allocated() - m0 == table
+    for n in (1, 8, 16, 33, 64):
+        got, _ = card.predict_rows(rows[:n])
+        want, _ = cpu.predict_rows(rows[:n])
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    app = ServeApp(cfg, card)
+    app.start()
+    try:
+        status, payload = app.handle_predict(json.dumps({"rows": rows[:5]}).encode())
+    finally:
+        app.close()
+    assert status == 200
+    np.testing.assert_allclose(payload["pctr"], cpu.predict_rows(rows[:5])[0], atol=1e-5,
+                               rtol=0)
+    save_tables(str(ck), {"wv": (rng.normal(size=(S, K)) * 0.3).astype(np.float32)}, 2)
+    seen, errors, stop = [], [], threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            try:
+                seen.append(card.predict_rows(rows[:16])[1].step)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+
+    th = threading.Thread(target=loop)
+    th.start()
+    try:
+        assert card.maybe_reload().step == 2
+        n, deadline = len(seen), time.monotonic() + 60
+        while len(seen) < n + 20 and th.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert not th.is_alive() and not errors and seen[-1] == 2
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - m0 == table
+    assert cpu.maybe_reload().step == 2
+    np.testing.assert_allclose(card.predict_rows(rows)[0], cpu.predict_rows(rows)[0],
+                               atol=1e-5, rtol=0)

@@ -9,8 +9,11 @@ both row sides), with `jax` and `xflow_tpu` blocked: through the native
 parser and planner, and from an `.xfc` cache the port packs.
 """
 
+import http.client
 import json
 import os
+import select
+import signal
 import subprocess
 import sys
 
@@ -191,6 +194,10 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.data.native, xflow_tpu_torch.data.pipeline\n"
         "import xflow_tpu_torch.data.shardcache, xflow_tpu_torch.jsonl\n"
         "import xflow_tpu_torch.tools.criteo_convert\n"
+        "import xflow_tpu_torch.telemetry, xflow_tpu_torch.tracing\n"
+        "import xflow_tpu_torch.serve.coalescer, xflow_tpu_torch.serve.autotune\n"
+        "import xflow_tpu_torch.serve.metrics, xflow_tpu_torch.serve.server\n"
+        "import xflow_tpu_torch.tools.serve_bench\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -301,3 +308,69 @@ def test_cli_reads_through_the_native_plane_without_jax(slice_case, tmp_path):
     assert calls["cached"]["cache_batches"] == 4 and calls["cached"]["native_plan"] == 4
     assert calls["cached"]["native_stream"] == 0 and calls["cached"]["python_rows"] == 0
     assert os.path.exists(path + ".xfc")
+
+
+def _serve_argv(ck, *extra):
+    return [sys.executable, "-c", _NO_JAX + "from xflow_tpu_torch.__main__ import main\n"
+            "sys.exit(main(sys.argv[1:]))\n", "serve", "--checkpoint-dir", str(ck),
+            "--model", "fm", "--log2-slots", str(LOG2_S), "--set", f"model.v_dim={V}",
+            "--set", f"data.max_nnz={NNZ}", *extra]
+
+
+def _ready_line(proc, timeout_s):
+    """The server's first stdout line, waited for at most `timeout_s`."""
+    if not select.select([proc.stdout], [], [], timeout_s)[0]:
+        raise TimeoutError(f"no ready line within {timeout_s} s")
+    return proc.stdout.readline()
+
+
+def test_cli_serve_without_jax(slice_case, tmp_path):
+    """`serve --device cpu` with jax blocked: the ready line, one answer
+    equal to `predict_rows`, `/healthz`, the serve stream, exit 0 on
+    SIGTERM."""
+    metrics = tmp_path / "serve.jsonl"
+    proc = subprocess.Popen(
+        _serve_argv(slice_case["ck"], "--device", "cpu", "--port", "0", "--max-batch", "32",
+                    "--window-ms", "1", "--poll-s", "0.5", "--metrics-path", str(metrics),
+                    "--set", "serve.ladder=8,16"),
+        cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = json.loads(_ready_line(proc, 120))
+        assert ready["serving"] and ready["step"] == 7 and ready["generation"] == 1
+        assert ready["device"] == "cpu" and ready["pid"] == proc.pid and ready["port"] > 0
+        rows = [line.split("\t", 1)[1].strip()
+                for line in open(slice_case["path"]).read().splitlines()[:5]]
+        conn = http.client.HTTPConnection("127.0.0.1", ready["port"], timeout=30)
+        conn.request("POST", "/predict", json.dumps({"rows": rows}))
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+        assert resp.status == 200 and payload["step"] == 7
+        conn.request("GET", "/healthz")
+        assert json.loads(conn.getresponse().read())["step"] == 7
+        conn.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err
+    assert "warmed up 3 ladder rung(s)" in err
+    runner = ServeRunner(override(Config(), **_pairs(slice_case["ck"]), **{"serve.max_batch": 32}),
+                         device="cpu")
+    runner.load()
+    want, _ = runner.predict_rows(rows)
+    np.testing.assert_allclose(payload["pctr"], want, atol=1e-5, rtol=0)
+    events = [json.loads(line).get("event") for line in metrics.read_text().splitlines()]
+    assert events[0] == "start" and events[-1] == "final"
+
+
+def test_cli_serve_on_cuda_without_a_card_exits_with_the_reason(slice_case):
+    """No hidden fall back: `--device cuda` where torch sees no CUDA
+    device exits non-zero, names the missing device and prints no ready
+    line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks the refusal without one")
+    r = subprocess.run(_serve_argv(slice_case["ck"], "--device", "cuda", "--port", "0"),
+                       cwd=REPO_ROOT, capture_output=True, text=True, timeout=240)
+    assert r.returncode != 0 and r.stdout == ""
+    assert "no CUDA device" in r.stderr and "--device cuda" in r.stderr

@@ -16,6 +16,17 @@ when given, and prints one JSON summary line {"rank", "steps", "epochs",
 Loads the newest loadable committed checkpoint under D, evaluates libffm
 file F and prints one JSON line {"auc", "logloss", "step", "device"}.
 
+    python -m xflow_tpu_torch serve --checkpoint-dir D [--model lr|fm|mvm|ffm] \
+        [--log2-slots N] [--port P] [--host H] [--unix-socket PATH] [--window-ms MS] \
+        [--max-batch N] [--poll-s S] [--metrics-path F] [--device cuda] [--set k=v ...]
+
+Serves pCTRs over HTTP (`POST /predict` {"rows": [...]}, `GET /healthz`,
+`GET /stats`) from the newest loadable committed checkpoint under D,
+microbatched, and hot-reloads newer committed steps; prints one JSON
+ready line {"serving", "step", "generation", "pid", "host", "port"[,
+"unix_socket"], "device"} once listening, and exits 0 on SIGTERM. With
+`--device cuda` and no CUDA device it exits 2 without serving.
+
 FFM at its practical shape: `--model ffm --set model.v_dim=4` (rows
 `wv [S, 1 + num_fields * v_dim]`); it has no reference index, as in
 `python -m xflow_tpu`.
@@ -55,6 +66,12 @@ def build_config(args):
         pairs["optim.name"] = args.optimizer
     if args.log2_slots is not None:
         pairs["data.log2_slots"] = args.log2_slots
+    for flag, key in (("port", "serve.port"), ("host", "serve.host"),
+                      ("unix_socket", "serve.unix_socket"), ("window_ms", "serve.window_ms"),
+                      ("max_batch", "serve.max_batch"), ("poll_s", "serve.reload_poll_s"),
+                      ("metrics_path", "serve.metrics_path")):
+        if getattr(args, flag, None) is not None:
+            pairs[key] = getattr(args, flag)
     for item in args.set:
         k, _, v = item.partition("=")
         pairs[k] = v
@@ -71,6 +88,23 @@ def cmd_evaluate(args) -> int:
     auc, ll = evaluate(cfg, gen.tables, cfg.data.test_path, device=args.device)
     print(json.dumps({"auc": auc, "logloss": ll, "step": gen.step, "device": args.device}))
     return 0
+
+
+def cmd_serve(args) -> int:
+    import torch
+
+    from xflow_tpu_torch.serve.server import serve_main
+
+    cfg = build_config(args)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print(f"serve: --device {args.device}: no CUDA device (torch.cuda.is_available() is "
+              "false); pass --device cpu to serve from the CPU", file=sys.stderr)
+        return 2
+    try:
+        return serve_main(cfg, device=args.device)
+    except (FileNotFoundError, RuntimeError) as e:
+        print(f"serve: cannot load a checkpoint: {e}", file=sys.stderr)
+        return 1
 
 
 def cmd_train(args) -> int:
@@ -137,6 +171,30 @@ def main(argv=None) -> int:
     ev.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="dotted config override, e.g. --set model.v_dim=4")
     ev.set_defaults(fn=cmd_evaluate)
+    sv = sub.add_parser("serve", help="serve pCTRs over HTTP from a committed checkpoint, "
+                                      "with microbatching and hot reload")
+    sv.add_argument("--checkpoint-dir", required=True,
+                    help="dir of committed checkpoints; the newest loads, newer ones hot-reload")
+    sv.add_argument("--model", default="lr", help="lr|fm|mvm|ffm, or reference index 0|1|2")
+    sv.add_argument("--log2-slots", type=int, default=None)
+    sv.add_argument("--port", type=int, default=None,
+                    help="TCP port (default 8000; 0 = a free one; -1 = unix socket only)")
+    sv.add_argument("--host", default=None)
+    sv.add_argument("--unix-socket", default=None, help="also serve HTTP over this AF_UNIX path")
+    sv.add_argument("--window-ms", type=float, default=None,
+                    help="coalescing window (default 2.0)")
+    sv.add_argument("--max-batch", type=int, default=None,
+                    help="rows a device batch and a request at most (default 256)")
+    sv.add_argument("--poll-s", type=float, default=None,
+                    help="hot-reload poll interval (default 2.0)")
+    sv.add_argument("--metrics-path", default=None,
+                    help="kind=serve telemetry JSONL (windows, reload events)")
+    sv.add_argument("--no-mesh", action="store_true",
+                    help="accepted for flag parity: the port serves from one device")
+    sv.add_argument("--device", default="cuda")
+    sv.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="dotted config override, e.g. --set serve.ladder=32,64,256")
+    sv.set_defaults(fn=cmd_serve, test=None, batch_size=None)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,12 +1,12 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
-(FM inference, single-device LR, FM and MVM training, the host input
-plane) read, with the JAX package's
+(FM inference, single-device LR, FM, MVM and FFM training, the host
+input plane, the single-process server) read, with the JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
 Sections and fields not listed here belong to paths the port has not
-taken over yet (multi-device engines, the serving fleet, telemetry);
-an override naming one raises KeyError.
+taken over yet (multi-device engines, the serving fleet and router,
+the trainer's telemetry); an override naming one raises KeyError.
 """
 
 from __future__ import annotations
@@ -125,7 +125,11 @@ class TrainConfig:
     resume from the newest checkpoint, the non-finite guard
     ("off"|"skip"|"halt") and its consecutive-skip abort; where
     checkpoints live, their format ("npz" is the one the port reads and
-    writes) and digest verification on restore ("auto"|"off")."""
+    writes) and digest verification on restore ("auto"|"off").
+    `ckpt_replica_dir` ("" = off) is the tier-2 replica of the
+    checkpoints: restores and the serve watcher walk the union of both
+    tiers' committed steps, newest first (the port reads it; the
+    trainer's replica writes are not ported)."""
 
     epochs: int = 60
     seed: int = 0
@@ -137,13 +141,58 @@ class TrainConfig:
     nonfinite_max_consecutive: int = 10
     checkpoint_format: str = "npz"
     checkpoint_verify: str = "auto"
+    ckpt_replica_dir: str = ""
 
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Rows per serving device batch (the per-request row cap too)."""
+    """The single-process server (`python -m xflow_tpu_torch serve`),
+    with the JAX package's names, defaults and meanings.
 
+    Listeners: TCP on `host`:`port` (0 = a free port, reported in the
+    ready line; -1 = none) and/or HTTP over the AF_UNIX path
+    `unix_socket`. Microbatching (`serve/coalescer.py`): requests queued
+    inside `window_ms` coalesce into one padded batch of at most
+    `max_batch` rows (the per-request row cap too); beyond
+    `max_queue_rows` queued rows a submit gets 503. Hot reload polls the
+    checkpoint dir every `reload_poll_s`. Telemetry: kind="serve" JSONL
+    windows every `metrics_every_s` to `metrics_path` ("" = off), rolled
+    past `metrics_max_bytes` (0 = never). Request tracing: head-sampling
+    rate `trace_sample_rate` (0 = off), tail capture over
+    `trace_slow_ms`. `request_timeout_s`: an unanswered request gets
+    503. Brownout: a backlog over `brownout_high_frac` x max_queue_rows
+    sustained `brownout_after_s` shrinks the window by
+    `brownout_window_factor` and sheds low-priority requests, until it
+    stays under `brownout_low_frac`. Autotune (off by default) steers
+    window_ms and the ladder rung toward `slo_p99_ms` within a band of
+    `autotune_band_frac`, stepping by `autotune_step_frac`, no window
+    below `autotune_min_window_ms`. `ladder` ("32,64,256"; "" =
+    max_batch only): the batch shapes a batch is padded to, the
+    smallest that fits."""
+
+    host: str = "127.0.0.1"
+    port: int = 8000
+    unix_socket: str = ""
+    window_ms: float = 2.0
     max_batch: int = 256
+    max_queue_rows: int = 8192
+    reload_poll_s: float = 2.0
+    metrics_path: str = ""
+    metrics_every_s: float = 5.0
+    metrics_max_bytes: int = 0
+    trace_sample_rate: float = 0.0
+    trace_slow_ms: float = 250.0
+    request_timeout_s: float = 30.0
+    brownout_high_frac: float = 0.5
+    brownout_low_frac: float = 0.25
+    brownout_after_s: float = 0.25
+    brownout_window_factor: float = 0.25
+    autotune: bool = False
+    slo_p99_ms: float = 25.0
+    autotune_band_frac: float = 0.15
+    autotune_step_frac: float = 0.5
+    autotune_min_window_ms: float = 0.25
+    ladder: str = ""
 
 
 @dataclass(frozen=True)

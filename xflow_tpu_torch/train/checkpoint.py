@@ -11,10 +11,13 @@ A step lives in ``<dir>/step_<N>/``:
   written by the trainer before the marker;
 - ``COMMITTED`` — written last; a step dir without it is partial.
 
-`restore_tables` reads the tables only (serving and evaluation never
-read optimizer state); `restore_state` reads tables, optimizer state and
-step for the trainer. Both verify digests and walk back to the previous
-committed step when the newest one fails to load.
+`restore_tiered` and `restore_tables` read the tables only (serving and
+evaluation never read optimizer state), `restore_tiered` across the
+primary dir and a tier-2 replica dir; `restore_state` reads tables,
+optimizer state and step for the trainer. All verify digests and walk
+back past a step that fails to load. `read_publication` reads a step's
+publication sidecar (the trainer's write side of replicas and
+publications is not ported).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ CHECKPOINT_VERSION = 3
 # examples, per-shard offsets); the port writes it for one shard
 DATA_STATE_VERSION = 2
 DATA_STATE_FILE = "data_state.json"
+PUBLICATION_FILE = "publication.json"
 PACK = 8
 
 
@@ -44,9 +48,12 @@ class CheckpointDigestError(RuntimeError):
 
 
 def array_digest(arr: np.ndarray) -> str:
-    """crc32 of an array's raw bytes, as meta.json records it."""
+    """crc32 of an array's raw bytes, as meta.json records it. The crc
+    reads the array's buffer in place: zlib releases the GIL over it,
+    where a `tobytes()` copy would hold it (about 0.1 s for FM's table,
+    a pause of every other thread of a server reloading)."""
     arr = np.ascontiguousarray(arr)
-    return "crc32:%08x" % (zlib.crc32(arr.tobytes()) & 0xFFFFFFFF)
+    return "crc32:%08x" % (zlib.crc32(arr) & 0xFFFFFFFF)
 
 
 def verify_digest(label: str, arr: np.ndarray, digests: Optional[dict], source: str) -> None:
@@ -137,33 +144,44 @@ def restore_step_arrays(ckpt_dir: str, step: int, shapes: dict, verify: str = "a
     return out
 
 
-def _walk_back(ckpt_dir: str, load) -> tuple:
-    """(load(step), step) for the newest committed step that loads,
-    walking back past steps that fail (digest mismatch, damaged or
-    missing file, wrong shapes), each logged. Raises FileNotFoundError
-    when no committed step exists, RuntimeError listing every failure
-    when none loads."""
-    steps = committed_steps(ckpt_dir)
+def _walk_tiers(dirs: list, load) -> tuple:
+    """(load(dir, step), step, dir) for the newest committed step that
+    loads, walking the union of the committed steps of `dirs` (the
+    primary tier first, then the replica) newest first, and within a
+    step the tiers in order. A candidate that fails (digest mismatch,
+    damaged or missing file, wrong shapes) is logged with its reason and
+    skipped. Raises FileNotFoundError when no tier holds a committed
+    step, RuntimeError listing every failure when none loads."""
+    by_dir = {d: set(committed_steps(d)) for d in dirs}
+    steps = sorted(set().union(*by_dir.values()), reverse=True)
+    where = " or ".join(repr(d) for d in dirs)
     if not steps:
-        raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir!r}")
+        raise FileNotFoundError(f"no committed checkpoint under {where}")
     errors = []
     for step in steps:
-        try:
-            got = load(step)
-        except Exception as e:  # noqa: BLE001 — every way a stored step can
-            # be damaged (BadZipFile, zlib.error, OSError, ValueError,
-            # digest or shape mismatch) takes the walk-back, logged below
-            print(
-                f"# checkpoint: step {step} failed to load ({type(e).__name__}: {e}); "
-                "trying the previous committed step",
-                file=sys.stderr,
-            )
-            errors.append((step, e))
-            continue
-        return got, step
+        for d in dirs:
+            if step not in by_dir[d]:
+                continue
+            try:
+                got = load(d, step)
+            except Exception as e:  # noqa: BLE001 — every way a stored step can
+                # be damaged (BadZipFile, zlib.error, OSError, ValueError,
+                # digest or shape mismatch) takes the walk-back, logged here
+                tier = "replica" if len(dirs) > 1 and d == dirs[-1] else "primary"
+                print(f"# checkpoint: step {step} ({tier} tier) failed to load "
+                      f"({type(e).__name__}: {e}); trying the next candidate",
+                      file=sys.stderr)
+                errors.append((d, step, e))
+                continue
+            if errors:
+                print(f"# checkpoint: restored step {step} from {d!r} after skipping "
+                      f"{len(errors)} unreadable candidate(s): "
+                      + ", ".join(f"step {s} in {dd!r}" for dd, s, _ in errors),
+                      file=sys.stderr)
+            return got, step, d
     raise RuntimeError(
-        f"no loadable checkpoint under {ckpt_dir!r}: "
-        + "; ".join(f"step {s}: {type(e).__name__}: {e}" for s, e in errors)
+        f"no loadable checkpoint under {where}: all {len(errors)} candidates failed: "
+        + "; ".join(f"step {s} ({d}): {type(e).__name__}: {e}" for d, s, e in errors)
     )
 
 
@@ -175,10 +193,24 @@ def restore_step_tables(ckpt_dir: str, step: int, shapes: dict, verify: str = "a
     return {n: got[f"tables/{n}"] for n in shapes}
 
 
-def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[dict, int]:
+def restore_tiered(ckpt_dir: str, shapes: dict, verify: str = "auto",
+                   replica_dir: Optional[str] = None) -> tuple[dict, int, str]:
     """Tables ({name: logical shape} -> {name: array}) of the newest
-    committed step that loads. Returns (tables, step)."""
-    return _walk_back(ckpt_dir, lambda step: restore_step_tables(ckpt_dir, step, shapes, verify))
+    committed step that loads across the primary `ckpt_dir` and the
+    tier-2 `replica_dir` (`train.ckpt_replica_dir`; None or "" = none):
+    a digest-poisoned primary step loads from the replica before the
+    walk falls back to an older step. Returns (tables, step, the dir it
+    loaded from), so sidecars are read from the same tier."""
+    dirs = [ckpt_dir]
+    if replica_dir and replica_dir != ckpt_dir:
+        dirs.append(replica_dir)
+    return _walk_tiers(dirs, lambda d, step: restore_step_tables(d, step, shapes, verify))
+
+
+def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[dict, int]:
+    """Tables of the newest committed step under `ckpt_dir` that loads.
+    Returns (tables, step)."""
+    return restore_tiered(ckpt_dir, shapes, verify)[:2]
 
 
 def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple,
@@ -187,18 +219,39 @@ def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple,
     table, each of its table's shape) and step of the newest committed
     step that loads. Returns (tables, opt_state, step)."""
 
-    def load(step):
+    def load(d, step):
         labels = {f"tables/{n}": shape for n, shape in shapes.items()}
         labels.update(
             {f"opt/{n}/{leaf}": shape for n, shape in shapes.items() for leaf in opt_leaves}
         )
-        got = restore_step_arrays(ckpt_dir, step, labels, verify=verify)
+        got = restore_step_arrays(d, step, labels, verify=verify)
         tables = {n: got[f"tables/{n}"] for n in shapes}
         opt = {n: {leaf: got[f"opt/{n}/{leaf}"] for leaf in opt_leaves} for n in shapes}
         return tables, opt
 
-    (tables, opt), step = _walk_back(ckpt_dir, load)
+    (tables, opt), step, _ = _walk_tiers([ckpt_dir], load)
     return tables, opt, step
+
+
+def read_publication(ckpt_dir: str, step: int) -> Optional[dict]:
+    """The publication sidecar of checkpoint `step`
+    (`step_<N>/publication.json`: {step, seq, trace, span, ingest_ts,
+    consumed_ts, published_ts}, written by a publishing trainer), or
+    None. Absence is the normal case and silent; an unreadable sidecar
+    is logged and read as None: it never gates the reload that found it."""
+    path = os.path.join(ckpt_dir, f"step_{step}", PUBLICATION_FILE)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            pub = json.load(f)
+        if not isinstance(pub, dict):
+            raise ValueError(f"expected a JSON object, got {type(pub).__name__}")
+    except (OSError, ValueError) as e:
+        print(f"# checkpoint: step {step} publication unreadable ({type(e).__name__}: "
+              f"{e}); serving without a trace link", file=sys.stderr)
+        return None
+    return pub
 
 
 def read_data_state(ckpt_dir: str, step: int) -> Optional[dict]:
