@@ -169,7 +169,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    copy to the card) and while 16 threads parse about 1,000 requests/s
    at the default and a 0.5 ms GIL switch interval, with the card's memory before, at
    the peak and after (the old generation must be returned); and phase
-   13's FFM checkpoint through one `load()`.
+   13's FFM checkpoint through one `load()`;
+15. the serving fleet on the card (`run_fleet`), over phase 14's two FM
+   states: `python -m xflow_tpu_torch serve-fleet --device cuda` with 3
+   replicas and phase 14's serve settings, each replica's pid on the
+   card (nvidia-smi's compute apps, or where they do not name this
+   namespace's pids, each pid's open /dev/nvidia* files and the card's
+   memory in use before and after), the fleet process not on it. The
+   drill, after the JAX package's `tools/smoke_serve_fleet.sh`: the
+   closed loop (16 connections, 1-8 rows, client retries) for 15 s
+   while replica 1 kills itself after 25 batches, a step 2 with a
+   bitflip only the digest sees commits at 4 s and a good step 3 at 8
+   s: 0 failed and 0 deadline-exceeded requests, steps [1, 3],
+   reload_failed in the replica streams, replica 1 back at gen 1,
+   /healthz 3 healthy on step 3, circuit_open and circuit_close in the
+   router stream, 256 rows through the router equal to the evaluate path
+   on step 3 within PCTR_ATOL, and SIGTERM exits 0 after the router's
+   drain. Then the same closed loop for 10 s, no faults, against fleets
+   of 1, 2 and 4 replicas and the bare `serve`: requests/s, rows/s,
+   p50/p99, the windows' device and queue-wait p99, and the CPU seconds
+   of the router, each replica and the client (/proc/<pid>/stat) over
+   the loop's wall time, which say which process sets the pace.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
@@ -607,7 +627,7 @@ def restored_state(cfg, device, restored=None):
     from xflow_tpu_torch.train.state import TrainState
     from xflow_tpu_torch.weights import table_shapes
 
-    tables, opt, step = restored or restore_state(
+    tables, opt, step, _ = restored or restore_state(
         cfg.train.checkpoint_dir, table_shapes(cfg), ("n", "z"))
     put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return TrainState(
@@ -2275,6 +2295,384 @@ def run_serve(cfg, work: str, path: str, card: str) -> None:
     lap("the FFM load")
 
 
+FLEET_DRILL_SECONDS, FLEET_SECONDS = 15.0, 10.0
+FLEET_CORRUPT_AT, FLEET_GOOD_AT = 4.0, 8.0  # seconds into the drill
+FLEET_KILL_BATCHES = 25
+FLEET_SIZES = (1, 2, 4)
+
+
+def bitflip_npz_payload(path: str, member: str) -> None:
+    """Flip one byte in the middle of `member`'s array payload inside the
+    npz at `path` and rewrite the archive with fresh zip CRCs: damage that
+    the container's checks pass and only the checkpoint's digest sees.
+    Streams member by member (the FM state is 553.6 MB)."""
+    import shutil
+    import struct
+    import zipfile
+
+    tmp = path + ".flip"
+    with zipfile.ZipFile(path) as zin, zipfile.ZipFile(tmp, "w") as zout:
+        for info in zin.infolist():
+            with zin.open(info) as src, zout.open(info.filename, "w", force_zip64=True) as dst:
+                if info.filename != member:
+                    shutil.copyfileobj(src, dst, 1 << 24)
+                    continue
+                head = src.read(12)  # .npy magic, version, header length
+                hlen = struct.unpack("<I", head[8:12])[0] + 12 if head[6] >= 2 else \
+                    struct.unpack("<H", head[8:10])[0] + 10
+                head += src.read(hlen - len(head))
+                dst.write(head)
+                half = (info.file_size - hlen) // 2
+                dst.write(src.read(half))
+                b = src.read(1)
+                dst.write(bytes([b[0] ^ 0x40]))
+                shutil.copyfileobj(src, dst, 1 << 24)
+    os.replace(tmp, path)
+
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of process `pid` (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def nvidia_smi(query: str) -> list:
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [[x.strip() for x in line.split(",")] for line in out.strip().splitlines()]
+
+
+def card_memory_by_pid() -> dict:
+    """{pid: MiB} of the processes holding memory on the card, by
+    `nvidia-smi --query-compute-apps=pid,used_memory`. In a container
+    nvidia-smi may name the host's view of the pids, not this one's."""
+    return {int(pid): float(mib) for pid, mib in nvidia_smi("--query-compute-apps=pid,used_memory")}
+
+
+def card_used_mib() -> float:
+    """The card's memory in use, all processes (`nvidia-smi memory.used`)."""
+    return float(nvidia_smi("--query-gpu=memory.used")[0][0])
+
+
+def opens_the_card(pid: int) -> bool:
+    """Whether process `pid` holds a /dev/nvidia* device file open (a CUDA
+    context does)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue  # closed meanwhile
+    return False
+
+
+def get_json(port: int, path: str, timeout: float = 30.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def serve_flags(serving: str) -> list:
+    """The phase-14 serve settings, for `serve` and `serve-fleet` alike."""
+    return ["--device", DEVICE, "--checkpoint-dir", serving, "--model", "fm",
+            "--log2-slots", str(LOG2_SLOTS), "--port", "0", "--window-ms", "2",
+            "--max-batch", str(SERVE_MAX_BATCH), "--poll-s", "0.5",
+            "--set", f"serve.ladder={SERVE_LADDER}", "--set", f"model.v_dim={V_DIM}",
+            "--set", f"model.num_fields={NUM_FIELDS}", "--set", f"data.max_nnz={NUM_FIELDS}",
+            "--set", "serve.metrics_every_s=0.5"]
+
+
+def start_server(argv: list, errlog: str, env: dict = None):
+    """Popen `argv` from the checkout and read its ready line (the first
+    stdout line, within 300 s). Returns (proc, ready)."""
+    import select
+
+    with open(errlog, "w") as err:
+        proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env={**os.environ, **(env or {})})
+    if not select.select([proc.stdout], [], [], 300)[0]:
+        proc.kill()
+        fail(f"{argv[3]} printed no ready line within 300 s: {open(errlog).read()[-3000:]}")
+    line = proc.stdout.readline()
+    if not line:
+        fail(f"{argv[3]} exited {proc.wait(timeout=60)} before its ready line: "
+             f"{open(errlog).read()[-3000:]}")
+    return proc, json.loads(line)
+
+
+def stop_server(proc, errlog: str, what: str) -> None:
+    """SIGTERM; fails unless the process exits 0 within 90 s."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=90)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        rc = "killed after 90 s"
+    if rc != 0:
+        fail(f"{what} exited {rc} on SIGTERM: {open(errlog).read()[-3000:]}")
+
+
+def closed_loop(port: int, path: str, seconds: float, pids: dict, *extra: str) -> dict:
+    """serve_bench's closed loop (16 connections, 1-8 rows a request) on
+    `port` for `seconds`, with the CPU seconds each process of `pids`
+    ({name: pid}) and this one (the client) spent meanwhile."""
+    from xflow_tpu_torch.tools import serve_bench
+
+    args = serve_bench.build_parser().parse_args([
+        "--url", f"http://127.0.0.1:{port}", "--duration", str(seconds),
+        "--concurrency", str(SERVE_CONNECTIONS), "--data", path, "--rows-per-request", "1-8",
+        *extra])
+    cpu0 = {k: proc_cpu_s(p) for k, p in pids.items()}
+    own0, t0, ts0 = os.times(), time.perf_counter(), time.time()
+    rep = serve_bench.run(args)
+    wall = time.perf_counter() - t0
+    own1 = os.times()
+    rep["cpu_s"] = {k: proc_cpu_s(p) - cpu0[k] for k, p in pids.items()}
+    rep["cpu_s"]["client"] = own1.user + own1.system - own0.user - own0.system
+    rep["wall_s"], rep["t_wall"] = wall, (ts0, ts0 + wall)
+    return rep
+
+
+def window_p99s(streams: list, t_wall: tuple) -> tuple:
+    """The medians of the device and queue-wait p99 of the serve windows
+    (over every stream) flushed inside `t_wall`."""
+    import numpy as np
+
+    from xflow_tpu_torch.jsonl import read_jsonl
+
+    ws = [r for p in streams for r in read_jsonl(p)
+          if r.get("kind") == "serve" and r.get("requests") and t_wall[0] < r["ts"] <= t_wall[1]]
+    if not ws:
+        fail(f"no serve window inside the closed loop in {streams}")
+    return (float(np.median([w["device_p99_ms"] for w in ws])),
+            float(np.median([w["queue_wait_p99_ms"] for w in ws])), len(ws))
+
+
+def pace_line(what: str, rep: dict) -> str:
+    """One closed loop's numbers, and each process's CPU seconds over the
+    loop's wall time (cores); the busiest process is named."""
+    cores = {k: v / rep["wall_s"] for k, v in rep["cpu_s"].items()}
+    top = max(cores, key=cores.get)
+    return (f"{what}: {rep['value']} requests/s, {rep['rows_per_s']} rows/s, p50 "
+            f"{rep['p50_ms']} / p99 {rep['p99_ms']} ms, {rep['requests']} requests, "
+            f"{rep['errors']} failed; windows' device p99 median {rep['device_p99']:.3f} ms, queue "
+            f"wait p99 median {rep['queue_p99']:.3f} ms ({rep['windows']} windows); CPU s over "
+            f"{rep['wall_s']:.2f} s: " + ", ".join(
+                f"{k} {v:.2f} ({cores[k]:.2f} cores, {v / rep['requests'] * 1e3:.3f} ms a "
+                f"request)" for k, v in rep["cpu_s"].items())
+            + f"; busiest: {top}")
+
+
+def run_fleet(cfg, work: str, path: str, card: str) -> None:
+    """Phase 15, the serving fleet on the card: `python -m xflow_tpu_torch
+    serve-fleet --device cuda` over phase 14's FM states at full width.
+
+    The drill: 3 replicas (each pid must hold memory on the card), the
+    closed loop with client retries for 15 s while replica 1 kills itself
+    after 25 batches (the injector, gen 0 only), a step 2 whose tables
+    carry a bitflip only the digest sees commits at 4 s, and phase 14's
+    good step 2 commits as step 3 at 8 s. Gates: 0 failed and 0
+    deadline-exceeded requests, served steps [1, 3], reload_failed in the
+    replica streams, replica 1 back at gen 1 and /healthz 3 healthy on
+    step 3, circuit_open and circuit_close in the router stream, 256 rows
+    through the router equal to the evaluate path on step 3 within
+    PCTR_ATOL, and SIGTERM exits 0 after a drain event.
+
+    Then where the time goes: the same closed loop, 10 s, no faults,
+    against fleets of 1, 2 and 4 replicas and the bare `serve`, each with
+    requests/s, rows/s, p50/p99, the windows' device and queue p99 and
+    the CPU seconds of the router, each replica and the client."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.serve.runner import ServeRunner
+
+    laps = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"# fleet phase: {what} in {laps[-1] - laps[-2]:.1f} s", flush=True)
+
+    src, serving = os.path.join(work, "ck_serve_src"), os.path.join(work, "ck_fleet")
+    commit_step(stage_step(src, serving, 1, link=True), 1)
+    corrupt = os.path.join(serving, ".staging_corrupt_2")
+    os.rename(stage_step(src, serving, 2, link=True), corrupt)
+    bitflip_npz_payload(os.path.join(corrupt, "state.npz"), "tables/wv.npy")
+    good = os.path.join(serving, ".staging_step_3")  # phase 14's step 2, committed as step 3
+    os.rename(stage_step(src, serving, 2, link=True), good)
+    lap("step 1 committed, a digest-only corrupt step 2 and a good step 3 staged")
+
+    run_dir, errlog = os.path.join(work, "fleet_drill"), os.path.join(work, "fleet_drill.err")
+    used0 = card_used_mib()
+    proc, ready = start_server(
+        [sys.executable, "-m", "xflow_tpu_torch", "serve-fleet", *serve_flags(serving),
+         "--replicas", "3", "--max-restarts", "1", "--restart-backoff", "0.5",
+         "--reload-stagger-s", "0.5", "--eject-failures", "2", "--circuit-open-s", "1",
+         "--health-poll-s", "0.2", "--run-dir", run_dir],
+        errlog, env={"XFLOW_FAULT_SERVE_KILL_BATCHES": str(FLEET_KILL_BATCHES),
+                     "XFLOW_FAULT_SERVE_REPLICA": "1", "XFLOW_FAULT_SERVE_KILL_GEN": "0"})
+    try:
+        reps = ready["replicas"]
+        if [(r["replica"], r["step"], r["device"]) for r in reps] != [
+                (k, 1, torch.cuda.get_device_name(0)) for k in range(3)]:
+            fail(f"fleet ready line {ready}: expected 3 replicas at step 1 on the card")
+        # every replica's pid on the card: by nvidia-smi's compute apps
+        # where it names this namespace's pids; else (a container) by each
+        # pid's open /dev/nvidia* files and the card's memory in use
+        # before and after the fleet started, shared over the replicas
+        mem, used = card_memory_by_pid(), card_used_mib() - used0
+        pids = [r["pid"] for r in reps]
+        table_mib = (1 << LOG2_SLOTS) * (1 + V_DIM) * 4 / 2**20
+        if all(p in mem for p in pids):
+            held = {r["replica"]: mem[r["pid"]] for r in reps}
+        elif all(opens_the_card(p) for p in pids) and used >= len(reps) * table_mib:
+            held = {r["replica"]: round(used / len(reps), 1) for r in reps}
+            print(f"# fleet: nvidia-smi's compute apps {mem} do not name this namespace's "
+                  f"pids: each replica pid {pids} holds /dev/nvidia* open, and the card's "
+                  f"memory in use grew {used:.0f} MiB as the fleet started (a share each below)",
+                  flush=True)
+        else:
+            fail(f"replica pids {pids} not on the card: compute apps {mem}, /dev/nvidia* open "
+                 f"{[opens_the_card(p) for p in pids]}, {used:.0f} MiB more in use")
+        if opens_the_card(ready["pid"]):
+            fail(f"the fleet process {ready['pid']} holds the card: it should only route")
+        print(f"# fleet: ready {json.dumps(ready)}; card memory a replica (MiB): {held}; the "
+              f"fleet process does not hold the card", flush=True)
+        lap("3 replicas started (each: CUDA context, load, warmup) and the router")
+
+        import threading
+
+        timers = [threading.Timer(FLEET_CORRUPT_AT, commit_step, (corrupt, 2)),
+                  threading.Timer(FLEET_GOOD_AT, commit_step, (good, 3))]
+        for t in timers:
+            t.start()
+        try:
+            drill = closed_loop(ready["router_port"], path, FLEET_DRILL_SECONDS,
+                                {"router": ready["pid"]}, "--retries", "3",
+                                "--deadline-ms", "20000")
+        finally:
+            for t in timers:
+                t.cancel()
+                t.join(timeout=60)
+        print("# fleet drill serve_bench: " + json.dumps(
+            {k: v for k, v in drill.items() if k not in ("generations", "gen_flip_t")}),
+            flush=True)
+        if (drill["errors"], drill["deadline_exceeded"], drill["steps"]) != (0, 0, [1, 3]):
+            fail(f"the drill: errors {drill['errors']} ({drill['first_error']}), deadline "
+                 f"exceeded {drill['deadline_exceeded']}, steps {drill['steps']} (want [1, 3])")
+        lap(f"{FLEET_DRILL_SECONDS:.0f} s closed loop through a kill, a corrupt and a good commit")
+
+        def replica_step(port: int):
+            try:
+                return get_json(port, "/healthz", timeout=5)[1].get("step")
+            except OSError:
+                return None  # not listening (yet)
+
+        deadline, health, steps = time.monotonic() + 120, {}, []
+        while time.monotonic() < deadline:
+            health = get_json(ready["router_port"], "/healthz")[1]
+            steps = [replica_step(r["port"]) for r in reps]
+            if health["healthy"] == 3 and steps == [3, 3, 3]:
+                break
+            time.sleep(0.5)
+        if health.get("healthy") != 3 or steps != [3, 3, 3]:
+            fail(f"after the drill: router /healthz {health}, replica steps {steps}")
+        with open(path) as f:
+            rows = [next(f).split("\t", 1)[1].strip() for _ in range(SERVE_MAX_BATCH)]
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", ready["router_port"], timeout=60)
+        conn.request("POST", "/predict", json.dumps({"rows": rows}))
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+        conn.close()
+        if resp.status != 200 or payload["step"] != 3:
+            fail(f"POST of {len(rows)} rows through the router: HTTP {resp.status} "
+                 f"{str(payload)[:300]}")
+        lap("the rejoin, 3 replicas on step 3, 256 rows through the router")
+    finally:
+        stop_server(proc, errlog, "the fleet")
+    lap("SIGTERM: the router drained, then the replicas")
+
+    router = read_jsonl(os.path.join(run_dir, "serve_router.jsonl"))
+    events = [r.get("event") for r in router]
+    streams = [os.path.join(run_dir, f"serve_replica{k}.jsonl") for k in range(3)]
+    replica_events = [r.get("event") for p in streams for r in read_jsonl(p)]
+    gens1 = sorted({r["gen"] for r in read_jsonl(streams[1])})
+    err = open(errlog).read()
+    missing = [e for e in ("circuit_open", "circuit_close", "drain") if e not in events]
+    if missing or "reload_failed" not in replica_events or gens1 != [0, 1] or \
+            err.find("draining router") > err.find("stopping replicas"):
+        fail(f"fleet streams: router events missing {missing}; replica events "
+             f"{sorted(set(replica_events) - {None})}; replica 1 gens {gens1}; log {err[-2000:]}")
+    scfg = override(cfg, **{"train.checkpoint_dir": serving, "serve.max_batch": SERVE_MAX_BATCH,
+                            "serve.ladder": SERVE_LADDER})
+    gen = ServeRunner(scfg, device=DEVICE).load()
+    _, p_eval = first_batch(scfg, gen.tables, path, DEVICE)
+    d = float(np.abs(np.asarray(payload["pctr"], np.float32) - p_eval[:SERVE_MAX_BATCH]).max())
+    if gen.step != 3 or not d <= PCTR_ATOL:
+        fail(f"pCTRs through the router vs the card's evaluate on step {gen.step}: {d}")
+    del gen
+    drill["device_p99"], drill["queue_p99"], drill["windows"] = window_p99s(streams,
+                                                                            drill["t_wall"])
+    ts = {e: [r["ts"] for r in router if r.get("event") == e and r.get("backend") == 1]
+          for e in ("circuit_open", "circuit_close")}
+    rejoin_s = ts["circuit_close"][-1] - ts["circuit_open"][0] if all(ts.values()) else None
+    print(f"# fleet drill on {card}: 3 replicas, replica 1 killed after {FLEET_KILL_BATCHES} "
+          f"batches and back at gen 1 (its circuit open to closed {rejoin_s} s), reload_failed x {replica_events.count('reload_failed')} "
+          f"on the corrupt step 2, router events {[e for e in events if e != 'hedge']}; "
+          + pace_line("closed loop with client retries", drill)
+          + f"; client retried {drill['retried']} ({drill['retry_attempts']} resends); "
+          f"256 rows through the router vs the card's evaluate on step 3: max abs diff {d}",
+          flush=True)
+    lap("streams and parity")
+
+    # --- where the fleet's time goes: fleets of 1, 2, 4 and the bare server
+    for n in FLEET_SIZES:
+        run_dir, errlog = os.path.join(work, f"fleet{n}"), os.path.join(work, f"fleet{n}.err")
+        proc, ready = start_server(
+            [sys.executable, "-m", "xflow_tpu_torch", "serve-fleet", *serve_flags(serving),
+             "--replicas", str(n), "--run-dir", run_dir], errlog)
+        try:
+            pids = {"router": ready["pid"],
+                    **{f"replica{r['replica']}": r["pid"] for r in ready["replicas"]}}
+            rep = closed_loop(ready["router_port"], path, FLEET_SECONDS, pids)
+        finally:
+            stop_server(proc, errlog, f"the fleet of {n}")
+        rep["device_p99"], rep["queue_p99"], rep["windows"] = window_p99s(
+            [os.path.join(run_dir, f"serve_replica{k}.jsonl") for k in range(n)], rep["t_wall"])
+        if rep["errors"]:
+            fail(f"fleet of {n}: {rep['errors']} failed ({rep['first_error']})")
+        print(f"# fleet pace on {card}: " + pace_line(f"fleet of {n}", rep), flush=True)
+        lap(f"fleet of {n}: start, {FLEET_SECONDS:.0f} s closed loop, SIGTERM")
+    metrics, errlog = os.path.join(work, "bare.jsonl"), os.path.join(work, "bare.err")
+    proc, ready = start_server([sys.executable, "-m", "xflow_tpu_torch", "serve",
+                                *serve_flags(serving), "--metrics-path", metrics], errlog)
+    try:
+        rep = closed_loop(ready["port"], path, FLEET_SECONDS, {"server": ready["pid"]})
+    finally:
+        stop_server(proc, errlog, "the bare server")
+    rep["device_p99"], rep["queue_p99"], rep["windows"] = window_p99s([metrics], rep["t_wall"])
+    if rep["errors"]:
+        fail(f"bare server: {rep['errors']} failed ({rep['first_error']})")
+    print(f"# fleet pace on {card}: " + pace_line("bare serve (phase 14's server)", rep),
+          flush=True)
+    lap(f"bare serve: start, {FLEET_SECONDS:.0f} s closed loop, SIGTERM")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
@@ -2330,6 +2728,7 @@ def main() -> int:
         wide = check_wide_row_sums(cfg, path)
         lab_kern = run_lab(work)
         run_serve(cfg, work, path, card)
+        run_fleet(cfg, work, path, card)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")

@@ -253,7 +253,7 @@ def test_cli_default_model_fit_matches_jax(fit_case):
 
 
 def test_cli_default_model_state_and_evaluate_match_jax(fit_case):
-    tables, opt, step = tckpt.restore_state(str(fit_case["tck"]), {"w": (S,)}, ("n", "z"))
+    tables, opt, step, _ = tckpt.restore_state(str(fit_case["tck"]), {"w": (S,)}, ("n", "z"))
     assert step == 8
     jstate = fit_case["jt"].state
     _close(tables["w"], np.asarray(jstate.tables["w"]))
@@ -268,7 +268,7 @@ def test_lr_checkpoints_restore_across_packages(fit_case):
     jt = fit_case["jt"]
     # the port's checkpoint in the JAX package
     state = jckpt.restore(str(fit_case["tck"]), jt.state)
-    tables, opt, _ = tckpt.restore_state(str(fit_case["tck"]), {"w": (S,)}, ("n", "z"))
+    tables, opt, _, _ = tckpt.restore_state(str(fit_case["tck"]), {"w": (S,)}, ("n", "z"))
     np.testing.assert_array_equal(np.asarray(state.tables["w"]), tables["w"])
     np.testing.assert_array_equal(np.asarray(state.opt_state["w"]["z"]), opt["w"]["z"])
     assert int(state.step) == 8

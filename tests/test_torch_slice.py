@@ -6,7 +6,9 @@ on the same checkpoint and libffm shard, and `ServeRunner.predict_rows`
 gives the port's evaluate pctrs (the serve == evaluate pin). The package
 imports, and its `evaluate` and `train` commands run (FM, and MVM on
 both row sides), with `jax` and `xflow_tpu` blocked: through the native
-parser and planner, and from an `.xfc` cache the port packs.
+parser and planner, and from an `.xfc` cache the port packs; so do
+`serve` and `serve-fleet` (the fleet's replica too, and torch blocked
+in the fleet process, which only routes).
 """
 
 import http.client
@@ -197,7 +199,10 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.telemetry, xflow_tpu_torch.tracing\n"
         "import xflow_tpu_torch.serve.coalescer, xflow_tpu_torch.serve.autotune\n"
         "import xflow_tpu_torch.serve.metrics, xflow_tpu_torch.serve.server\n"
-        "import xflow_tpu_torch.tools.serve_bench\n"
+        "import xflow_tpu_torch.tools.serve_bench, xflow_tpu_torch.serve.router\n"
+        "import xflow_tpu_torch.serve.fleet, xflow_tpu_torch.launch.supervise\n"
+        "import xflow_tpu_torch.launch.local, xflow_tpu_torch.testing.faults\n"
+        "import xflow_tpu_torch.serve.lifecycle\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -360,6 +365,50 @@ def test_cli_serve_without_jax(slice_case, tmp_path):
     np.testing.assert_allclose(payload["pctr"], want, atol=1e-5, rtol=0)
     events = [json.loads(line).get("event") for line in metrics.read_text().splitlines()]
     assert events[0] == "start" and events[-1] == "final"
+
+
+def test_cli_serve_fleet_without_jax(slice_case, tmp_path):
+    """`serve-fleet --device cpu` with jax and xflow_tpu blocked in the
+    fleet and in its replica (a blocking package first on PYTHONPATH, run
+    outside the repository root), and torch blocked in the fleet process,
+    which only routes: the ready line, one answer through the router
+    equal to `predict_rows`, exit 0 on SIGTERM."""
+    block = tmp_path / "block"
+    for name in ("jax", "xflow_tpu"):
+        (block / name).mkdir(parents=True)
+        (block / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(block), REPO_ROOT])}
+    code = (_NO_JAX + "sys.modules['torch'] = None\n"
+            "from xflow_tpu_torch.__main__ import main\nsys.exit(main(sys.argv[1:]))\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "serve-fleet", "--checkpoint-dir", str(slice_case["ck"]),
+         "--model", "fm", "--log2-slots", str(LOG2_S), "--set", f"model.v_dim={V}",
+         "--set", f"data.max_nnz={NNZ}", "--replicas", "1", "--port", "0", "--device", "cpu",
+         "--max-batch", "32", "--run-dir", str(tmp_path / "run")],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = json.loads(_ready_line(proc, 120))
+        assert ready["fleet"] and ready["router_port"] > 0
+        assert [(r["replica"], r["step"], r["device"]) for r in ready["replicas"]] == [
+            (0, 7, "cpu")]
+        rows = [line.split("\t", 1)[1].strip()
+                for line in open(slice_case["path"]).read().splitlines()[:5]]
+        conn = http.client.HTTPConnection("127.0.0.1", ready["router_port"], timeout=30)
+        conn.request("POST", "/predict", json.dumps({"rows": rows}))
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200 and payload["step"] == 7, payload
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err
+    assert "is blocked" not in (tmp_path / "run" / "replica0.log").read_text()
+    runner = ServeRunner(override(Config(), **_pairs(slice_case["ck"]), **{"serve.max_batch": 32}),
+                         device="cpu")
+    runner.load()
+    want, _ = runner.predict_rows(rows)
+    np.testing.assert_allclose(payload["pctr"], want, atol=1e-5, rtol=0)
 
 
 def test_cli_serve_on_cuda_without_a_card_exits_with_the_reason(slice_case):

@@ -27,6 +27,18 @@ ready line {"serving", "step", "generation", "pid", "host", "port"[,
 "unix_socket"], "device"} once listening, and exits 0 on SIGTERM. With
 `--device cuda` and no CUDA device it exits 2 without serving.
 
+    python -m xflow_tpu_torch serve-fleet --checkpoint-dir D [--replicas N] [--port P] \
+        [--run-dir R] [--max-restarts K] [--retries N] [--deadline-ms MS] [--hedge-ms MS] \
+        [--device cuda] [serve flags ...]
+
+N supervised `serve` replicas, each on `--device` (default cuda; a
+replica without the card exits 2 and the fleet exits 1), behind the
+failover router on port P (`serve/fleet.py`, `serve/router.py`): retries
+on another replica, circuit breaking, a staggered hot reload and a
+router-first drain on SIGTERM. One JSON ready line {"serving", "fleet",
+"router_host", "router_port", "run_id", "pid", "replicas": [{"replica",
+"port", "step", "pid", "device"}]}; the fleet process imports no torch.
+
 FFM at its practical shape: `--model ffm --set model.v_dim=4` (rows
 `wv [S, 1 + num_fields * v_dim]`); it has no reference index, as in
 `python -m xflow_tpu`.
@@ -69,7 +81,14 @@ def build_config(args):
     for flag, key in (("port", "serve.port"), ("host", "serve.host"),
                       ("unix_socket", "serve.unix_socket"), ("window_ms", "serve.window_ms"),
                       ("max_batch", "serve.max_batch"), ("poll_s", "serve.reload_poll_s"),
-                      ("metrics_path", "serve.metrics_path")):
+                      ("metrics_path", "serve.metrics_path"), ("replicas", "serve.replicas"),
+                      ("reload_stagger_s", "serve.reload_stagger_s"),
+                      ("retries", "serve.route_retries"),
+                      ("deadline_ms", "serve.route_deadline_ms"),
+                      ("hedge_ms", "serve.route_hedge_ms"),
+                      ("eject_failures", "serve.eject_failures"),
+                      ("circuit_open_s", "serve.circuit_open_s"),
+                      ("health_poll_s", "serve.health_poll_s")):
         if getattr(args, flag, None) is not None:
             pairs[key] = getattr(args, flag)
     for item in args.set:
@@ -105,6 +124,24 @@ def cmd_serve(args) -> int:
     except (FileNotFoundError, RuntimeError) as e:
         print(f"serve: cannot load a checkpoint: {e}", file=sys.stderr)
         return 1
+
+
+def cmd_serve_fleet(args) -> int:
+    from xflow_tpu_torch.serve.fleet import fleet_main
+
+    cfg = build_config(args)
+    # each replica's `serve` argv: the serve flags given here and the
+    # device, less the fleet's own (--port and --metrics-path are per replica)
+    serve_args = ["--checkpoint-dir", args.checkpoint_dir, "--device", args.device]
+    for flag, value in (("--host", args.host), ("--model", args.model),
+                        ("--log2-slots", args.log2_slots), ("--window-ms", args.window_ms),
+                        ("--max-batch", args.max_batch), ("--poll-s", args.poll_s)):
+        if value is not None:
+            serve_args += [flag, str(value)]
+    for item in args.set:
+        serve_args += ["--set", item]
+    return fleet_main(cfg, serve_args, run_dir=args.run_dir, max_restarts=args.max_restarts,
+                      restart_backoff=args.restart_backoff, min_uptime_s=args.min_uptime_s)
 
 
 def cmd_train(args) -> int:
@@ -195,6 +232,51 @@ def main(argv=None) -> int:
     sv.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="dotted config override, e.g. --set serve.ladder=32,64,256")
     sv.set_defaults(fn=cmd_serve, test=None, batch_size=None)
+    sf = sub.add_parser("serve-fleet", help="N supervised serve replicas behind a "
+                                            "health-checked failover router")
+    sf.add_argument("--checkpoint-dir", required=True,
+                    help="dir of committed checkpoints every replica loads and hot-reloads")
+    sf.add_argument("--model", default="lr", help="lr|fm|mvm|ffm, or reference index 0|1|2")
+    sf.add_argument("--log2-slots", type=int, default=None)
+    sf.add_argument("--replicas", type=int, default=None, help="replica count (default 2)")
+    sf.add_argument("--port", type=int, default=None,
+                    help="the router's port (default 8000; 0 = a free one, in the ready line)")
+    sf.add_argument("--host", default=None)
+    sf.add_argument("--window-ms", type=float, default=None, help="each replica's window")
+    sf.add_argument("--max-batch", type=int, default=None, help="each replica's batch rows")
+    sf.add_argument("--poll-s", type=float, default=None, help="each replica's reload poll")
+    sf.add_argument("--reload-stagger-s", type=float, default=None,
+                    help="replica k delays a noticed reload by k x this (default 1.0)")
+    sf.add_argument("--retries", type=int, default=None,
+                    help="router retries on another replica after a connect failure or "
+                         "5xx (default 2)")
+    sf.add_argument("--deadline-ms", type=float, default=None,
+                    help="a request's routing budget (default 2000)")
+    sf.add_argument("--hedge-ms", type=float, default=None,
+                    help="hedge a request outstanding this long (default 0 = off)")
+    sf.add_argument("--eject-failures", type=int, default=None,
+                    help="consecutive failures that open a replica's circuit (default 3)")
+    sf.add_argument("--circuit-open-s", type=float, default=None,
+                    help="open hold before the half-open probe (default 2)")
+    sf.add_argument("--health-poll-s", type=float, default=None,
+                    help="the router's /healthz poll interval (default 0.5)")
+    sf.add_argument("--run-dir", default="",
+                    help="serve_replica<k>.jsonl, serve_router.jsonl and replica<k>.log here")
+    sf.add_argument("--max-restarts", type=int, default=0,
+                    help="supervised restarts of each replica (default 0)")
+    sf.add_argument("--restart-backoff", type=float, default=1.0,
+                    help="base seconds between a replica's restarts (doubling, jittered, "
+                         "capped at 60)")
+    sf.add_argument("--min-uptime-s", type=float, default=0.0,
+                    help="a replica dying faster than this is not restarted")
+    sf.add_argument("--no-mesh", action="store_true",
+                    help="accepted for flag parity: each replica serves from one device")
+    sf.add_argument("--device", default="cuda",
+                    help="every replica's device (default cuda; cpu only when asked)")
+    sf.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="dotted config override, passed to every replica too")
+    sf.set_defaults(fn=cmd_serve_fleet, test=None, batch_size=None, unix_socket=None,
+                    metrics_path=None)
     args = ap.parse_args(argv)
     return args.fn(args)
 

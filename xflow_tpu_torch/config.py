@@ -1,12 +1,12 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
 (FM inference, single-device LR, FM, MVM and FFM training, the host
-input plane, the single-process server) read, with the JAX package's
+input plane, the server and its fleet) read, with the JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
 Sections and fields not listed here belong to paths the port has not
-taken over yet (multi-device engines, the serving fleet and router,
-the trainer's telemetry); an override naming one raises KeyError.
+taken over yet (multi-device engines, the trainer's telemetry); an
+override naming one raises KeyError.
 """
 
 from __future__ import annotations
@@ -146,8 +146,8 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """The single-process server (`python -m xflow_tpu_torch serve`),
-    with the JAX package's names, defaults and meanings.
+    """The server (`python -m xflow_tpu_torch serve`) and its fleet, with
+    the JAX package's names, defaults and meanings.
 
     Listeners: TCP on `host`:`port` (0 = a free port, reported in the
     ready line; -1 = none) and/or HTTP over the AF_UNIX path
@@ -168,7 +168,16 @@ class ServeConfig:
     `autotune_band_frac`, stepping by `autotune_step_frac`, no window
     below `autotune_min_window_ms`. `ladder` ("32,64,256"; "" =
     max_batch only): the batch shapes a batch is padded to, the
-    smallest that fits."""
+    smallest that fits.
+
+    The fleet (`python -m xflow_tpu_torch serve-fleet`): `replicas`
+    supervised servers behind the router; replica k delays a noticed
+    reload by k x `reload_stagger_s`. The router polls each replica's
+    /healthz every `health_poll_s`, ejects a replica after
+    `eject_failures` consecutive failures for `circuit_open_s` before a
+    half-open probe, gives a request `route_deadline_ms` and
+    `route_retries` retries on other replicas, and hedges one
+    outstanding for `route_hedge_ms` (0 = off)."""
 
     host: str = "127.0.0.1"
     port: int = 8000
@@ -193,6 +202,14 @@ class ServeConfig:
     autotune_step_frac: float = 0.5
     autotune_min_window_ms: float = 0.25
     ladder: str = ""
+    replicas: int = 2
+    reload_stagger_s: float = 1.0
+    health_poll_s: float = 0.5
+    eject_failures: int = 3
+    circuit_open_s: float = 2.0
+    route_deadline_ms: float = 2000.0
+    route_retries: int = 2
+    route_hedge_ms: float = 0.0
 
 
 @dataclass(frozen=True)

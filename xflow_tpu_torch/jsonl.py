@@ -5,11 +5,15 @@ stream write through it.
 The file opens on the first record (creating its parent directory),
 every record is flushed, and `close()` returns the sink to its lazy
 state, so a later append reopens in append mode. An empty path disables
-the sink. Every record is prefixed with the JAX package's stamp of a
-one-process run: `ts` (wall-clock seconds), `rank` 0, `run_id` (one
-random id a process), `gen` 0 and `world` 1; the port runs in one
-process. The serving fleet's `replica` / `port` stamps come with the
-fleet.
+the sink. Every record is prefixed with `ts` (wall-clock seconds) and
+the JAX package's stamp: `rank`, `run_id`, `gen` and `world`, resolved
+from the launcher's environment at the first append
+(`telemetry.resolve_*`), plus `replica` and `port` in a serving fleet's
+replicas (absent keys elsewhere, not nulls). With none of the `XFLOW_*`
+variables set the stamp is a one-process run's: rank 0, one random
+run id a process, gen 0, world 1. A caller that knows its identity
+passes `stamp=` (the fleet's router: rank -1); the keys it leaves out
+are resolved as above.
 
 Rotation: `max_bytes > 0` caps the live file. An append that would push
 past the cap first rolls the file to a single `<path>.1` sibling
@@ -26,17 +30,41 @@ import os
 import sys
 import threading
 import time
-import uuid
+from typing import Optional
 
-STAMP = {"rank": 0, "run_id": uuid.uuid4().hex[:12], "gen": 0, "world": 1}
+from xflow_tpu_torch import telemetry
+
+
+def _resolve_stamp(stamp: Optional[dict] = None) -> dict:
+    """`stamp` completed from the environment: rank, run_id, gen, world,
+    and replica / port inside a fleet."""
+    out = dict(stamp or {})
+    if "rank" not in out:
+        out["rank"] = telemetry.resolve_rank()
+    if "run_id" not in out:
+        out["run_id"] = telemetry.resolve_run_id()
+    if "gen" not in out:
+        out["gen"] = telemetry.resolve_restart_gen()
+    if "world" not in out:
+        out["world"] = telemetry.resolve_world_size()
+    if "replica" not in out:
+        rep = telemetry.resolve_replica()
+        if rep is not None:
+            out["replica"] = rep
+            port = telemetry.resolve_replica_port()
+            if port is not None:
+                out["port"] = port
+    return out
 
 
 class JsonlAppender:
-    def __init__(self, path: str = "", max_bytes: int = 0):
+    def __init__(self, path: str = "", stamp: Optional[dict] = None, max_bytes: int = 0):
         self._path = path
         self._f = None
         self._max_bytes = max(int(max_bytes), 0)
         self._size = 0  # bytes in the live file, read at open
+        self._given = stamp
+        self._stamp: Optional[dict] = None  # resolved at the first append
         # handler threads, the device worker and the watcher append to
         # one sink: an unlocked write can interleave two records
         self._lock = threading.Lock()
@@ -58,7 +86,9 @@ class JsonlAppender:
         with self._lock:
             if self._f is None:
                 self._open_locked()
-            line = json.dumps({"ts": round(time.time(), 6), **STAMP, **record}) + "\n"
+            if self._stamp is None:
+                self._stamp = _resolve_stamp(self._given)
+            line = json.dumps({"ts": round(time.time(), 6), **self._stamp, **record}) + "\n"
             if self._max_bytes and self._size and self._size + len(line) > self._max_bytes:
                 self._f.close()
                 try:

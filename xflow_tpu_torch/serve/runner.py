@@ -250,13 +250,18 @@ class CheckpointWatcher(threading.Thread):
     """Polls every `poll_s` for a newer committed step and hot-reloads it
     off the request path; `on_reload(gen)` / `on_failed()` feed the serve
     stream. A step that failed to load is not retried until a different
-    step commits (no disk thrash, no reload_failed spam)."""
+    step commits (no disk thrash, no reload_failed spam).
+
+    `stagger_s` delays acting on a newly noticed step: a fleet gives
+    replica k k * serve.reload_stagger_s, so its replicas swap one at a
+    time and never all pause on the same restore."""
 
     def __init__(self, runner: ServeRunner, poll_s: float = 2.0, on_reload=None,
-                 on_failed=None):
+                 on_failed=None, stagger_s: float = 0.0):
         super().__init__(daemon=True, name="xflow-serve-watcher")
         self._runner = runner
         self._poll = max(float(poll_s), 0.05)
+        self._stagger_s = max(float(stagger_s), 0.0)
         self._stop_evt = threading.Event()
         self._on_reload = on_reload
         self._on_failed = on_failed
@@ -272,6 +277,8 @@ class CheckpointWatcher(threading.Thread):
                 continue
             if latest is None or latest <= self._runner.step or latest == self._failed_step:
                 continue
+            if self._stagger_s > 0 and self._stop_evt.wait(self._stagger_s):
+                return  # closed during the stagger: no reload
             gen = self._runner.maybe_reload()
             if gen is not None:
                 self._failed_step = None

@@ -22,16 +22,23 @@ that batch's futures only (500), is never retried on another device,
 and the worker goes on. `GET /healthz` reports the generation and step;
 `GET /stats` snapshots the telemetry registry.
 
-Not taken over: the chaos injectors (they come with the fleet) and
-compile accounting (the torch forward has no compile step; `warmup()`
-runs each rung before the ready line instead).
+Chaos drills (`testing/faults.serve_faults_from_env`, read once at
+construction): a delay before every batch, and a SIGKILL after the Nth
+answered batch, restricted by fleet replica and restart generation.
+
+In a serving fleet (`serve/fleet.py`) each replica is one such server;
+`serve_main` reads its reload stagger from `XFLOW_RELOAD_STAGGER_S`.
+The ready line stays the first JSON line on stdout (the fleet reads it);
+warm-up notes go to stderr.
+
+Not taken over: compile accounting (the torch forward has no compile
+step; `warmup()` runs each rung before the ready line instead).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import signal
 import socket
 import socketserver
 import sys
@@ -52,8 +59,10 @@ from xflow_tpu_torch.serve.coalescer import (
     assemble_batch,
 )
 from xflow_tpu_torch.serve.metrics import ServeMetrics
+from xflow_tpu_torch.serve.lifecycle import QuietDisconnects, wait_for_signal
 from xflow_tpu_torch.serve.runner import BadRequest, CheckpointWatcher, ServeRunner, parse_rows
 from xflow_tpu_torch.telemetry import default_registry
+from xflow_tpu_torch.testing.faults import hard_kill, serve_faults_from_env
 from xflow_tpu_torch.tracing import (
     FORCE_HEADER,
     PARENT_HEADER,
@@ -110,6 +119,9 @@ class ServeApp:
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._worker_loop, daemon=True,
                                         name="xflow-serve-device")
+        # chaos injectors, read once: no cost a batch when unset
+        self._fault_delay_s, self._fault_kill_batches = serve_faults_from_env()
+        self._batches_served = 0
         # the newest generation a batch has answered with: the worker
         # emits one serve_first span when it advances
         self._first_served_gen = -1
@@ -133,6 +145,8 @@ class ServeApp:
                         gen.gen, gen.step, freshness_s=gen.freshness_s()))
                 continue
             t_batch = time.perf_counter()
+            if self._fault_delay_s > 0:
+                time.sleep(self._fault_delay_s)  # a slow replica, for the router's drills
             rung = pick_rung(sum(r.num_rows for r in group), self._rungs)
             try:
                 arrays, spans = assemble_batch(group, rung, max_nnz)
@@ -165,6 +179,9 @@ class ServeApp:
                                        totals, batch_size=rung)
             self._autotune(self.metrics.maybe_flush(gen.gen, gen.step,
                                                     freshness_s=gen.freshness_s()))
+            self._batches_served += 1
+            if self._fault_kill_batches and self._batches_served >= self._fault_kill_batches:
+                hard_kill()  # a replica dying under load, its answers already sent
 
     # ----------------------------------------------------------- autotune
     def _autotune(self, window: Optional[dict]) -> None:
@@ -415,17 +432,7 @@ def _make_handler(app: ServeApp):
     return Handler
 
 
-class _QuietDisconnects:
-    """A client dropping its keep-alive connection is normal, not a
-    server error: no traceback for exactly that."""
-
-    def handle_error(self, request, client_address):
-        if isinstance(sys.exc_info()[1], (ConnectionResetError, BrokenPipeError, TimeoutError)):
-            return
-        super().handle_error(request, client_address)
-
-
-class _TCPHTTPServer(_QuietDisconnects, ThreadingHTTPServer):
+class _TCPHTTPServer(QuietDisconnects, ThreadingHTTPServer):
     daemon_threads = True
 
 
@@ -434,7 +441,7 @@ def make_http_server(app: ServeApp, host: str, port: int) -> ThreadingHTTPServer
     return _TCPHTTPServer((host, port), _make_handler(app))
 
 
-class _UnixHTTPServer(_QuietDisconnects, socketserver.ThreadingMixIn, socketserver.TCPServer):
+class _UnixHTTPServer(QuietDisconnects, socketserver.ThreadingMixIn, socketserver.TCPServer):
     """HTTP over AF_UNIX: the same handler and protocol, for colocated
     clients."""
 
@@ -473,11 +480,17 @@ def serve_main(cfg: Config, device="cuda", ready_out=None) -> int:
     n = runner.warmup()
     print(f"serve: warmed up {n} ladder rung(s) on {runner.device}", file=sys.stderr)
     app.metrics.event("start", generation=gen.gen, step=gen.step)
+    try:
+        # a fleet replica's share of the reload stagger (serve/fleet.py)
+        stagger_s = float(os.environ.get("XFLOW_RELOAD_STAGGER_S", 0) or 0)
+    except ValueError:
+        stagger_s = 0.0
     watcher = CheckpointWatcher(
         runner,
         poll_s=cfg.serve.reload_poll_s,
         on_reload=lambda g: app.metrics.event("reload", generation=g.gen, step=g.step),
         on_failed=lambda: app.metrics.event("reload_failed"),
+        stagger_s=stagger_s,
     )
     servers = []
     if cfg.serve.port >= 0:
@@ -502,19 +515,8 @@ def serve_main(cfg: Config, device="cuda", ready_out=None) -> int:
     ready["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
     print(json.dumps(ready), file=ready_out or sys.stdout, flush=True)
 
-    stop = threading.Event()
-    prev = {}
-
-    def on_signal(signum, frame):
-        stop.set()
-        for s, h in prev.items():
-            signal.signal(s, h)  # a second signal acts as usual
-
-    for s in (signal.SIGTERM, signal.SIGINT):
-        prev[s] = signal.signal(s, on_signal)
     try:
-        while not stop.wait(0.2):
-            pass
+        wait_for_signal()
     finally:
         print("serve: shutting down (draining queued requests)", file=sys.stderr)
         for srv in servers:

@@ -1,16 +1,80 @@
-"""The process-wide metric registry, after the registry part of
-`xflow_tpu/telemetry.py`: named counters, gauges and timers that the
-server's telemetry increments and `GET /stats` snapshots. The trainer's
+"""The process-wide metric registry and the record stamp's identity,
+after `xflow_tpu/telemetry.py`: named counters, gauges and timers that
+the server's telemetry increments and `GET /stats` snapshots, and the
+`resolve_*` functions that read a process's identity from the launcher's
+environment (`XFLOW_RUN_ID`, `XFLOW_PROCESS_ID`, `XFLOW_RESTART_GEN`,
+`XFLOW_NUM_PROCESSES`, `XFLOW_REPLICA`, `XFLOW_REPLICA_PORT`; the
+serving fleet exports them to every replica). Unset, a process is rank
+0 of a world of 1, generation 0, outside a fleet. The trainer's
 heartbeat, HBM gauges and compile accounting are not taken over.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
+import uuid
 from collections import deque
+from typing import Optional
 
 import numpy as np
+
+_RUN_ID: Optional[str] = None
+
+
+def _env_int(name: str) -> Optional[int]:
+    """An integer environment variable, or None when unset or unparseable."""
+    try:
+        return int(os.environ[name])
+    except (KeyError, ValueError):
+        return None
+
+
+def new_run_id() -> str:
+    """A fresh launch-scoped id, or the exported XFLOW_RUN_ID."""
+    return os.environ.get("XFLOW_RUN_ID") or uuid.uuid4().hex[:12]
+
+
+def resolve_run_id() -> str:
+    """XFLOW_RUN_ID when a launcher exported it, else one random id a
+    process (cached, so every sink of the process stamps the same id)."""
+    global _RUN_ID
+    rid = os.environ.get("XFLOW_RUN_ID")
+    if rid:
+        return rid
+    if _RUN_ID is None:
+        _RUN_ID = new_run_id()
+    return _RUN_ID
+
+
+def resolve_rank() -> int:
+    """XFLOW_PROCESS_ID, else 0 (the port runs one process)."""
+    rank = _env_int("XFLOW_PROCESS_ID")
+    return 0 if rank is None else rank
+
+
+def resolve_restart_gen() -> int:
+    """The supervised restart generation (XFLOW_RESTART_GEN), else 0."""
+    return _env_int("XFLOW_RESTART_GEN") or 0
+
+
+def resolve_world_size() -> int:
+    """XFLOW_NUM_PROCESSES when positive, else 1 (a fleet's world is its
+    replica count)."""
+    n = _env_int("XFLOW_NUM_PROCESSES")
+    return n if n and n > 0 else 1
+
+
+def resolve_replica() -> Optional[int]:
+    """This serving replica's index (XFLOW_REPLICA), or None outside a fleet."""
+    return _env_int("XFLOW_REPLICA")
+
+
+def resolve_replica_port() -> Optional[int]:
+    """The port the fleet gave this replica (XFLOW_REPLICA_PORT), stable
+    across its restarts, or None outside a fleet."""
+    return _env_int("XFLOW_REPLICA_PORT")
 
 
 class Counter:

@@ -12,10 +12,10 @@ A step lives in ``<dir>/step_<N>/``:
 - ``COMMITTED`` — written last; a step dir without it is partial.
 
 `restore_tiered` and `restore_tables` read the tables only (serving and
-evaluation never read optimizer state), `restore_tiered` across the
-primary dir and a tier-2 replica dir; `restore_state` reads tables,
-optimizer state and step for the trainer. All verify digests and walk
-back past a step that fails to load. `read_publication` reads a step's
+evaluation never read optimizer state); `restore_state` reads tables,
+optimizer state and step for the trainer. `restore_tiered` and
+`restore_state` walk the primary dir and a tier-2 replica dir. All
+verify digests and walk back past a step that fails to load. `read_publication` reads a step's
 publication sidecar (the trainer's write side of replicas and
 publications is not ported).
 """
@@ -201,10 +201,13 @@ def restore_tiered(ckpt_dir: str, shapes: dict, verify: str = "auto",
     a digest-poisoned primary step loads from the replica before the
     walk falls back to an older step. Returns (tables, step, the dir it
     loaded from), so sidecars are read from the same tier."""
-    dirs = [ckpt_dir]
-    if replica_dir and replica_dir != ckpt_dir:
-        dirs.append(replica_dir)
-    return _walk_tiers(dirs, lambda d, step: restore_step_tables(d, step, shapes, verify))
+    return _walk_tiers(_tiers(ckpt_dir, replica_dir),
+                       lambda d, step: restore_step_tables(d, step, shapes, verify))
+
+
+def _tiers(ckpt_dir: str, replica_dir: Optional[str]) -> list:
+    """The dirs a restore walks: the primary, then the replica when set."""
+    return [ckpt_dir] + ([replica_dir] if replica_dir and replica_dir != ckpt_dir else [])
 
 
 def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[dict, int]:
@@ -213,11 +216,14 @@ def restore_tables(ckpt_dir: str, shapes: dict, verify: str = "auto") -> tuple[d
     return restore_tiered(ckpt_dir, shapes, verify)[:2]
 
 
-def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple,
-                  verify: str = "auto") -> tuple[dict, dict, int]:
+def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple, verify: str = "auto",
+                  replica_dir: Optional[str] = None) -> tuple[dict, dict, int, str]:
     """Tables, optimizer state ({name: {leaf: array}}, `opt_leaves` per
     table, each of its table's shape) and step of the newest committed
-    step that loads. Returns (tables, opt_state, step)."""
+    step that loads across the primary `ckpt_dir` and the tier-2
+    `replica_dir`, walked as `restore_tiered` walks them. Returns
+    (tables, opt_state, step, the dir it loaded from), so the trainer
+    reads the step's data_state from the same tier."""
 
     def load(d, step):
         labels = {f"tables/{n}": shape for n, shape in shapes.items()}
@@ -229,8 +235,8 @@ def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple,
         opt = {n: {leaf: got[f"opt/{n}/{leaf}"] for leaf in opt_leaves} for n in shapes}
         return tables, opt
 
-    (tables, opt), step, _ = _walk_tiers([ckpt_dir], load)
-    return tables, opt, step
+    (tables, opt), step, src = _walk_tiers(_tiers(ckpt_dir, replica_dir), load)
+    return tables, opt, step, src
 
 
 def read_publication(ckpt_dir: str, step: int) -> Optional[dict]:

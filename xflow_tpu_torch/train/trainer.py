@@ -250,18 +250,21 @@ class Trainer:
         )
 
     def maybe_restore(self) -> bool:
-        """Restore the newest loadable checkpoint under train.checkpoint_dir
-        (digest-verified, walking back past damaged steps) when
-        train.resume is on. False when there is none."""
+        """Restore the newest loadable checkpoint across train.checkpoint_dir
+        and train.ckpt_replica_dir (digest-verified, walking back past
+        damaged steps) when train.resume is on: a primary step that is
+        missing or damaged restores from the replica, and the data_state
+        comes from the tier that restored. False when neither holds one."""
         cfg = self.cfg
         if not (cfg.train.checkpoint_dir and cfg.train.resume):
             return False
         self._check_format()
         leaves = tuple(sorted(next(iter(self.state.opt_state.values()), {})))
         try:
-            tables, opt, step = ckpt.restore_state(
+            tables, opt, step, src = ckpt.restore_state(
                 cfg.train.checkpoint_dir, table_shapes(cfg), leaves,
                 verify=cfg.train.checkpoint_verify,
+                replica_dir=cfg.train.ckpt_replica_dir or None,
             )
         except FileNotFoundError:
             return False
@@ -271,7 +274,7 @@ class Trainer:
             opt_state={n: {k: put(a) for k, a in st.items()} for n, st in opt.items()},
             step=int(step),
         )
-        self._resume_data_state = ckpt.read_data_state(cfg.train.checkpoint_dir, step)
+        self._resume_data_state = ckpt.read_data_state(src, step)
         return True
 
     def _check_format(self) -> None:
