@@ -189,7 +189,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of 1, 2 and 4 replicas and the bare `serve`: requests/s, rows/s,
    p50/p99, the windows' device and queue-wait p99, and the CPU seconds
    of the router, each replica and the client (/proc/<pid>/stat) over
-   the loop's wall time, which say which process sets the pace.
+   the loop's wall time, which say which process sets the pace;
+16. the online loop at the FM headline's width (`run_online`): (a) a
+   writer thread appends the rate shard's first 6 x 65,536 rows to a
+   fresh shard in 6 pieces 1.5 s apart, every second piece ending
+   mid-row, while `Trainer.fit` follows it in process (`data.stream=tail`,
+   a 0.25 s poll, 4 s idle end, `.xfc` on arrival) with a publication
+   every 2 steps, async saves mirrored into a replica, 2 steps kept in
+   the primary and 3 in the replica. It fails unless #1, #2 and #3
+   launched once a step and nothing else, the spooled segments are the
+   file's bytes and rows, the steps are the segments' batches, each
+   segment read from its cache and planned natively, every publication
+   committed with published >= consumed >= ingest, no two saves in
+   flight (the ckpt records), and each replica step digest-verified,
+   byte-equal to its primary and bitwise the state the fit loop held at
+   that step (a snapshot taken while later steps ran); (b) `serve
+   --device cuda` over the primary dir meanwhile, `serve_bench` with 4
+   connections: 0 failed requests, the served step advancing to the last
+   publication, windows with `data_freshness_s`, and each publication's
+   ingest -> consumed -> published -> live -> first served times; (c)
+   the segments replayed one `fit` each from the same initial state:
+   every loss within 1e-5, the final w, n, z by `ftrl_errs`, the last
+   commit bitwise the live state; (d) the fit loop's stall per save at
+   FM width (synchronous, then async with and without the pinned
+   allocation, and the writer's `write_ms`), two snapshots of FM's and of
+   phase 13's FFM state (host time, pinned allocation, the copy's wait
+   and rate, the card's memory before, at the peak and after), and
+   FFM's synchronous save; (e) `train --device cuda` in tail mode as a
+   subprocess, SIGTERM after its second publication: exit 0, one
+   `interrupted` record, its newest committed step the step it reached,
+   and a resumed `train` restoring it.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
@@ -2673,6 +2702,486 @@ def run_fleet(cfg, work: str, path: str, card: str) -> None:
     lap(f"bare serve: start, {FLEET_SECONDS:.0f} s closed loop, SIGTERM")
 
 
+ONLINE_PIECES, ONLINE_GAP_S, ONLINE_CARRY = 6, 1.5, 40  # phase 16's appends
+ONLINE_PUBLISH_EVERY, ONLINE_KEEP, ONLINE_KEEP_REPLICA = 2, 2, 3
+ONLINE_CONNECTIONS = 4
+
+
+def online_pieces(rate_path: str, n: int) -> list:
+    """The first `n` x BATCH rows of the rate shard as `n` byte pieces;
+    every second piece ends ONLINE_CARRY bytes short of its last newline
+    and the next piece starts with them (a writer mid-row)."""
+    with open(rate_path, "rb") as f:
+        pieces = [b"".join(f.readline() for _ in range(BATCH)) for _ in range(n)]
+    for i in range(0, n - 1, 2):
+        pieces[i], pieces[i + 1] = (pieces[i][:-ONLINE_CARRY],
+                                    pieces[i][-ONLINE_CARRY:] + pieces[i + 1])
+    return pieces
+
+
+def append_pieces(path: str, pieces: list, gap_s: float, stop=None) -> None:
+    """Append each piece to `path`, `gap_s` apart (a writer thread)."""
+    for i, piece in enumerate(pieces):
+        if i:
+            time.sleep(gap_s)
+        if stop is not None and stop.is_set():
+            return
+        with open(path, "ab") as f:
+            f.write(piece)
+
+
+def save_intervals_disjoint(recs: list) -> bool:
+    """No two saves in flight: each submitted save's records (one queue
+    instant) end before the next save is queued."""
+    jobs: dict = {}
+    for r in recs:
+        if r["event"] != "skipped":
+            jobs.setdefault(r["queued_ts"], []).append(r["committed_ts"])
+    spans = sorted((q, max(ends)) for q, ends in jobs.items())
+    return all(nxt[0] >= cur[1] for cur, nxt in zip(spans, spans[1:]))
+
+
+def online_config(cfg, root: str, **extra):
+    """The online loop at the FM headline's width: a tail fit over
+    `<root>/stream-00000`, async tiered checkpoints, publications."""
+    from xflow_tpu_torch.config import override
+
+    return override(cfg, **{
+        "data.train_path": os.path.join(root, "stream"), "data.stream": "tail",
+        "data.stream_poll_s": 0.25, "data.stream_idle_s": 4, "data.cache": "on",
+        "data.cache_dir": "", "data.stream_dir": os.path.join(root, "spool"),
+        "train.publish_every": ONLINE_PUBLISH_EVERY, "train.ckpt_async": True,
+        "train.checkpoint_dir": os.path.join(root, "ck"),
+        "train.ckpt_replica_dir": os.path.join(root, "replica"),
+        "train.keep_checkpoints": ONLINE_KEEP,
+        "train.keep_replica_checkpoints": ONLINE_KEEP_REPLICA,
+        "train.metrics_path": os.path.join(root, "train.jsonl"), "train.log_every": 0,
+        **extra})
+
+
+def check_tiers(ocfg, clones: dict) -> None:
+    """The tiers after the tail run: at most ONLINE_KEEP committed steps in
+    the primary and ONLINE_KEEP_REPLICA in the replica, each replica step
+    digest-verified and its state.npz byte-equal to the primary's where
+    both hold it, and every replica step bitwise the state the fit loop
+    held at that step (`clones`, device copies taken right after it):
+    the snapshots were taken while later steps ran."""
+    import numpy as np
+
+    from xflow_tpu_torch.train.checkpoint import committed_steps, restore_step_arrays
+
+    tc = ocfg.train
+    prim, rep = committed_steps(tc.checkpoint_dir), committed_steps(tc.ckpt_replica_dir)
+    if not prim or len(prim) > ONLINE_KEEP or not rep or len(rep) > ONLINE_KEEP_REPLICA:
+        fail(f"retention: primary steps {prim} (keep {ONLINE_KEEP}), replica {rep} "
+             f"(keep {ONLINE_KEEP_REPLICA})")
+    S, K = 1 << LOG2_SLOTS, 1 + V_DIM
+    labels = {f"{g}": (S, K) for g in ("tables/wv", "opt/wv/n", "opt/wv/z")}
+    for step in rep:
+        got = restore_step_arrays(tc.ckpt_replica_dir, step, labels)  # digest-verified
+        if step in prim:
+            a = open(os.path.join(tc.ckpt_replica_dir, f"step_{step}", "state.npz"), "rb").read()
+            b = open(os.path.join(tc.checkpoint_dir, f"step_{step}", "state.npz"), "rb").read()
+            if a != b:
+                fail(f"replica step {step}'s state.npz differs from the primary's")
+        if step in clones:
+            for label, arr in got.items():
+                if not np.array_equal(arr, clones[step][label]):
+                    fail(f"replica step {step} {label} is not the state the fit loop held "
+                         "at that step: the async snapshot was overwritten")
+    print(f"# online: primary steps {prim}, replica steps {rep} (digest-verified, "
+          f"byte-equal where both hold a step, bitwise the fit loop's state at "
+          f"{sorted(set(rep) & set(clones))})", flush=True)
+
+
+def run_online(cfg, work: str, path: str, rate_path: str, card: str) -> None:
+    """Phase 16, the online loop on the card: (a) a tail fit over a shard
+    a writer thread grows, async tiered checkpoints and publications; (b)
+    `serve --device cuda` over its primary dir meanwhile; (c) the
+    segments replayed one `fit` each; (d) the fit loop's stall per save,
+    synchronous against async, at FM and FFM width; (e) the SIGTERM
+    drill of a tail `train` subprocess."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data import pipeline
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.tools import serve_bench
+    from xflow_tpu_torch.train import checkpoint as ckpt
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(work, "online")
+    os.makedirs(root)
+    ocfg = online_config(cfg, root)
+    tc = ocfg.train
+    laps = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"# online phase: {what} in {laps[-1] - laps[-2]:.1f} s", flush=True)
+
+    pieces = online_pieces(rate_path, ONLINE_PIECES)
+    stream = os.path.join(root, "stream-00000")
+    open(stream, "wb").close()
+    ta = Trainer(ocfg, device=DEVICE)
+    initial = ckpt.flatten_state(ta.state.tables, ta.state.opt_state, 0)
+    snapshot_report(ta.state, "FM", card)  # the process's first pinned buffers of FM's size
+    if not ta.save_checkpoint(wait=True):  # step 0: what the server starts on
+        fail("the initial commit was skipped")
+    lap("the trainer built and step 0 committed")
+
+    # --- (b) the server over the primary dir, and its closed loop
+    serve_jsonl, serve_err = os.path.join(root, "serve.jsonl"), os.path.join(root, "serve.err")
+    proc, ready = start_server(
+        [sys.executable, "-m", "xflow_tpu_torch", "serve", *serve_flags(tc.checkpoint_dir),
+         "--metrics-path", serve_jsonl, "--set", "serve.trace_sample_rate=0.01"], serve_err)
+    try:
+        if ready["device"] != torch.cuda.get_device_name(0) or ready["step"] != 0:
+            fail(f"ready line {ready}: expected step 0 on the card")
+        lap("the server started on step 0")
+        args = serve_bench.build_parser().parse_args([
+            "--url", f"http://127.0.0.1:{ready['port']}", "--duration", "300",
+            "--concurrency", str(ONLINE_CONNECTIONS), "--data", path,
+            "--rows-per-request", "1-8"])
+        bench_stop, bench = threading.Event(), {}
+        bench_thread = threading.Thread(
+            target=lambda: bench.update(serve_bench.run(args, stop=bench_stop)), daemon=True)
+        bench_thread.start()
+
+        # --- (a) the tail run
+        losses, clones, pubs = [], {}, []
+        step_fn = ta.train_step
+
+        def recording(state, batch):
+            new, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            if new.step % ONLINE_PUBLISH_EVERY == 0:  # the cadence step's state, on the card
+                clones[new.step] = {"tables/wv": new.tables["wv"].clone(),
+                                    "opt/wv/n": new.opt_state["wv"]["n"].clone(),
+                                    "opt/wv/z": new.opt_state["wv"]["z"].clone()}
+            return new, m
+
+        save = ta.save_checkpoint
+
+        def recording_save(publication=None, wait=False):
+            ok = save(publication=publication, wait=wait)
+            if ok and publication is not None:
+                pubs.append(publication)
+            return ok
+
+        ta.train_step, ta.save_checkpoint = recording, recording_save
+        writer = threading.Thread(target=append_pieces, args=(stream, pieces, ONLINE_GAP_S))
+        st.reset_launches()
+        pipeline.reset_host_calls()
+        t0 = time.perf_counter()
+        writer.start()
+        res = ta.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, calls = dict(st.LAUNCHES), pipeline.host_calls()
+        writer.join(timeout=60)
+        ta.train_step, ta.save_checkpoint = step_fn, save
+        lap(f"the tail run: {res.steps} steps, {len(pubs)} publications")
+
+        # the server follows to the last publication, then the loop stops
+        last = pubs[-1]["step"] if pubs else -1
+        deadline, health = time.monotonic() + 60, {}
+        while time.monotonic() < deadline:
+            health = get_json(ready["port"], "/healthz")[1]
+            if health.get("step") == last:
+                break
+            time.sleep(0.25)
+        time.sleep(1.0)  # a window or two on the last step
+        bench_stop.set()
+        bench_thread.join(timeout=60)
+        lap("the server reached the last publication")
+    finally:
+        stop_server(proc, serve_err, "the server over the online loop")
+
+    # --- (a)'s checks
+    recs = read_jsonl(tc.metrics_path)
+    ingests = [r for r in recs if r.get("kind") == "ingest"]
+    ck_recs = [r for r in recs if r.get("kind") == "ckpt"]
+    publish_recs = [r for r in recs if r.get("kind") == "publish"]
+    spool = b"".join(open(os.path.join(ocfg.data.stream_dir, "segment-%06d" % r["seq"]),
+                          "rb").read() for r in sorted(ingests, key=lambda r: r["seq"]))
+    want_steps = sum(-(-r["rows"] // BATCH) for r in ingests)
+    want_launch = {"gather_sorted": res.steps, "row_sums": res.steps,
+                   "scatter_ftrl": res.steps}
+    if {k: v for k, v in launches.items() if v} != want_launch:
+        fail(f"the tail run of {res.steps} steps launched {launches}: expected #1, #2 and #3 "
+             "once a step and nothing else")
+    if spool != open(stream, "rb").read() or sum(r["rows"] for r in ingests) != (
+            ONLINE_PIECES * BATCH):
+        fail(f"the spooled segments ({len(spool)} bytes, "
+             f"{sum(r['rows'] for r in ingests)} rows) are not the file's "
+             f"({os.path.getsize(stream)} bytes, {ONLINE_PIECES * BATCH} rows)")
+    if res.steps != want_steps or res.interrupted or res.bad_steps:
+        fail(f"tail run {res}: expected {want_steps} steps (each segment's batches)")
+    if calls["cache_batches"] != res.steps or calls["native_plan"] != res.steps or (
+            calls["python_rows"]):
+        fail(f"the tail run did not read every segment from its .xfc cache and plan it "
+             f"natively: host calls {calls}")
+    committed = {r["step"] for r in ck_recs if r["tier"] == "primary"
+                 and r["event"] == "committed"}
+    if not pubs or [p["seq"] for p in pubs] != list(range(1, len(pubs) + 1)) or any(
+            p["step"] not in committed for p in pubs) or len(publish_recs) != len(pubs):
+        fail(f"publications {[(p['step'], p['seq']) for p in pubs]}: each must be "
+             f"committed (committed primary steps {sorted(committed)})")
+    if any(not p["published_ts"] >= p["consumed_ts"] >= p["ingest_ts"] for p in pubs):
+        fail(f"publication times out of order: {pubs}")
+    if not save_intervals_disjoint(ck_recs) or any(r["event"] == "failed" for r in ck_recs):
+        fail(f"checkpoint records show a failure or two saves in flight: {ck_recs}")
+    check_tiers(ocfg, {s: {k: v.cpu().numpy() for k, v in c.items()}
+                       for s, c in clones.items()})
+    skips = [r["step"] for r in ck_recs if r["event"] == "skipped"]
+    for tier in ("primary", "replica"):
+        ms = [r["write_ms"] for r in ck_recs if r["tier"] == tier and r["event"] == "committed"]
+        print(f"# online: {tier} write_ms of {len(ms)} async saves of {ck_recs[0]['bytes']} "
+              f"bytes on {card}: {ms}", flush=True)
+    print(f"# online: the tail run on {card}: {res.steps} steps in {wall:.2f} s wall "
+          f"({res.examples} rows over {len(ingests)} segments of rows "
+          f"{[r['rows'] for r in ingests]}), launches {launches}, host calls {calls}, "
+          f"skipped saves at steps {skips}", flush=True)
+
+    # --- (b)'s checks
+    srecs = read_jsonl(serve_jsonl)
+    windows = [r for r in srecs if r.get("kind") == "serve" and "requests" in r]
+    fresh = [r["data_freshness_s"] for r in windows if "data_freshness_s" in r]
+    served = {r["step"]: r["t0"] for r in srecs
+              if r.get("kind") == "span" and r.get("name") == "serve_first"}
+    live = {r["step"]: r["ts"] for r in srecs
+            if r.get("kind") == "serve" and r.get("event") == "reload"}
+    print(f"# online serve_bench: {json.dumps(bench)}", flush=True)
+    if bench.get("errors") != 0 or health.get("step") != last or not bench["steps"] or (
+            bench["steps"][-1] != last) or len(bench["steps"]) < 2 or not fresh:
+        fail(f"serving over the loop: errors {bench.get('errors')} "
+             f"({bench.get('first_error')}), steps served {bench.get('steps')}, /healthz "
+             f"{health}, last publication {last}, {len(fresh)} windows with freshness")
+    for p in pubs:
+        since = lambda t: f"{t - p['ingest_ts']:.3f} s" if t else "-"  # noqa: E731
+        print(f"# online publication seq {p['seq']} step {p['step']}, seconds after its "
+              f"ingest: consumed {since(p['consumed_ts'])}, published "
+              f"{since(p['published_ts'])}, live in the server {since(live.get(p['step']))}, "
+              f"first served {since(served.get(p['step']))}", flush=True)
+    print(f"# online: data_freshness_s of {len(fresh)} serve windows on {card}: min "
+          f"{min(fresh):.3f}, max {max(fresh):.3f}", flush=True)
+    lap("(a) and (b) checked")
+
+    # --- (c) parity: the segments replayed one fit each from the initial state
+    rcfg = override(ocfg, **{"data.stream": "off", "train.epochs": 1,
+                             "train.checkpoint_dir": "", "train.ckpt_replica_dir": "",
+                             "train.metrics_path": "", "train.ckpt_async": False,
+                             "train.publish_every": 0})
+    tr = Trainer(rcfg, device=DEVICE)
+    replay_losses = []
+    step_fn = tr.train_step
+
+    def replay_recording(state, batch):
+        new, m = step_fn(state, batch)
+        replay_losses.append(float(m["loss"]))
+        return new, m
+
+    tr.train_step = replay_recording
+    for r in sorted(ingests, key=lambda r: r["seq"]):
+        tr.fit(os.path.join(ocfg.data.stream_dir, "segment-%06d" % r["seq"]))
+    if len(replay_losses) != len(losses) or not np.allclose(
+            replay_losses, losses, rtol=LOSS_RTOL, atol=0):
+        fail(f"replayed losses {replay_losses} vs the tail run's {losses}")
+    prev = tuple(torch.from_numpy(initial[k]).to(DEVICE)
+                 for k in ("tables/wv", "opt/wv/n", "opt/wv/z"))
+    leaves = lambda s: (s.tables["wv"], s.opt_state["wv"]["n"], s.opt_state["wv"]["z"])  # noqa: E731
+    # several steps from the initial state: the row sum's atomic adds
+    # reorder each step's logits in their last bits, so the leaves drift
+    # apart by more than one step's floor (z by about 1e-3 of it) while
+    # the implied gradient and the FTRL rule still hold (`leaves` False)
+    errs = ftrl_errs(leaves(ta.state), leaves(tr.state), prev, ocfg.optim.ftrl,
+                     "the tail run against its replay", leaves=False, flips=True)
+    got = ckpt.restore_step_arrays(tc.checkpoint_dir, last, {
+        k: (1 << LOG2_SLOTS, 1 + V_DIM) for k in ("tables/wv", "opt/wv/n", "opt/wv/z")})
+    live = {k: v.cpu().numpy() for k, v in zip(("tables/wv", "opt/wv/n", "opt/wv/z"),
+                                                leaves(ta.state))}
+    if any(not np.array_equal(got[k], live[k]) for k in live):
+        fail(f"the last commit (step {last}) is not the live state bitwise")
+    print(f"# online replay: {len(losses)} losses within {LOSS_RTOL} relative; final "
+          f"w, n, z errs {errs}; the last commit (step {last}) equals the live state "
+          "bitwise", flush=True)
+    lap("(c) the replay")
+
+    # --- (d) the fit loop's stall per save
+    def stall(trainer, extra: dict) -> float:
+        trainer.cfg = override(ocfg, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not trainer.save_checkpoint():
+            fail(f"a save with {extra} was skipped")
+        return (time.perf_counter() - t0) * 1e3
+
+    sync_ms = stall(ta, {"train.ckpt_async": False, "train.ckpt_replica_dir": "",
+                         "train.checkpoint_dir": os.path.join(root, "stall_sync")})
+    async_ms = []
+    for i in range(2):  # a new writer's first save stages into new pinned buffers
+        async_ms.append(stall(ta, {"train.ckpt_replica_dir": "",
+                                   "train.checkpoint_dir": os.path.join(root, f"stall_{i}")}))
+        ta._ckpt_writer.drain()
+    ta._ckpt_writer.close()
+    ta._ckpt_writer = None
+    # the two async saves' records (primary only: no replica dir)
+    write_ms = [r["write_ms"] for r in read_jsonl(tc.metrics_path)
+                if r.get("kind") == "ckpt"][-2:]
+    nbytes = ta._state_nbytes()
+    print(f"# online stall per save at FM width ({nbytes / 1e6:.1f} MB) on {card}: "
+          f"synchronous {sync_ms:.1f} ms; async (snapshot + submit) {async_ms[0]:.2f} ms "
+          f"a new writer's first save, {async_ms[1]:.2f} ms its second; the writer's write_ms "
+          f"{write_ms}", flush=True)
+    del ta, tr, clones
+    torch.cuda.empty_cache()
+    lap("(d) the stall at FM width")
+
+    from xflow_tpu_torch.train.checkpoint import restore_state
+    from xflow_tpu_torch.train.state import TrainState
+    from xflow_tpu_torch.weights import table_shapes
+
+    fcfg = ffm_config(cfg, os.path.join(work, "ck_ffm"))
+    restored = restore_state(fcfg.train.checkpoint_dir, table_shapes(fcfg), ("n", "z"))
+    fstate = restored_state(fcfg, DEVICE, restored)
+    del restored
+    tf = Trainer(override(fcfg, **{"train.checkpoint_dir": os.path.join(root, "ffm_sync")}),
+                 device=DEVICE)
+    tf.state = TrainState(fstate.tables, fstate.opt_state, fstate.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.save_checkpoint()
+    ffm_sync_s = time.perf_counter() - t0
+    print(f"# online: FFM's synchronous save ({tf._state_nbytes() / 1e6:.1f} MB) on {card}: "
+          f"{ffm_sync_s:.2f} s of the fit loop's time", flush=True)
+    snapshot_report(tf.state, "FFM", card)
+    del tf, fstate
+    torch.cuda.empty_cache()
+    lap("(d) the stall at FFM width")
+
+    # --- (e) the SIGTERM drill
+    drill(cfg, root, rate_path)
+    lap("(e) the SIGTERM drill")
+
+
+def snapshot_report(state, what: str, card: str) -> None:
+    """Two async snapshots of `state` through one pinned staging: the
+    first allocates the pinned buffers, the second reuses them. Prints
+    each's host time, the allocation's, the copy's wait to its event and
+    rate, and the card's memory before, at the peak and after the event."""
+    import torch
+
+    from xflow_tpu_torch.train.checkpoint import PinnedStaging, SaveSnapshot
+
+    staging = PinnedStaging()
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        snap = SaveSnapshot(state.tables, state.opt_state, state.step, staging)
+        t1 = time.perf_counter()
+        snap.materialize()
+        t2 = time.perf_counter()
+        peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        out.append((t1 - t0, snap.alloc_ms, t2 - t1, before, peak, after))
+        if peak > before:
+            fail(f"the {what} snapshot allocated {peak - before} bytes on the card")
+    for i, (launch_s, alloc_ms, wait_s, before, peak, after) in enumerate(out):
+        print(f"# online: {what} snapshot {i + 1} of {snap.nbytes / 1e6:.1f} MB on {card}: "
+              f"{launch_s * 1e3:.2f} ms on the fit loop ({alloc_ms:.2f} ms of it the pinned "
+              f"allocation), then {wait_s * 1e3:.1f} ms to its event "
+              f"({snap.nbytes / max(wait_s, 1e-9) / 1e9:.1f} GB/s over the link); card memory "
+              f"{before / 2**20:.1f} MiB before, {peak / 2**20:.1f} MiB at the peak, "
+              f"{after / 2**20:.1f} MiB after the event", flush=True)
+
+
+def drill(cfg, root: str, rate_path: str) -> None:
+    """(e): `python -m xflow_tpu_torch train --device cuda` in tail mode
+    with async saves on a fresh stream that a writer thread grows;
+    SIGTERM after its second publication. It must exit 0 with an
+    `interrupted` record, its newest committed step the step it reached,
+    and a resumed `train` must restore from that step."""
+    import signal
+    import threading
+
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.train.checkpoint import committed_steps
+
+    d = os.path.join(root, "drill")
+    os.makedirs(d)
+    stream, ck, metrics = (os.path.join(d, "stream-00000"), os.path.join(d, "ck"),
+                           os.path.join(d, "train.jsonl"))
+    open(stream, "wb").close()
+    argv = [sys.executable, "-m", "xflow_tpu_torch", "train", "--train", stream[:-6],
+            "--model", "fm", "--batch-size", str(BATCH), "--log2-slots", str(LOG2_SLOTS),
+            "--checkpoint-dir", ck, "--device", DEVICE,
+            "--set", f"model.v_dim={V_DIM}", "--set", f"model.num_fields={NUM_FIELDS}",
+            "--set", f"data.max_nnz={NUM_FIELDS}", "--set", "data.stream=tail",
+            "--set", "data.stream_poll_s=0.25", "--set", "data.cache=on",
+            "--set", "train.ckpt_async=true", "--set", "train.publish_every=1"]
+    err = os.path.join(d, "train.err")
+    stop = threading.Event()
+    # the first piece is there at the start; the rest follow once the run
+    # follows, a save's time apart, so the second publication is not skipped
+    first, *rest = online_pieces(rate_path, 3)
+    append_pieces(stream, [first], 0.0)
+    writer = threading.Thread(target=append_pieces, args=(stream, rest, 3.0, stop))
+
+    def wait_for(kind: str, count: int) -> None:
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                fail(f"the drill's train exited {proc.returncode} before the signal: "
+                     f"{open(err).read()[-3000:]}")
+            if os.path.exists(metrics) and sum(
+                    r.get("kind") == kind for r in read_jsonl(metrics)) >= count:
+                return
+            time.sleep(0.1)
+        fail(f"the drill saw no {kind} record {count} in 180 s: {open(err).read()[-3000:]}")
+
+    with open(err, "w") as ef:
+        proc = subprocess.Popen(argv + ["--set", "data.stream_idle_s=600",
+                                        "--set", f"train.metrics_path={metrics}"],
+                                cwd=HERE, stdout=subprocess.PIPE, stderr=ef, text=True)
+    try:
+        wait_for("ingest", 1)
+        writer.start()
+        wait_for("publish", 2)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        t_exit = time.perf_counter() - t_sig
+    finally:
+        stop.set()
+        writer.join(timeout=30)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    recs = read_jsonl(metrics)
+    marks = [r for r in recs if "interrupted" in r]
+    summary = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    newest = committed_steps(ck)[:1]
+    if proc.returncode != 0 or len(marks) != 1 or summary.get("interrupted") != signal.SIGTERM \
+            or newest != [marks[0]["step"]] or summary.get("steps") != marks[0]["step"]:
+        fail(f"SIGTERM drill: exit {proc.returncode}, interrupted records {marks}, summary "
+             f"{summary}, newest committed {newest}: {open(err).read()[-3000:]}")
+    r = subprocess.run(argv + ["--set", "data.stream_idle_s=2"], cwd=HERE, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0 or f"resumed from step {newest[0]}" not in r.stderr:
+        fail(f"the drill's resumed train exited {r.returncode} without resuming from step "
+             f"{newest[0]}: {r.stderr[-3000:]}")
+    print(f"# online drill: SIGTERM after the second publication, at step "
+          f"{marks[0]['step']}: exit 0 {t_exit:.2f} s after the signal, newest committed "
+          f"step {newest[0]}; the resumed train restored it", flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
@@ -2729,6 +3238,7 @@ def main() -> int:
         lab_kern = run_lab(work)
         run_serve(cfg, work, path, card)
         run_fleet(cfg, work, path, card)
+        run_online(cfg, work, path, rate_path, card)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")

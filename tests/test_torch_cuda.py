@@ -29,7 +29,10 @@ grids that split a window into 64 pieces and into none), #11 at one to
 34 quads and at B 512, 65,536 and 2^18 (a quad column of 4 MiB), and
 `kernel_parity` runs whole. The server's runner runs on the card against
 the CPU, through a reload under a predict loop, and returns the old
-generation's memory. The multi-buffer gather (#5) also runs on
+generation's memory. The async checkpoint snapshot keeps the cadence
+step's state bitwise while later steps run, in pinned buffers it reuses,
+with no card memory of its own; a tail fit with async saves and
+publications matches the CPU's. The multi-buffer gather (#5) also runs on
 windows empty in every buffer and on one buffer whose spans all lie in
 one window, at 1, 4 and the most stacked buffers.
 
@@ -771,3 +774,62 @@ def test_serve_on_the_card_matches_the_cpu_and_returns_the_old_generation(dev, t
     assert cpu.maybe_reload().step == 2
     np.testing.assert_allclose(card.predict_rows(rows)[0], cpu.predict_rows(rows)[0],
                                atol=1e-5, rtol=0)
+
+
+def test_async_snapshot_on_the_card_keeps_the_cadence_state(dev, tmp_path):
+    """The side-stream snapshot holds references to the cadence step's
+    leaves: steps that run while its copies are in flight (and while the
+    writer writes) leave the saved state the cadence step's, bitwise;
+    the buffers are pinned and reused, and the card gains no memory."""
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+    from xflow_tpu_torch.evaluate import HostDedup, batch_arrays
+    from xflow_tpu_torch.train import checkpoint as ckpt
+
+    (path,) = generate_shards(str(tmp_path / "train"), 1, 320, num_fields=8,
+                              ids_per_field=40, seed=5)
+    cfg = _cfg(**{"data.train_path": str(tmp_path / "train"), "train.epochs": 1,
+                  "train.checkpoint_dir": str(tmp_path / "ck"), "train.ckpt_async": True})
+    t = Trainer(cfg, device=str(dev))
+    batches = [to_device(batch_arrays(b, cfg, HostDedup(cfg)), dev)
+               for b in batch_iterator(path, cfg.data)]
+    t.state, _ = t.train_step(t.state, batches[0])
+    cadence = ckpt.flatten_state(t.state.tables, t.state.opt_state, 0)  # host copies
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert t.save_checkpoint() is True
+    assert torch.cuda.memory_allocated() == before  # no copy on the card
+    assert all(b.is_pinned() for b in t._ckpt_writer.staging.buffers.values())
+    for b in batches[1:]:
+        t.state, _ = t.train_step(t.state, b)
+    t._ckpt_writer.drain()
+    with np.load(str(tmp_path / "ck" / "step_1" / "state.npz")) as got:
+        for k, v in cadence.items():
+            if k != "step":
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+    buffers = dict(t._ckpt_writer.staging.buffers)
+    assert t.save_checkpoint() is True  # the second save reuses the buffers
+    assert all(t._ckpt_writer.staging.buffers[k] is b for k, b in buffers.items())
+    t._ckpt_writer.close()
+
+
+def test_tail_fit_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The online loop on the card: a tail fit over a pre-seeded shard with
+    async saves and publications, against the same run on the CPU."""
+    from xflow_tpu_torch.train.checkpoint import committed_steps, read_publication
+
+    generate_shards(str(tmp_path / "stream"), 1, 200, num_fields=8, ids_per_field=40, seed=5)
+    runs = {}
+    for name, device in (("card", str(dev)), ("cpu", "cpu")):
+        cfg = _cfg(**{"data.train_path": str(tmp_path / "stream"), "data.stream": "tail",
+                      "data.stream_poll_s": 0.02, "data.stream_idle_s": 0.5,
+                      "data.stream_dir": str(tmp_path / f"spool_{name}"),
+                      "train.publish_every": 2, "train.ckpt_async": True,
+                      "train.checkpoint_dir": str(tmp_path / f"ck_{name}")})
+        t = Trainer(cfg, device=device)
+        runs[name] = (t, t.fit())
+    (card, rc), (cpu, rp) = runs["card"], runs["cpu"]
+    assert rc.steps == rp.steps == 4
+    assert abs(rc.last_loss - rp.last_loss) <= LOSS_RTOL * abs(rp.last_loss)
+    assert _rel(card.state.tables["wv"], cpu.state.tables["wv"], FTRL_FLOOR) <= FTRL_RTOL
+    ck = str(tmp_path / "ck_card")
+    assert committed_steps(ck)[0] == 4 and read_publication(ck, 4)["step"] == 4

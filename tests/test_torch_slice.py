@@ -5,7 +5,8 @@ port's sorted-window `evaluate` gives the JAX trainer's AUC and logloss
 on the same checkpoint and libffm shard, and `ServeRunner.predict_rows`
 gives the port's evaluate pctrs (the serve == evaluate pin). The package
 imports, and its `evaluate` and `train` commands run (FM, and MVM on
-both row sides), with `jax` and `xflow_tpu` blocked: through the native
+both row sides, and FM's online loop in tail mode with async tiered
+saves and publications), with `jax` and `xflow_tpu` blocked: through the native
 parser and planner, and from an `.xfc` cache the port packs; so do
 `serve` and `serve-fleet` (the fleet's replica too, and torch blocked
 in the fleet process, which only routes).
@@ -202,7 +203,7 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.tools.serve_bench, xflow_tpu_torch.serve.router\n"
         "import xflow_tpu_torch.serve.fleet, xflow_tpu_torch.launch.supervise\n"
         "import xflow_tpu_torch.launch.local, xflow_tpu_torch.testing.faults\n"
-        "import xflow_tpu_torch.serve.lifecycle\n"
+        "import xflow_tpu_torch.serve.lifecycle, xflow_tpu_torch.train.checkpoint\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -243,6 +244,33 @@ def test_cli_train_without_jax(slice_case, tmp_path):
     assert (out["steps"], out["epochs"], out["examples"], out["bad_steps"]) == (8, 2, 2 * ROWS, 0)
     assert out["device"] == "cpu" and 0.0 <= out["auc"] <= 1.0
     assert tckpt.committed_steps(str(tmp_path / "ck")) == [8]
+
+
+def test_cli_tail_train_without_jax(slice_case, tmp_path):
+    """The online loop through the CLI with jax and xflow_tpu blocked: a
+    tail fit over the shard with async tiered saves and publications."""
+    prefix = slice_case["path"][: -len("-00000")]
+    ck, rep, metrics = tmp_path / "ck", tmp_path / "rep", tmp_path / "m.jsonl"
+    r = _run_without_jax(
+        "from xflow_tpu_torch.__main__ import main\n"
+        "sys.exit(main(sys.argv[1:]))\n",
+        "train", "--train", prefix, "--model", "fm", "--batch-size", str(B),
+        "--log2-slots", str(LOG2_S), "--checkpoint-dir", str(ck), "--device", "cpu",
+        "--set", f"model.v_dim={V}", "--set", f"model.num_fields={NF}",
+        "--set", f"data.max_nnz={NNZ}", "--set", "data.stream=tail",
+        "--set", "data.stream_poll_s=0.02", "--set", "data.stream_idle_s=0.3",
+        "--set", f"data.stream_dir={tmp_path / 'spool'}", "--set", "train.ckpt_async=true",
+        "--set", f"train.ckpt_replica_dir={rep}", "--set", "train.publish_every=2",
+        "--set", "train.keep_checkpoints=1", "--set", f"train.metrics_path={metrics}",
+    )
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert (out["steps"], out["examples"], out["epochs"]) == (4, ROWS, 1)
+    assert tckpt.committed_steps(str(ck)) == [4]
+    assert tckpt.committed_steps(str(rep))[0] == 4
+    assert tckpt.read_publication(str(ck), 4)["step"] == 4
+    kinds = {json.loads(line).get("kind") for line in open(metrics)}
+    assert {"ingest", "ckpt", "publish", "span"} <= kinds
 
 
 @pytest.mark.parametrize("exclusive", ["auto", "off"])

@@ -8,7 +8,11 @@ Trains on `<PREFIX>-00000` on one device (resuming from the newest
 checkpoint under D when there is one), evaluates `<test PREFIX>-00000`
 when given, and prints one JSON summary line {"rank", "steps", "epochs",
 "examples", "seconds", "examples_per_sec", "last_loss", "occupancy",
-"bad_steps", ["auc", "logloss"], "device"}.
+"bad_steps", ["auc", "logloss"], "device"}. With `--set data.stream=tail`
+it follows the growing shard set instead (the online loop, publishing
+every `train.publish_every` steps). SIGTERM or SIGINT commit the step
+reached; the summary then carries "interrupted" (the signal), no
+evaluation runs, and the exit code is 0.
 
     python -m xflow_tpu_torch evaluate --checkpoint-dir D --test F \
         [--model lr|fm|mvm|ffm] [--batch-size N] [--log2-slots N] [--device cuda] [--set k=v ...]
@@ -167,6 +171,13 @@ def cmd_train(args) -> int:
         "occupancy": res.occupancy,
         "bad_steps": res.bad_steps,
     }
+    if res.interrupted:
+        # a signal ended the run at a committed step: no evaluation, so
+        # the grace period is not spent on it
+        summary["interrupted"] = res.interrupted
+        summary["device"] = args.device
+        print(json.dumps(summary))
+        return 0
     if cfg.data.test_path:
         auc, ll = trainer.evaluate()
         summary["auc"], summary["logloss"] = auc, ll

@@ -1,11 +1,11 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
 (FM inference, single-device LR, FM, MVM and FFM training, the host
-input plane, the server and its fleet) read, with the JAX package's
+input plane, the server and its fleet, the online training loop) read, with the JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
 Sections and fields not listed here belong to paths the port has not
-taken over yet (multi-device engines, the trainer's telemetry); an
+taken over yet (multi-device engines, the trainer's per-step telemetry); an
 override naming one raises KeyError.
 """
 
@@ -97,7 +97,15 @@ class DataConfig:
     ("on": it must be), beside the shard or under `cache_dir`.
     `max_bad_rows` is the budget of feature-less rows a training pass
     may hold (-1 = count and warn only); `quarantine_path` (a JSONL
-    file, "" = off) records each of them."""
+    file, "" = off) records each of them.
+
+    The stream (`data/pipeline.TailFollower`): `stream` "off" trains the
+    shard's epochs; "tail" follows the growing shard set, spooling each
+    poll's newly completed lines into a sealed segment under
+    `stream_dir` ("" = an `.xfstream` dir beside the shards), converted
+    to `.xfc` on arrival when `cache` allows. Polls every
+    `stream_poll_s`; `stream_idle_s` without new complete rows ends the
+    stream (0 = follow forever)."""
 
     train_path: str = ""
     test_path: str = ""
@@ -115,6 +123,10 @@ class DataConfig:
     sorted_sub_batches: int = 0
     dedup: str = "off"
     dedup_cap_frac: float = 0.5
+    stream: str = "off"
+    stream_poll_s: float = 0.25
+    stream_idle_s: float = 0.0
+    stream_dir: str = ""
 
 
 @dataclass(frozen=True)
@@ -127,9 +139,20 @@ class TrainConfig:
     checkpoints live, their format ("npz" is the one the port reads and
     writes) and digest verification on restore ("auto"|"off").
     `ckpt_replica_dir` ("" = off) is the tier-2 replica of the
-    checkpoints: restores and the serve watcher walk the union of both
-    tiers' committed steps, newest first (the port reads it; the
-    trainer's replica writes are not ported)."""
+    checkpoints: every committed step is mirrored there (digest
+    re-verified, its own COMMITTED last), and restores and the serve
+    watcher walk the union of both tiers' committed steps, newest first.
+
+    `metrics_path` ("" = off) is the run's JSONL record stream, with one
+    `checkpoint_save` span a save under `ckpt_spans`. `ckpt_on_signal`: SIGTERM/SIGINT
+    commit the step reached and end the run. `keep_checkpoints` /
+    `keep_replica_checkpoints` keep the N newest committed steps of
+    each tier (0 = all) and sweep uncommitted debris after each save.
+    `ckpt_async`: the fit loop only snapshots and a writer thread
+    commits, at most one save in flight (`train/checkpoint.py`
+    `AsyncCheckpointWriter`). `publish_every` (0 = off; needs
+    `checkpoint_dir` and `data.stream=tail`): every Nth step commits a
+    checkpoint with a publication sidecar the server reads."""
 
     epochs: int = 60
     seed: int = 0
@@ -142,6 +165,13 @@ class TrainConfig:
     checkpoint_format: str = "npz"
     checkpoint_verify: str = "auto"
     ckpt_replica_dir: str = ""
+    metrics_path: str = ""
+    ckpt_spans: bool = True
+    ckpt_on_signal: bool = True
+    keep_checkpoints: int = 0
+    ckpt_async: bool = False
+    keep_replica_checkpoints: int = 0
+    publish_every: int = 0
 
 
 @dataclass(frozen=True)

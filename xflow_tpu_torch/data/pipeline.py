@@ -14,16 +14,23 @@ A cache that fails its digest is quarantined and the shard is read as
 text: that is the cache's data contract (`data/shardcache.py`), not a
 parser fall back.
 
-Not taken over: the stream tail (`TailFollower`, `IngestSegment`), the
-pipeline profiler and the telemetry registry; `COUNTERS` keeps the one
-total a checkpoint's data_state records.
+The stream tail (`data.stream=tail`): `TailFollower` cuts a growing
+shard set's newly completed lines into sealed `IngestSegment`s, each
+converted to `.xfc` on arrival, and the trainer reads each segment
+through `batch_iterator` like any shard.
+
+Not taken over: the pipeline profiler; `COUNTERS` keeps the one total a
+checkpoint's data_state records.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import queue
 import sys
 import threading
+import time
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
@@ -270,3 +277,160 @@ def reset_host_calls() -> None:
     shardcache.reset_calls()
     libffm.reset_calls()
 
+
+
+# --------------------------------------------------------------- the stream
+@dataclasses.dataclass(frozen=True)
+class IngestSegment:
+    """One sealed unit of tail-followed input (data.stream=tail): the
+    newly completed lines of a watched shard, spooled into an immutable
+    segment file (and its `.xfc` cache where conversion is on), stamped
+    with the ingest trace the freshness records follow from the trainer
+    to the server."""
+
+    trace: str        # 16-hex ingest trace id (tracing.new_id)
+    seq: int          # segment number within this follower
+    source: str       # the watched text shard the bytes came from
+    offset: int       # byte offset of the segment's start in `source`
+    rows: int         # labeled examples in the segment
+    bytes: int        # segment length in bytes
+    path: str         # the sealed spool file
+    cache: str        # its .xfc cache ("" = read as text)
+    ingest_ts: float  # wall anchor: when the segment sealed
+
+
+def stream_dir_for(prefix: str, cfg) -> str:
+    """Where a tail follower spools segments: data.stream_dir, or an
+    `.xfstream` dir beside the watched shards."""
+    if cfg.stream_dir:
+        return cfg.stream_dir
+    return os.path.join(os.path.dirname(prefix) or ".", ".xfstream")
+
+
+class TailFollower:
+    """Follow-the-tail source (data.stream=tail), after the JAX package's.
+
+    Watches the `<prefix>-NNNNN` shard set (or `prefix` itself when it is
+    a file) for new or growing libffm files. Each poll cuts every shard's
+    newly completed lines into one sealed spool segment (temp, fsync,
+    rename); a trailing row without its newline is deferred until the
+    rest lands, never quarantined, since a writer mid-append is the
+    normal case. Each segment converts on arrival into a `.xfc` cache
+    (data.cache auto or on) and carries a fresh ingest trace id and wall
+    anchor, recorded as one kind="ingest" record and in the
+    `data.ingest_segments` / `data.ingest_rows` counters.
+
+    A shard that shrank below the follower's offset was rotated: its
+    offset resets to 0 and the new contents stream from the top.
+    `data.stream_idle_s` without new complete rows ends the stream (0 =
+    follow forever); `close()` ends it at once, from any thread.
+    `clock`/`wall` are injectable for tests."""
+
+    def __init__(self, prefix: str, cfg, appender=None, clock=time.monotonic,
+                 wall=time.time):
+        self._prefix = prefix
+        self._cfg = cfg
+        self._app = appender
+        self._poll_s = max(float(cfg.stream_poll_s), 0.01)
+        self._idle_s = max(float(cfg.stream_idle_s), 0.0)
+        self._dir = stream_dir_for(prefix, cfg)
+        self._clock = clock
+        self._wall = wall
+        self._offsets: dict = {}
+        self._seq = 0
+        self._stop = threading.Event()
+
+    def _sources(self) -> list:
+        from xflow_tpu_torch.data.libffm import available_shards
+
+        if os.path.isfile(self._prefix):
+            return [self._prefix]
+        return available_shards(self._prefix)
+
+    def poll(self) -> list:
+        """One scan: seal and return every shard's newly completed lines
+        (possibly none)."""
+        segs = []
+        for src in self._sources():
+            try:
+                size = os.path.getsize(src)
+            except OSError:
+                continue  # raced a rotation; the next poll sees it
+            off = self._offsets.get(src, 0)
+            if size < off:
+                off = self._offsets[src] = 0  # rotated: from the top
+            if size <= off:
+                continue
+            with open(src, "rb") as f:
+                f.seek(off)
+                data = f.read(size - off)
+            nl = data.rfind(b"\n")
+            if nl < 0:
+                continue  # a row still being written: defer it
+            chunk = data[: nl + 1]
+            seg = self._seal(src, off, chunk)
+            self._offsets[src] = off + len(chunk)
+            if seg is not None:
+                segs.append(seg)
+        return segs
+
+    def _seal(self, src: str, off: int, chunk: bytes) -> Optional[IngestSegment]:
+        from xflow_tpu_torch.data.native import native_count_rows
+        from xflow_tpu_torch.telemetry import default_registry
+        from xflow_tpu_torch.tracing import new_id
+
+        os.makedirs(self._dir, exist_ok=True)
+        spool = os.path.join(self._dir, "segment-%06d" % self._seq)
+        seq, self._seq = self._seq, self._seq + 1
+        tmp = spool + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(chunk)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, spool)
+        rows = native_count_rows(spool)
+        if rows == 0:
+            return None  # blank or label-less lines: the offset still advances
+        cache = ""
+        if self._cfg.cache in ("auto", "on"):
+            from xflow_tpu_torch.data.shardcache import cache_path_for, write_shard_cache
+
+            try:
+                write_shard_cache(spool, self._cfg)
+                cache = cache_path_for(spool, self._cfg.cache_dir)
+            except Exception as e:  # noqa: BLE001 — conversion is an
+                # optimization: the segment trains from its text
+                print(f"xflow: warning: convert-on-arrival failed for {spool!r} ({e}); "
+                      "training the segment from text", file=sys.stderr)
+        seg = IngestSegment(
+            trace=new_id(), seq=seq, source=src, offset=off, rows=rows,
+            bytes=len(chunk), path=spool, cache=cache, ingest_ts=round(self._wall(), 6),
+        )
+        reg = default_registry()
+        reg.counter("data.ingest_segments").inc()
+        reg.counter("data.ingest_rows").inc(rows)
+        if self._app is not None:
+            self._app.append({
+                "kind": "ingest", "trace": seg.trace, "seq": seg.seq, "source": seg.source,
+                "offset": seg.offset, "rows": seg.rows, "bytes": seg.bytes,
+                "cache": seg.cache, "ingest_ts": seg.ingest_ts,
+            })
+        return seg
+
+    def segments(self, stop=None) -> Iterator[IngestSegment]:
+        """The blocking segment stream: polls every stream_poll_s, ends on
+        close(), when `stop()` turns true (read at each poll), or after
+        stream_idle_s without new complete rows."""
+        last_new = self._clock()
+        while not self._stop.is_set() and not (stop is not None and stop()):
+            segs = self.poll()
+            if segs:
+                last_new = self._clock()
+                yield from segs
+                continue
+            if self._idle_s and self._clock() - last_new >= self._idle_s:
+                return
+            self._stop.wait(self._poll_s)
+
+    def close(self) -> None:
+        self._stop.set()

@@ -13,17 +13,34 @@ optimizer state, step, data_state) land every `train.checkpoint_every`
 steps and at the end; `maybe_restore` resumes from the newest loadable
 one, and the next `fit` continues the data stream at its stored offset.
 
-Not taken over from the JAX trainer: the metrics JSONL, heartbeat,
-trace window, signal checkpoint, async and replica checkpoints,
-checkpoint pruning, health norms, the stream tail, the pipeline
-profiler and multi-process coordination.
+The online loop (`data.stream=tail`, `_fit_tail`): a `TailFollower`
+spools the growing input into sealed segments inside the same prefetch
+thread, each segment's batches take the same read, plan and step, and
+every `train.publish_every` steps a checkpoint commits with a
+publication sidecar naming the newest ingest trace a step consumed,
+which the server reports as freshness.
+
+Checkpoints: synchronous, or with `train.ckpt_async` a snapshot the fit
+loop hands to one writer thread (`train/checkpoint.py`); either way
+pruned (`keep_checkpoints`) and mirrored into `ckpt_replica_dir`.
+SIGTERM/SIGINT (`ckpt_on_signal`) commit the step reached and end the
+run with `interrupted`. The run's records (`train.metrics_path`):
+`ingest`, `ckpt`, `publish`, `span` (`checkpoint_save`, `publish`),
+`interrupted`, `nonfinite_skipped` and `nonfinite_halt`.
+
+Not taken over from the JAX trainer: the per-step and `final` metrics
+records with `StepTimer`, the heartbeat, the hang watchdog, health
+norms, `eval_every`, the trace window and pipeline profiler, and
+multi-process coordination.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import signal
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -40,8 +57,10 @@ from xflow_tpu_torch.evaluate import (
     sorted_layout_on,
     to_device,
 )
+from xflow_tpu_torch.jsonl import JsonlAppender
 from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.optim import get_optimizer
+from xflow_tpu_torch.tracing import emit_linked_span, emit_op_span, new_id
 from xflow_tpu_torch.train import checkpoint as ckpt
 from xflow_tpu_torch.train.state import TrainState, init_state
 from xflow_tpu_torch.train.step import make_train_step, nonfinite_guard_on
@@ -55,6 +74,14 @@ class NonFiniteHalt(RuntimeError):
     when train.checkpoint_dir is set."""
 
 
+class MetricsLogger(JsonlAppender):
+    """The run's JSONL record stream (`train.metrics_path`, "" = off):
+    lazy open, a flush a record, and a close that a later record
+    reopens in append mode."""
+
+    log = JsonlAppender.append
+
+
 @dataclass
 class TrainResult:
     steps: int = 0
@@ -64,6 +91,7 @@ class TrainResult:
     last_loss: float = float("nan")
     occupancy: dict = field(default_factory=dict)
     bad_steps: int = 0  # non-finite updates discarded by the guard
+    interrupted: int = 0  # the signal number when a signal ended the run
 
     @property
     def examples_per_sec(self) -> float:
@@ -83,6 +111,8 @@ class Trainer:
         self.dedup = HostDedup(cfg)  # row-major batches; validates data.dedup
         self.state: TrainState = init_state(self.model, self.optimizer, cfg, device)
         self.train_step = make_train_step(self.model, self.optimizer, cfg)
+        self.metrics = MetricsLogger(cfg.train.metrics_path)
+        self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = None  # started lazily
         # data-stream position pinned by the next checkpoint's data_state:
         # (epoch, batches consumed within it) of the one shard
         self._epoch_pos = (0, 0)
@@ -91,62 +121,249 @@ class Trainer:
         self._resume_data_state: Optional[dict] = None
 
     # ------------------------------------------------------------------ train
-    def fit(self, train_path: Optional[str] = None) -> TrainResult:
+    def _install_signal_checkpoint(self):
+        """SIGTERM/SIGINT (train.ckpt_on_signal, with a checkpoint dir)
+        set a flag the fit loop reads after each step: it then commits the
+        step reached and returns. The handler only writes the flag and
+        puts the previous handlers back, so a second signal acts as it
+        would have. Main thread only. Returns (flag dict or None, restore)."""
         cfg = self.cfg
+        if not (cfg.train.ckpt_on_signal and cfg.train.checkpoint_dir) or (
+                threading.current_thread() is not threading.main_thread()):
+            return None, lambda: None
+        flag: dict = {}
+        prev: dict = {}
+
+        def handler(signum, frame):
+            flag["sig"] = signum
+            for s, h in prev.items():
+                signal.signal(s, h)
+
+        for s in (signal.SIGTERM, signal.SIGINT):
+            prev[s] = signal.signal(s, handler)
+
+        def restore():
+            if "sig" not in flag:
+                for s, h in prev.items():
+                    signal.signal(s, h)
+
+        return flag, restore
+
+    def fit(self, train_path: Optional[str] = None) -> TrainResult:
+        try:
+            return self._fit(train_path)
+        finally:
+            # the writer drains before the sink closes: its last ckpt
+            # records land, and fit returning means the last save is on disk
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.close()
+                self._ckpt_writer = None
+            self.metrics.close()
+
+    def _fit(self, train_path: Optional[str] = None) -> TrainResult:
+        cfg = self.cfg
+        if cfg.data.stream not in ("off", "tail"):
+            raise ValueError(f"data.stream={cfg.data.stream!r}: expected 'off' or 'tail'")
+        if cfg.data.stream == "tail":
+            return self._fit_tail(train_path)
         path = train_path or shard_path(cfg.data.train_path, 0)
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         res = TrainResult()
         start = time.perf_counter()
         start_epoch, skip = self._consume_resume_position()
-        halt = cfg.train.nonfinite_guard == "halt"
-        max_consec = cfg.train.nonfinite_max_consecutive
+        sig_flag, sig_restore = self._install_signal_checkpoint()
+        stop_sig = 0
         bad_run = 0
-        for epoch in range(start_epoch, cfg.train.epochs):
-            offset = skip if epoch == start_epoch else 0
-            # closing: a halt or an error stops the reader thread at once
-            with contextlib.closing(pipeline.prefetch(
-                    self._feed(path, offset, quarantine=epoch == 0))) as stream:
-                for batch, host in stream:
-                    arrays = to_device(host, self.device)
-                    self.state, m = self.train_step(self.state, arrays)
-                    rows = int(batch.row_mask.sum())
-                    res.steps += 1
-                    res.examples += rows
-                    self._examples_seen += rows
-                    offset += 1
-                    self._epoch_pos = (epoch, offset)
-                    loss = float(m["loss"])
-                    if m.get("update_ok", True):
-                        bad_run = 0
-                        res.last_loss = loss
-                    else:
-                        res.bad_steps += 1
-                        bad_run += 1
-                        print(
-                            f"nonfinite update at step {res.steps} discarded "
-                            f"(total {res.bad_steps}, {bad_run} consecutive)",
-                            file=sys.stderr,
-                        )
-                        if halt or 0 < max_consec <= bad_run:
-                            self._halt(res, bad_run)
-                    if cfg.train.log_every and res.steps % cfg.train.log_every == 0:
-                        print(f"step {self.state.step} epoch {epoch} loss {loss}", file=sys.stderr)
-                    if (
-                        cfg.train.checkpoint_dir
-                        and cfg.train.checkpoint_every
-                        and res.steps % cfg.train.checkpoint_every == 0
-                    ):
-                        self.save_checkpoint()
-            self._epoch_pos = (epoch + 1, 0)
-            res.epochs = epoch + 1
+        try:
+            for epoch in range(start_epoch, cfg.train.epochs):
+                offset = skip if epoch == start_epoch else 0
+                # closing: a halt or an error stops the reader thread at once
+                with contextlib.closing(pipeline.prefetch(
+                        self._feed(path, offset, quarantine=epoch == 0))) as stream:
+                    for batch, host in stream:
+                        offset += 1
+                        bad_run = self._step(res, batch, host, bad_run, (epoch, offset))
+                        if (
+                            cfg.train.checkpoint_dir
+                            and cfg.train.checkpoint_every
+                            and res.steps % cfg.train.checkpoint_every == 0
+                        ):
+                            self.save_checkpoint()
+                        stop_sig = self._signalled(sig_flag)
+                        if stop_sig:
+                            break
+                if stop_sig:  # an interrupted epoch keeps its mid-epoch position
+                    self._interrupted(res, stop_sig)
+                    break
+                self._epoch_pos = (epoch + 1, 0)
+                res.epochs = epoch + 1
+        finally:
+            sig_restore()
         if self.device != "cpu":
             torch.cuda.synchronize(self.device)
         res.seconds = time.perf_counter() - start
         res.occupancy = self._occupancy()
         if cfg.train.checkpoint_dir:
-            self.save_checkpoint()
+            self.save_checkpoint(wait=True)
         return res
+
+    def _step(self, res: TrainResult, batch, host: dict, bad_run: int, pos: tuple) -> int:
+        """One train step on a batch's host arrays, its accounting, the
+        stream position `pos` (epoch, batches) it reaches, and the
+        non-finite guard's verdict (a halt raises after committing the
+        last good state). Returns the run of consecutive bad steps."""
+        cfg = self.cfg
+        arrays = to_device(host, self.device)
+        self.state, m = self.train_step(self.state, arrays)
+        rows = int(batch.row_mask.sum())
+        res.steps += 1
+        res.examples += rows
+        self._examples_seen += rows
+        self._epoch_pos = pos
+        loss = float(m["loss"])
+        if m.get("update_ok", True):
+            bad_run = 0
+            res.last_loss = loss
+        else:
+            res.bad_steps += 1
+            bad_run += 1
+            self.metrics.log({"step": res.steps, "nonfinite_skipped": True,
+                              "bad_steps": res.bad_steps})
+            print(
+                f"nonfinite update at step {res.steps} discarded "
+                f"(total {res.bad_steps}, {bad_run} consecutive)",
+                file=sys.stderr,
+            )
+            if cfg.train.nonfinite_guard == "halt" or (
+                    0 < cfg.train.nonfinite_max_consecutive <= bad_run):
+                self._halt(res, bad_run)
+        if cfg.train.log_every and res.steps % cfg.train.log_every == 0:
+            print(f"step {self.state.step} epoch {pos[0]} loss {loss}", file=sys.stderr)
+        return bad_run
+
+    @staticmethod
+    def _signalled(sig_flag: Optional[dict]) -> int:
+        return int(sig_flag["sig"]) if sig_flag and "sig" in sig_flag else 0
+
+    def _interrupted(self, res: TrainResult, sig: int) -> None:
+        res.interrupted = sig
+        self.metrics.log({"interrupted": sig, "step": res.steps})
+        # on disk before the save: a kill at the end of the grace period
+        # keeps the record
+        self.metrics.close()
+        print(f"signal {sig}: checkpointing at step {res.steps} and exiting", file=sys.stderr)
+
+    # ---------------------------------------------------------- streaming fit
+    def _fit_tail(self, train_path: Optional[str] = None) -> TrainResult:
+        """The online loop (`data.stream=tail`): train on the sealed
+        segments a `TailFollower` spools off the growing input, read and
+        planned in the prefetch thread as any shard is, and every
+        `train.publish_every` steps commit a checkpoint with a
+        publication sidecar stamped with the newest ingest trace whose
+        rows a step consumed (`publish_every` 0: the plain
+        `checkpoint_every` cadence). No epochs: the stream is one
+        open-ended pass, ended by `data.stream_idle_s`, a signal or a
+        halt. The stream's last state commits (and publishes) when the
+        run ends. A resumed run restores the state and follows the input
+        from its top, as the JAX trainer does."""
+        cfg = self.cfg
+        res = TrainResult()
+        start = time.perf_counter()
+        sig_flag, sig_restore = self._install_signal_checkpoint()
+        follower = pipeline.TailFollower(
+            train_path or cfg.data.train_path, cfg.data,
+            appender=self.metrics if self.metrics.enabled else None,
+        )
+        # the newest (trace, ingest_ts, consumed_ts) a completed step
+        # trained on: what the next publication stamps
+        newest: Optional[tuple] = None
+        pub_seq = 0
+        publish_every = cfg.train.publish_every
+        stop_sig = 0
+        bad_run = 0
+        # the follower polls inside the prefetch thread; the flag ends its
+        # wait for input within a poll, so a signal never waits out
+        # stream_idle_s
+        stream = pipeline.prefetch(self._feed_segments(
+            follower, lambda: bool(self._signalled(sig_flag))))
+        try:
+            consumed = -1
+            for seg, batch, host in stream:
+                bad_run = self._step(res, batch, host, bad_run, (0, res.steps + 1))
+                if seg.seq != consumed:
+                    # the first step over a segment: the ingest-to-train edge
+                    # of the freshness
+                    consumed = seg.seq
+                    newest = (seg.trace, seg.ingest_ts, time.time())
+                if cfg.train.checkpoint_dir and publish_every:
+                    if res.steps % publish_every == 0:
+                        # the seq is spent only when the publication landed
+                        # (an async skip retries with the same)
+                        if self._publish_checkpoint(newest, pub_seq + 1):
+                            pub_seq += 1
+                elif (cfg.train.checkpoint_dir and cfg.train.checkpoint_every
+                      and res.steps % cfg.train.checkpoint_every == 0):
+                    self.save_checkpoint()
+                stop_sig = self._signalled(sig_flag)
+                if stop_sig:
+                    break
+        finally:
+            follower.close()  # before the stream: its reader thread may be polling
+            stream.close()
+            sig_restore()
+        stop_sig = stop_sig or self._signalled(sig_flag)
+        if stop_sig:
+            self._interrupted(res, stop_sig)
+        if self.device != "cpu":
+            torch.cuda.synchronize(self.device)
+        res.seconds = time.perf_counter() - start
+        res.epochs = 1 if res.steps else 0
+        res.occupancy = self._occupancy()
+        if cfg.train.checkpoint_dir and res.steps:
+            # the stream's last rows become servable even when the run
+            # ends mid-cadence; wait=True drains any save in flight first
+            if publish_every and newest is not None:
+                self._publish_checkpoint(newest, pub_seq + 1, wait=True)
+            else:
+                self.save_checkpoint(wait=True)
+        return res
+
+    def _feed_segments(self, follower, stop):
+        """(segment, batch, host arrays) of every sealed segment, in the
+        prefetch thread; ends with the follower's stream."""
+        for seg in follower.segments(stop):
+            for batch, host in self._feed(seg.path, 0, quarantine=True):
+                yield seg, batch, host
+
+    def _publish_checkpoint(self, newest: tuple, seq: int, wait: bool = False) -> bool:
+        """One publication: a committed save with the publication.json
+        sidecar (written before COMMITTED, so the server's watcher never
+        sees the step without it) binding this step to the newest ingest
+        trace it trained on, one kind="publish" record and one `publish`
+        span carrying that trace id. An async save that is skipped
+        publishes nothing. Returns whether the publication landed."""
+        trace, ingest_ts, consumed_ts = newest
+        t0_wall, t0 = time.time(), time.perf_counter()
+        step = int(self.state.step)
+        pub = {
+            "step": step,
+            "seq": int(seq),
+            "trace": trace,
+            "span": new_id(),
+            "ingest_ts": round(float(ingest_ts), 6),
+            "consumed_ts": round(float(consumed_ts), 6),
+            "published_ts": round(t0_wall, 6),
+        }
+        if not self.save_checkpoint(publication=pub, wait=wait):
+            return False
+        if self.metrics.enabled:
+            self.metrics.log({"kind": "publish", "step": step, "seq": int(seq), "trace": trace,
+                              "ingest_ts": pub["ingest_ts"],
+                              "published_ts": pub["published_ts"]})
+            emit_linked_span(self.metrics, "publish", t0_wall, time.perf_counter() - t0,
+                             trace=trace, span=pub["span"], step=step, seq=int(seq))
+        return True
 
     def _feed(self, path: str, skip: int, quarantine: bool):
         """(batch, host arrays) of one pass over `path` after its first
@@ -159,10 +376,13 @@ class Trainer:
 
     def _halt(self, res: TrainResult, bad_run: int) -> None:
         """Abort the run on the guard's verdict; the bad updates were
-        discarded, so the live state is the last good one: commit it."""
+        discarded, so the live state is the last good one: commit it,
+        durably, before raising."""
         cfg = self.cfg
+        self.metrics.log({"nonfinite_halt": True, "step": res.steps,
+                          "bad_steps": res.bad_steps})
         if cfg.train.checkpoint_dir:
-            self.save_checkpoint()
+            self.save_checkpoint(wait=True)
         raise NonFiniteHalt(
             f"non-finite guard aborted at step {self.state.step}: "
             f"{res.bad_steps} bad step(s), {bad_run} consecutive "
@@ -206,7 +426,8 @@ class Trainer:
             "completed": bool(epoch >= self.cfg.train.epochs),
             "examples": int(self._examples_base + self._examples_seen),
             "examples_per_rank": [int(self._examples_seen)],
-            "shard_batches": {"0": int(batches)},
+            # a tail run's position is its segments, not a shard offset
+            "shard_batches": {"0": int(batches if self.cfg.data.stream != "tail" else 0)},
             "num_shards": 1,
             "world_size": 1,
             "quarantined_rows": int(pipeline.COUNTERS["quarantined_rows"]),
@@ -241,13 +462,77 @@ class Trainer:
             print(f"resuming data stream at epoch {epoch}, shard offset {skip}", file=sys.stderr)
         return epoch, skip
 
-    def save_checkpoint(self) -> str:
-        """Commit the live state with its data_state (synchronous)."""
+    def _ckpt_async_on(self) -> bool:
+        """train.ckpt_async (the port trains in one process, so the JAX
+        package's multi-process gate has nothing to fall back from)."""
+        return bool(self.cfg.train.ckpt_async)
+
+    def _ensure_ckpt_writer(self) -> ckpt.AsyncCheckpointWriter:
+        if self._ckpt_writer is None:
+            self._ckpt_writer = ckpt.AsyncCheckpointWriter(
+                sink=self.metrics, ckpt_spans=self.cfg.train.ckpt_spans)
+        return self._ckpt_writer
+
+    def _state_nbytes(self) -> int:
+        leaves = list(self.state.tables.values()) + [
+            v for st in self.state.opt_state.values() for v in st.values()]
+        return int(sum(t.numel() * t.element_size() for t in leaves))
+
+    def _ckpt_span(self, name: str, t0_wall: float, t0: float, step: int) -> None:
+        """One kind="span" record a synchronous save (train.ckpt_spans)."""
+        if self.cfg.train.ckpt_spans and self.metrics.enabled:
+            emit_op_span(self.metrics, name, t0_wall, time.perf_counter() - t0,
+                         step=int(step), bytes=self._state_nbytes())
+
+    def save_checkpoint(self, publication: Optional[dict] = None, wait: bool = False) -> bool:
+        """Commit the live state with its data_state (and `publication`).
+        Synchronous by default: write, prune, mirror into the replica
+        tier, prune it; a mirror failure is logged and the primary commit
+        stands. With train.ckpt_async the fit loop only snapshots and
+        submits (`SaveSnapshot`), the data_state captured here; the busy
+        check comes first, since the snapshot's pinned buffers belong to
+        a save in flight. Returns False only when an async save was
+        skipped; `wait=True` drains first and returns with the save on
+        disk (the halt, signal and end-of-run saves)."""
         self._check_format()
-        return ckpt.save_state(
-            self.cfg.train.checkpoint_dir, self.state.tables, self.state.opt_state,
-            self.state.step, data_state=self._data_state_record(),
-        )
+        tc = self.cfg.train
+        t0_wall, t0 = time.time(), time.perf_counter()
+        step = int(self.state.step)
+        data_state = self._data_state_record()
+        if self._ckpt_async_on():
+            w = self._ensure_ckpt_writer()
+            if wait:
+                w.drain()
+            if w.busy():
+                w.skip(step, self._state_nbytes(), t0_wall)
+                return False
+            # the queue instant of an accepted save: after the busy check,
+            # so it never precedes the previous save's last record
+            t0_wall = time.time()
+            snap = ckpt.SaveSnapshot(self.state.tables, self.state.opt_state, step, w.staging)
+            ok = w.submit(ckpt.SaveJob(
+                snapshot=snap, ckpt_dir=tc.checkpoint_dir, replica_dir=tc.ckpt_replica_dir,
+                keep=tc.keep_checkpoints, keep_replica=tc.keep_replica_checkpoints,
+                data_state=data_state, publication=publication, queued_ts=t0_wall,
+            ))
+            if wait:
+                w.drain()
+            return ok
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain()  # never interleave with an async write
+        ckpt.save_state(tc.checkpoint_dir, self.state.tables, self.state.opt_state, step,
+                        data_state=data_state, publication=publication)
+        self._ckpt_span("checkpoint_save", t0_wall, t0, step)
+        ckpt.prune_checkpoints(tc.checkpoint_dir, tc.keep_checkpoints)
+        if tc.ckpt_replica_dir:
+            try:
+                ckpt.mirror_step(tc.checkpoint_dir, tc.ckpt_replica_dir, step)
+                ckpt.prune_checkpoints(tc.ckpt_replica_dir, tc.keep_replica_checkpoints)
+            except Exception as e:  # noqa: BLE001 — never harms the primary
+                print(f"# checkpoint: replica mirror of step {step} failed "
+                      f"({type(e).__name__}: {e}); the primary commit stands",
+                      file=sys.stderr)
+        return True
 
     def maybe_restore(self) -> bool:
         """Restore the newest loadable checkpoint across train.checkpoint_dir
