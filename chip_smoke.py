@@ -218,12 +218,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    FFM's synchronous save; (e) `train --device cuda` in tail mode as a
    subprocess, SIGTERM after its second publication: exit 0, one
    `interrupted` record, its newest committed step the step it reached,
-   and a resumed `train` restoring it.
+   and a resumed `train` restoring it;
+17. the trainer's observability on Zipf data at FM width (`run_observe`):
+   the port's `gen-data --bulk --zipf-alpha 1.05` writes a 20-batch train
+   shard and a 2-batch test shard sharing the planted truth (rate and the
+   first batch's longest slot run printed); `train --device cuda` (the
+   CLI's main in a subprocess, in a work dir) runs 2 epochs with
+   `log_every=1`, health norms, the pipeline profiler, a heartbeat, a 30
+   s hang watchdog, the trace window over steps 5-7, `eval_every=1` and
+   the test shard. It fails unless every record has the JAX trainer's
+   keys for these flags (less its roofline gauges), the window steps run
+   1..40 with the last loss the summary's, both `eval_auc` exceed 0.5,
+   `pred_0_0.txt` holds the test shard's rows, the heartbeat has start,
+   2 evals, a beat a step and final, the watchdog never dumped, the trace
+   holds #1-#3 by kernel name, and the launches are exact (#1 and #2 40 +
+   6 eval batches, #3 40, #4-#6 0). It prints the window split, the
+   pipeline stages and verdict, and #1-#3's mean trace time on Zipf
+   batches beside their uniform times; then 1 epoch with the guard off
+   and 1 with the guard and every record off, their examples/s and split.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
 `widths` hold its entry at each of ch 24, 32, 104, 128 and 136; #1, #3
-and #4 carry their FFM figures and launches under `ffm`), and
+and #4 carry their FFM figures and launches under `ffm`, #1-#3 their
+phase-17 trace time on Zipf batches and launches under `zipf`), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -3182,6 +3200,285 @@ def drill(cfg, root: str, rate_path: str) -> None:
           f"step {newest[0]}; the resumed train restored it", flush=True)
 
 
+OBS_ALPHA = 1.05  # bench.py's Zipf draw (bench.py:205-216)
+OBS_TRAIN_ROWS, OBS_TEST_ROWS = RATE_BATCHES * BATCH, 2 * BATCH
+OBS_TRACE_START, OBS_TRACE_STEPS = 5, 3
+OBS_STAMP = {"ts", "rank", "run_id", "gen", "world"}
+OBS_HBM = {"hbm_bytes_in_use", "hbm_peak_bytes", "hbm_bytes_limit"}
+OBS_HEALTH = {"grad_norm", "grad_norm_max", "update_norm", "param_norm", "loss_ema",
+              "slots_touched", "table_occupancy", "est_collision_rate"}
+OBS_WINDOW = {"steps_per_s", "rows_per_s", "step_time_p50_ms", "step_time_p99_ms",
+              "data_wait_ms", "dispatch_ms", "device_ms"}
+# the key sets of the JAX trainer's records under phase 17's flags, less
+# its roofline gauges (tests/test_torch_observe.py holds the port's key
+# sets equal to the JAX trainer's on the CPU, where neither has the HBM
+# gauges; a TPU's allocator reports them, as the card's does)
+OBS_KEYS = {
+    "window": OBS_STAMP | {"step", "epoch", "loss", "examples", "elapsed_s", "counters"}
+    | OBS_WINDOW | OBS_HBM | OBS_HEALTH,
+    "eval": OBS_STAMP | {"step", "epoch", "eval_auc", "eval_logloss"},
+    "final": OBS_STAMP | {"final", "steps", "examples", "elapsed_s", "occupancy", "counters"}
+    | OBS_HBM | OBS_HEALTH,
+}
+OBS_KERNEL_NAMES = {"gather_sorted": "gather_flat", "row_sums": "row_sums_kernel",
+                    "scatter_ftrl": "scatter_ftrl_kernel"}
+OBS_GEN_TIMEOUT_S = 90  # both gen-data writers (20.2 s on the H100 host)
+
+_CLI_WITH_LAUNCHES = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv.pop(1))\n"
+    "from xflow_tpu_torch.__main__ import main\n"
+    "from xflow_tpu_torch.ops import sorted_table as st\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('# launches ' + json.dumps(st.LAUNCHES), file=sys.stderr)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def port_cli(cwd: str, *argv: str, timeout: float = 300.0):
+    """`python -m xflow_tpu_torch`'s main in a subprocess run in `cwd`,
+    printing the kernels' launch counts on its stderr at the end.
+    Returns (stdout, stderr, launches); fails on a non-zero exit."""
+    r = subprocess.run([sys.executable, "-c", _CLI_WITH_LAUNCHES, HERE, *argv], cwd=cwd,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        fail(f"{' '.join(argv[:3])} exited {r.returncode}: {r.stderr[-3000:]}")
+    tail = [ln for ln in r.stderr.splitlines() if ln.startswith("# launches ")]
+    return r.stdout, r.stderr, json.loads(tail[-1][len("# launches "):])
+
+
+def obs_train_argv(epochs: int, *extra: str, prefix: str = "train") -> list:
+    return ["train", "--train", prefix, "--model", "fm", "--epochs", str(epochs),
+            "--batch-size", str(BATCH), "--log2-slots", str(LOG2_SLOTS), "--device", DEVICE,
+            "--set", f"model.v_dim={V_DIM}", "--set", f"model.num_fields={NUM_FIELDS}",
+            "--set", f"data.max_nnz={NUM_FIELDS}", *extra]
+
+
+def obs_flags(run: str) -> list:
+    """Every observability flag on, the records under `run/`."""
+    out = []
+    for k, v in (("log_every", 1), ("health_metrics", "norms"), ("pipeline_metrics", "true"),
+                 ("metrics_path", f"{run}/metrics_rank0.jsonl"),
+                 ("heartbeat_path", f"{run}/heartbeat_rank0.jsonl"), ("heartbeat_every", 1),
+                 ("hang_timeout_s", 30)):
+        out += ["--set", f"train.{k}={v}"]
+    return out
+
+
+SPLIT_KEYS = ("data_wait_ms", "dispatch_ms", "device_ms", "rows_per_s")
+
+
+def window_split(recs: list) -> str:
+    """The window records' split and rate: median / mean over the steps
+    (the mean carries the first step, the trace window's start and stop
+    and the epoch's eval), then each step's data wait, dispatch and
+    device ms."""
+    import numpy as np
+
+    wins = [r for r in recs if "device_ms" in r and "loss" in r]
+    out = ", ".join(f"{k} {np.median([r[k] for r in wins]):.3f} / "
+                    f"{np.mean([r[k] for r in wins]):.3f}" for k in SPLIT_KEYS)
+    for k in SPLIT_KEYS[:3]:
+        out += f"; {k} a step {[round(r[k], 2) for r in wins]}"
+    return out
+
+
+def trace_kernels(prof_dir: str) -> dict:
+    """{launch key: [device us of each event]} of #1-#3 in the trace
+    window's Chrome trace, by kernel name."""
+    (name,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    out = {k: [] for k in OBS_KERNEL_NAMES}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k, kname in OBS_KERNEL_NAMES.items():
+            if kname in e.get("name", ""):
+                out[k].append(float(e["dur"]))
+    return out
+
+
+def run_observe(work: str, rate_path: str, card: str) -> dict:
+    """Phase 17, the trainer's observability on Zipf data at FM width:
+    the port's `gen-data` writes the shards, `train --device cuda` runs 2
+    epochs with every observability flag on, 1 epoch of the uniform rate
+    shard under the same trace window, then 1 epoch with the guard off
+    and 1 with the guard and observability off. Returns {launch key:
+    {"trace_ms", "uniform_trace_ms", "launches"}} for #1-#3."""
+    import numpy as np
+
+    from xflow_tpu_torch.config import Config, override
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.telemetry import HealthMonitor, Registry, pipeline_verdict
+
+    root = os.path.join(work, "observe")
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    # (1) the data, through the CLI: train and test share the planted truth
+    gens = {}
+    for name, rows, seed in (("train", OBS_TRAIN_ROWS, SEED + 7), ("test", OBS_TEST_ROWS,
+                                                                   SEED + 8)):
+        argv = ["gen-data", name, "--bulk", "--zipf-alpha", str(OBS_ALPHA), "--ids-per-field",
+                str(IDS_PER_FIELD), "--fields", str(NUM_FIELDS), "--shards", "1", "--rows",
+                str(rows), "--seed", str(seed), "--truth-seed", str(SEED + 7)]
+        # each writer's output goes to files, so a full pipe cannot block it
+        with open(os.path.join(root, f"gen-{name}.out"), "w") as fo, \
+                open(os.path.join(root, f"gen-{name}.err"), "w") as fe:
+            gens[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-c", _CLI_WITH_LAUNCHES, HERE, *argv], cwd=root,
+                stdout=fo, stderr=fe))
+    done = {}
+    deadline = time.perf_counter() + OBS_GEN_TIMEOUT_S
+    while len(done) < len(gens):  # each writer's own end (both run at once)
+        for name, (t0, proc) in gens.items():
+            if name not in done and proc.poll() is not None:
+                done[name] = time.perf_counter() - t0
+        if len(done) < len(gens) and time.perf_counter() > deadline:
+            for _, proc in gens.values():
+                proc.kill()
+                proc.wait()
+            fail(f"gen-data: {sorted(set(gens) - set(done))} still writing after "
+                 f"{OBS_GEN_TIMEOUT_S} s")
+        time.sleep(0.05)
+    for name, (t0, proc) in gens.items():
+        out = open(os.path.join(root, f"gen-{name}.out")).read()
+        if proc.returncode != 0 or out.split() != [f"{name}-00000"]:
+            err = open(os.path.join(root, f"gen-{name}.err")).read()
+            fail(f"gen-data {name} exited {proc.returncode}: {out} {err[-2000:]}")
+        path = os.path.join(root, f"{name}-00000")
+        dt = done[name]
+        mb = os.path.getsize(path) / 1e6
+        print(f"# observe: gen-data {name} (Zipf {OBS_ALPHA}, bulk): "
+              f"{sum(1 for _ in open(path))} rows, {mb:.1f} MB in {dt:.1f} s "
+              f"({mb / dt:.1f} MB/s, written beside the other)", flush=True)
+    dcfg = override(Config(), **{"data.batch_size": BATCH, "data.max_nnz": NUM_FIELDS,
+                                 "data.log2_slots": LOG2_SLOTS}).data
+    it = batch_iterator(os.path.join(root, "train-00000"), dcfg)
+    first = next(it)
+    it.close()
+    occ = first.slots[first.mask > 0]
+    _, counts = np.unique(occ, return_counts=True)
+    top = [int(np.bincount(first.slots[:, f]).max()) for f in range(NUM_FIELDS)]
+    mon = HealthMonitor(mode="norms", registry=Registry(), num_slots=1 << LOG2_SLOTS)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mon.observe_batch(first.slots, first.mask)
+    observe_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"# observe: the first batch's plan: {occ.size} occurrences over {counts.size} slots, "
+          f"the longest slot run {int(counts.max())} occurrences; each field's top id in "
+          f"{min(top)}-{max(top)} of {BATCH} rows; HealthMonitor.observe_batch on it "
+          f"{observe_ms:.2f} ms (host, the prefetch thread's)", flush=True)
+
+    # (2) 2 epochs with every flag on
+    t0 = time.perf_counter()
+    out, err, launches = port_cli(root, *obs_train_argv(
+        2, "--test", "test", *obs_flags("run"), "--set", "train.profile_dir=prof",
+        "--set", f"train.trace_start_step={OBS_TRACE_START}",
+        "--set", f"train.trace_num_steps={OBS_TRACE_STEPS}", "--set", "train.eval_every=1"))
+    wall = time.perf_counter() - t0
+    summary = json.loads(out.strip().splitlines()[-1])
+    steps = 2 * RATE_BATCHES
+    if (summary["steps"], summary["epochs"], summary["bad_steps"]) != (steps, 2, 0):
+        fail(f"observe: train summary {summary}")
+    recs = read_jsonl(os.path.join(root, "run", "metrics_rank0.jsonl"))
+    kinds = {"window": [r for r in recs if "loss" in r], "eval": [r for r in recs if
+                                                                   "eval_auc" in r],
+             "final": [r for r in recs if r.get("final")],
+             "pipeline": [r for r in recs if r.get("kind") == "pipeline"]}
+    if len(recs) != sum(len(v) for v in kinds.values()):
+        fail(f"observe: {len(recs)} records, of which "
+             f"{ {k: len(v) for k, v in kinds.items()} } of the expected kinds")
+    for kind, want in OBS_KEYS.items():
+        for r in kinds[kind]:
+            if set(r) != want:
+                fail(f"observe: a {kind} record's keys {sorted(set(r) ^ want)} differ from "
+                     "the JAX trainer's")
+    pkeys = OBS_STAMP | {"kind", "step", "wall_s", "batches", "rows", "queue_depth",
+                         "queue_cap"} | {f"{s}_s" for s in (
+        "read", "parse", "hash", "batch", "pad", "cache_read", "plan", "producer_wait",
+        "queue_wait", "transfer", "dispatch", "device")}
+    if not kinds["pipeline"] or any(set(r) != pkeys for r in kinds["pipeline"]):
+        fail(f"observe: pipeline records {kinds['pipeline'][:1]}")
+    wsteps = [r["step"] for r in kinds["window"]]
+    if wsteps != list(range(1, steps + 1)) or len(kinds["final"]) != 1:
+        fail(f"observe: window steps {wsteps}, {len(kinds['final'])} final records")
+    if kinds["window"][-1]["loss"] != summary["last_loss"]:
+        fail(f"observe: the last record's loss {kinds['window'][-1]['loss']} is not the "
+             f"summary's {summary['last_loss']}")
+    aucs = [r["eval_auc"] for r in kinds["eval"]]
+    if len(aucs) != 2 or not all(a is not None and a > 0.5 for a in aucs):
+        fail(f"observe: eval_auc records {aucs}: expected two above 0.5")
+    with open(os.path.join(root, "pred_0_0.txt")) as f:
+        n_pred = sum(1 for _ in f)
+    if n_pred != OBS_TEST_ROWS:
+        fail(f"observe: pred_0_0.txt holds {n_pred} rows, expected {OBS_TEST_ROWS}")
+    beats = read_jsonl(os.path.join(root, "run", "heartbeat_rank0.jsonl"))
+    events = [b.get("event") for b in beats]
+    if (events[0] != "start" or events[-1] != "final" or events.count("eval") != 2
+            or events.count(None) < steps):
+        fail(f"observe: heartbeat events {events}")
+    if "hang watchdog" in err:
+        fail("observe: the hang watchdog dumped the stacks")
+    want = {"gather_sorted": steps + 2 * 2 + 2, "row_sums": steps + 2 * 2 + 2,
+            "scatter_ftrl": steps, "scatter_sorted": 0, "gather_sorted_multi": 0,
+            "scatter_sorted_multi": 0}
+    if launches != want:
+        fail(f"observe: launches {launches}, expected {want}")
+    traced = trace_kernels(os.path.join(root, "prof"))
+    if not all(traced.values()):
+        fail(f"observe: the trace window holds no {[k for k, v in traced.items() if not v]}")
+    print(f"# observe: train 2 epochs x {RATE_BATCHES} steps, every flag on, on {card}: "
+          f"{wall:.1f} s wall, {summary['examples_per_sec']} examples/s; auc {aucs} then "
+          f"{summary['auc']}; window split (median / mean) {window_split(recs)}", flush=True)
+    prs = kinds["pipeline"]
+    pwall = sum(r["wall_s"] for r in prs)
+    stages = {k[:-2]: sum(r[k] for r in prs) for k in prs[0]
+              if k.endswith("_s") and k != "wall_s"}
+    # a window's shares, then their median: robust to the few windows
+    # that hold the first step, the trace's start and stop or an eval
+    shares = {k: float(np.median([r[f"{k}_s"] / r["wall_s"] for r in prs])) for k in stages}
+    print(f"# observe: pipeline stages over all {len(prs)} windows ({pwall:.2f} s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items() if v) + f"; verdict: "
+        f"{pipeline_verdict(stages, pwall)}; median shares of a window's wall: " + ", ".join(
+        f"{k} {v:.1%}" for k, v in shares.items() if v) + f"; verdict on them: "
+        f"{pipeline_verdict(shares, 1.0)}", flush=True)
+    # the same trace window over the uniform rate shard, for #1-#3's
+    # uniform times by the same clock
+    os.symlink(rate_path, os.path.join(root, "uniform-00000"))
+    port_cli(root, *obs_train_argv(
+        1, "--set", "train.log_every=0", "--set", "train.profile_dir=uprof",
+        "--set", f"train.trace_start_step={OBS_TRACE_START}",
+        "--set", f"train.trace_num_steps={OBS_TRACE_STEPS}", prefix="uniform"))
+    uniform = trace_kernels(os.path.join(root, "uprof"))
+    zipf = {}
+    for k, durs in traced.items():
+        ms, ums = float(np.mean(durs)) / 1e3, float(np.mean(uniform[k])) / 1e3
+        zipf[k] = {"trace_ms": round(ms, 4), "uniform_trace_ms": round(ums, 4),
+                   "launches": launches[k]}
+        print(f"# observe: {k} on Zipf batches (trace, {len(durs)} launches in steps "
+              f"{OBS_TRACE_START}-{OBS_TRACE_START + OBS_TRACE_STEPS - 1}): {ms:.4f} ms; on "
+              f"the uniform rate shard by the same trace {ums:.4f} ms ({len(uniform[k])} "
+              f"launches)", flush=True)
+
+    # (3) 1 epoch, guard off; then guard and observability off
+    for what, run in (("guard off, observability on", "run_noguard"),
+                      ("guard off, observability off", "")):
+        extra = obs_flags(run) if run else ["--set", "train.log_every=0"]
+        out, _, rl = port_cli(root, *obs_train_argv(1, "--set", "train.nonfinite_guard=off",
+                                                    *extra))
+        s = json.loads(out.strip().splitlines()[-1])
+        if s["steps"] != RATE_BATCHES or rl["scatter_ftrl"] != RATE_BATCHES:
+            fail(f"observe: {what}: summary {s}, launches {rl}")
+        split = (window_split(read_jsonl(os.path.join(root, run, "metrics_rank0.jsonl")))
+                 if run else "no records")
+        print(f"# observe: train 1 epoch, {what}: {s['examples_per_sec']} examples/s; "
+              f"window split (median / mean) {split}", flush=True)
+    print(f"# observe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return zipf
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
@@ -3239,6 +3536,7 @@ def main() -> int:
         run_serve(cfg, work, path, card)
         run_fleet(cfg, work, path, card)
         run_online(cfg, work, path, rate_path, card)
+        zipf = run_observe(work, rate_path, card)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")
@@ -3253,6 +3551,8 @@ def main() -> int:
         if k["name"] == "row_sums":
             k["widths"].update({32: mvm_product["row_sums"], **wide})
         k.update(hot.get(k["name"], {}))
+        if k["name"] in zipf:
+            k["zipf"] = zipf[k["name"]]
     kern += lab_kern
     for k in kern:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]

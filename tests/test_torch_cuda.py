@@ -294,8 +294,8 @@ def test_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     assert (rc.steps, rc.examples, rc.bad_steps) == (rp.steps, rp.examples, rp.bad_steps)
     assert abs(rc.last_loss - rp.last_loss) <= LOSS_RTOL * abs(rp.last_loss)
     assert _rel(card.state.tables["wv"], cpu.state.tables["wv"], FTRL_FLOOR) <= FTRL_RTOL
-    auc_c, ll_c = card.evaluate(path)
-    auc_p, ll_p = cpu.evaluate(path)
+    auc_c, ll_c = card.evaluate(path, dump=False)
+    auc_p, ll_p = cpu.evaluate(path, dump=False)
     assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)
 
 
@@ -456,8 +456,8 @@ def test_mvm_fit_on_the_card_matches_the_cpu(dev, tmp_path):
     assert (rc.steps, rc.examples, rc.bad_steps) == (rp.steps, rp.examples, rp.bad_steps)
     assert abs(rc.last_loss - rp.last_loss) <= LOSS_RTOL * abs(rp.last_loss)
     assert _rel(card.state.tables["v"], cpu.state.tables["v"], FTRL_FLOOR) <= FTRL_RTOL
-    auc_c, ll_c = card.evaluate(path)
-    auc_p, ll_p = cpu.evaluate(path)
+    auc_c, ll_c = card.evaluate(path, dump=False)
+    auc_p, ll_p = cpu.evaluate(path, dump=False)
     assert abs(auc_c - auc_p) <= 1e-3 and abs(ll_c - ll_p) <= 1e-5 * abs(ll_p)
 
 

@@ -451,7 +451,7 @@ def test_fit_matches_jax_step_for_step(fit_case):
     for name in ("wv", "n", "z"):
         np.testing.assert_allclose(got[name], want[name], rtol=STATE_RTOL, atol=STATE_ATOL,
                                    err_msg=name)
-    auc, ll = fit_case["tt"].evaluate(fit_case["path"])
+    auc, ll = fit_case["tt"].evaluate(fit_case["path"], dump=False)
     jauc, jll = fit_case["jeval"]
     assert abs(auc - jauc) <= 1e-3 and abs(ll - jll) <= 1e-5 * abs(jll)
 

@@ -338,7 +338,7 @@ def test_fit_matches_jax_step_for_step(fit_case):
     for name in ("v", "n", "z"):
         _close(got[name], want[name])
         _close_scaled(got[name], want[name])
-    auc, ll = fit_case["tt"].evaluate(fit_case["path"])
+    auc, ll = fit_case["tt"].evaluate(fit_case["path"], dump=False)
     jauc, jll = fit_case["jeval"]
     assert abs(auc - jauc) <= 1e-3
     assert abs(ll - jll) <= 1e-5 * abs(jll)

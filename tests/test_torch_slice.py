@@ -178,10 +178,10 @@ _NO_JAX = (
 )
 
 
-def _run_without_jax(code, *args):
+def _run_without_jax(code, *args, cwd=REPO_ROOT):
     return subprocess.run(
-        [sys.executable, "-c", _NO_JAX + code, *args],
-        cwd=REPO_ROOT, capture_output=True, text=True, timeout=240,
+        [sys.executable, "-c", _NO_JAX + f"sys.path.insert(0, {REPO_ROOT!r})\n" + code, *args],
+        cwd=cwd, capture_output=True, text=True, timeout=240,
     )
 
 
@@ -204,6 +204,7 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.serve.fleet, xflow_tpu_torch.launch.supervise\n"
         "import xflow_tpu_torch.launch.local, xflow_tpu_torch.testing.faults\n"
         "import xflow_tpu_torch.serve.lifecycle, xflow_tpu_torch.train.checkpoint\n"
+        "import xflow_tpu_torch.tools.collisions\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -235,12 +236,14 @@ def test_cli_train_without_jax(slice_case, tmp_path):
         "--batch-size", str(B), "--log2-slots", str(LOG2_S),
         "--checkpoint-dir", str(tmp_path / "ck"), "--device", "cpu",
         "--set", f"model.v_dim={V}", "--set", f"model.num_fields={NF}",
-        "--set", f"data.max_nnz={NNZ}",
+        "--set", f"data.max_nnz={NNZ}", cwd=tmp_path,
     )
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert {"steps", "epochs", "examples", "seconds", "examples_per_sec", "last_loss",
             "bad_steps", "auc", "logloss"} <= out.keys()
+    # the prediction dump lands in the working directory, a row an example
+    assert len(open(tmp_path / "pred_0_0.txt").read().splitlines()) == ROWS
     assert (out["steps"], out["epochs"], out["examples"], out["bad_steps"]) == (8, 2, 2 * ROWS, 0)
     assert out["device"] == "cpu" and 0.0 <= out["auc"] <= 1.0
     assert tckpt.committed_steps(str(tmp_path / "ck")) == [8]
@@ -271,6 +274,52 @@ def test_cli_tail_train_without_jax(slice_case, tmp_path):
     assert tckpt.read_publication(str(ck), 4)["step"] == 4
     kinds = {json.loads(line).get("kind") for line in open(metrics)}
     assert {"ingest", "ckpt", "publish", "span"} <= kinds
+
+
+def test_cli_data_tools_and_observed_train_without_jax(tmp_path):
+    """gen-data (Zipf, bulk, FFM truth), train with every observability
+    flag on and a test shard, export and collisions, with jax and
+    xflow_tpu blocked, from a working directory outside the repo: the
+    records, the heartbeat, the trace and pred_0_0.txt land there."""
+    main = "from xflow_tpu_torch.__main__ import main\nsys.exit(main(sys.argv[1:]))\n"
+
+    def run(*argv):
+        r = _run_without_jax(main, *argv, cwd=tmp_path)
+        assert r.returncode == 0, r.stderr
+        return r.stdout
+
+    common = ("--fields", str(NF), "--ids-per-field", "40", "--zipf-alpha", "1.05")
+    assert run("gen-data", "train", "--bulk", "--shards", "1", "--rows", "320",
+               "--truth-seed", "3", *common).split() == ["train-00000"]
+    assert run("gen-data", "test", "--shards", "1", "--rows", "128", "--seed", "1",
+               "--truth-seed", "3", *common).split() == ["test-00000"]
+    assert run("gen-data", "ffm", "--shards", "2", "--rows", "10", "--truth", "ffm").split() == [
+        "ffm-00000", "ffm-00001"]
+    out = run("train", "--train", "train", "--test", "test", "--model", "fm", "--epochs", "2",
+              "--batch-size", str(B), "--log2-slots", str(LOG2_S), "--checkpoint-dir", "ck",
+              "--device", "cpu", "--set", f"model.v_dim={V}", "--set", f"model.num_fields={NF}",
+              "--set", f"data.max_nnz={NNZ}", "--set", "train.log_every=1",
+              "--set", "train.metrics_path=run/metrics_rank0.jsonl",
+              "--set", "train.heartbeat_path=run/heartbeat_rank0.jsonl",
+              "--set", "train.heartbeat_every=1", "--set", "train.health_metrics=norms",
+              "--set", "train.pipeline_metrics=true", "--set", "train.hang_timeout_s=30",
+              "--set", "train.eval_every=1", "--set", "train.profile_dir=prof",
+              "--set", "train.trace_start_step=2", "--set", "train.trace_num_steps=2")
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert (summary["steps"], summary["epochs"]) == (10, 2) and 0.0 <= summary["auc"] <= 1.0
+    assert len(open(tmp_path / "pred_0_0.txt").read().splitlines()) == 128
+    recs = [json.loads(line) for line in open(tmp_path / "run" / "metrics_rank0.jsonl")]
+    assert [r["step"] for r in recs if "loss" in r] == list(range(1, 11))
+    assert sum("eval_auc" in r for r in recs) == 2 and sum(bool(r.get("final")) for r in recs) == 1
+    assert any(r.get("kind") == "pipeline" for r in recs)
+    beats = [json.loads(line) for line in open(tmp_path / "run" / "heartbeat_rank0.jsonl")]
+    assert beats[0]["event"] == "start" and beats[-1]["event"] == "final"
+    assert len(os.listdir(tmp_path / "prof")) == 1
+    for table in ("w", "v", "wv"):
+        ex = json.loads(run("export", "ck", "--table", table, "--out", f"{table}.tsv"))
+        assert ex["step"] == 10 and ex["table"] == table and ex["nonzero"] > 0
+    col = json.loads(run("collisions", "train-00000", "test-00000", "--log2-slots", "10"))
+    assert col["distinct_tokens"] > 0 and col["log2_slots"] == 10
 
 
 @pytest.mark.parametrize("exclusive", ["auto", "off"])

@@ -340,7 +340,10 @@ def test_stream_off_writes_no_ingest_or_publish_record(tmp_path):
         "train.metrics_path": str(metrics)})), device="cpu")
     assert t.fit().steps == 4
     recs = [json.loads(line) for line in open(metrics)]
-    assert {r.get("kind") for r in recs} == {"span"}
-    assert {r["name"] for r in recs} == {"checkpoint_save"}
+    # the run's one record without a kind is its final record (log_every
+    # 100 stages no window over 4 steps)
+    assert {r.get("kind") for r in recs} == {"span", None}
+    assert [r["final"] for r in recs if "kind" not in r] == [True]
+    assert {r["name"] for r in recs if "kind" in r} == {"checkpoint_save"}
     assert tckpt.committed_steps(str(tmp_path / "ck")) == [4]
     assert tckpt.read_publication(str(tmp_path / "ck"), 4) is None

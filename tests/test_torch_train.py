@@ -259,7 +259,7 @@ def test_fit_final_state_matches_jax(fit_case):
 
 
 def test_fit_evaluate_matches_jax(fit_case):
-    auc, ll = fit_case["tt"].evaluate(fit_case["path"])
+    auc, ll = fit_case["tt"].evaluate(fit_case["path"], dump=False)
     jauc, jll = fit_case["jeval"]
     assert abs(auc - jauc) <= 1e-3 and auc > 0.5
     assert abs(ll - jll) <= 1e-5 * abs(jll)

@@ -43,6 +43,28 @@ router-first drain on SIGTERM. One JSON ready line {"serving", "fleet",
 "router_host", "router_port", "run_id", "pid", "replicas": [{"replica",
 "port", "step", "pid", "device"}]}; the fleet process imports no torch.
 
+    python -m xflow_tpu_torch gen-data OUT_PREFIX [--shards N] [--rows N] [--fields N] \
+        [--ids-per-field N] [--seed N] [--truth-seed N] [--zipf-alpha A] \
+        [--truth linear|ffm] [--bulk]
+    python -m xflow_tpu_torch export CHECKPOINT_DIR [--table w|v|wv] --out FILE
+    python -m xflow_tpu_torch collisions FILE [FILE ...] [--log2-slots N] [--salt N]
+
+The data tools of `python -m xflow_tpu`, with its flags and outputs:
+`gen-data` writes synthetic libffm shards (`data/synth.py`, byte-equal
+to the JAX writers' for the same seeds) and prints their paths;
+`export` writes the newest committed checkpoint's table as
+`slot\tweight...` rows of its nonzero slots (`w` and `v` are sliced out
+of a fused `wv`, `w` being its column 0) and prints {"step", "table",
+"nonzero"}; `collisions` prints the hash-collision JSON of
+`tools/collisions.py`. None needs a card.
+
+The observability flags (`--set train.<key>=...`, as the JAX trainer's):
+`metrics_path`, `log_every`, `health_metrics`, `heartbeat_path`,
+`heartbeat_every`, `hang_timeout_s`, `pipeline_metrics`, `profile_dir`,
+`trace_start_step`, `trace_num_steps`, `eval_every`, `eval_buckets`,
+`eval_window_decay`, `pred_dump`. With `--test`, `train` writes
+`pred_0_0.txt` in the working directory (`train.pred_dump`).
+
 FFM at its practical shape: `--model ffm --set model.v_dim=4` (rows
 `wv [S, 1 + num_fields * v_dim]`); it has no reference index, as in
 `python -m xflow_tpu`.
@@ -187,6 +209,64 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_gen_data(args) -> int:
+    from xflow_tpu_torch.data.synth import generate_shards, generate_shards_bulk
+
+    if args.bulk:
+        if args.truth != "linear":
+            print("--bulk supports only the linear truth (the vectorized "
+                  "writer has no field-pair mode)", file=sys.stderr)
+            return 2
+        paths, _ = generate_shards_bulk(
+            args.out_prefix, args.shards, args.rows,
+            num_fields=args.fields, ids_per_field=args.ids_per_field,
+            seed=args.seed, truth_seed=args.truth_seed, zipf_alpha=args.zipf_alpha,
+        )
+    else:
+        paths = generate_shards(
+            args.out_prefix, args.shards, args.rows,
+            num_fields=args.fields, ids_per_field=args.ids_per_field, seed=args.seed,
+            truth_seed=args.truth_seed, zipf_alpha=args.zipf_alpha, truth=args.truth,
+        )
+    print("\n".join(paths))
+    return 0
+
+
+def cmd_export(args) -> int:
+    import os
+
+    import numpy as np
+
+    from xflow_tpu_torch.train.checkpoint import export_sparse_array, latest_step
+
+    step = latest_step(args.checkpoint_dir)
+    if step is None:
+        print(f"no committed checkpoint in {args.checkpoint_dir}", file=sys.stderr)
+        return 1
+    data = np.load(os.path.join(args.checkpoint_dir, f"step_{step}", "state.npz"))
+    key = f"tables/{args.table}"
+    if key in data:
+        arr = data[key]
+    elif args.table in ("w", "v") and "tables/wv" in data:
+        # the fused FM table: w is column 0, v the rest
+        wv = data["tables/wv"]
+        arr = wv[:, 0] if args.table == "w" else wv[:, 1:]
+    else:
+        have = sorted(k.split("/", 1)[1] for k in data.files if k.startswith("tables/"))
+        print(f"no table {args.table!r} in checkpoint; have {have}", file=sys.stderr)
+        return 1
+    n = export_sparse_array(arr, args.out)
+    print(json.dumps({"step": step, "table": args.table, "nonzero": n}))
+    return 0
+
+
+def cmd_collisions(args) -> int:
+    from xflow_tpu_torch.tools.collisions import measure
+
+    print(json.dumps(measure(args.paths, args.log2_slots, args.salt)))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m xflow_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -288,6 +368,36 @@ def main(argv=None) -> int:
                     help="dotted config override, passed to every replica too")
     sf.set_defaults(fn=cmd_serve_fleet, test=None, batch_size=None, unix_socket=None,
                     metrics_path=None)
+    gd = sub.add_parser("gen-data", help="generate synthetic libffm shards")
+    gd.add_argument("out_prefix")
+    gd.add_argument("--shards", type=int, default=3)
+    gd.add_argument("--rows", type=int, default=1000)
+    gd.add_argument("--fields", type=int, default=18)
+    gd.add_argument("--ids-per-field", type=int, default=500)
+    gd.add_argument("--seed", type=int, default=0)
+    gd.add_argument("--truth-seed", type=int, default=None,
+                    help="seed of the planted truth (default: --seed); the same value for "
+                         "train and test splits written with different --seed")
+    gd.add_argument("--zipf-alpha", type=float, default=0.0,
+                    help="power-law feature skew (0 = uniform; ~1.1 is CTR-like)")
+    gd.add_argument("--truth", default="linear",
+                    help="planted concept: linear | ffm (field-pair interactions a "
+                         "field-blind FM cannot fit)")
+    gd.add_argument("--bulk", action="store_true",
+                    help="chunked vectorized writer for large shards (another random "
+                         "stream than the per-row writer)")
+    gd.set_defaults(fn=cmd_gen_data)
+    ex = sub.add_parser("export", help="export nonzero weights from a checkpoint")
+    ex.add_argument("checkpoint_dir")
+    ex.add_argument("--table", default="w")
+    ex.add_argument("--out", required=True)
+    ex.set_defaults(fn=cmd_export)
+    co = sub.add_parser("collisions", help="measure the feature-hash collision rate of "
+                                           "libffm files")
+    co.add_argument("paths", nargs="+")
+    co.add_argument("--log2-slots", type=int, default=22)
+    co.add_argument("--salt", type=int, default=0)
+    co.set_defaults(fn=cmd_collisions)
     args = ap.parse_args(argv)
     return args.fn(args)
 

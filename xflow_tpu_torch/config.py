@@ -1,12 +1,14 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
 (FM inference, single-device LR, FM, MVM and FFM training, the host
-input plane, the server and its fleet, the online training loop) read, with the JAX package's
+input plane, the server and its fleet, the online training loop and
+the trainer's observability) read, with the JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
 Sections and fields not listed here belong to paths the port has not
-taken over yet (multi-device engines, the trainer's per-step telemetry); an
-override naming one raises KeyError.
+taken over yet (multi-device engines, `train.signal_sync_every`) or
+leaves out by design (`train.compile_metrics`); an override naming one
+raises KeyError.
 """
 
 from __future__ import annotations
@@ -132,7 +134,7 @@ class DataConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The fit loop and checkpoints: epochs over the shard, the table
-    init seed, a progress line every `log_every` steps (0 = none), a
+    init seed, a window record every `log_every` steps (0 = none), a
     checkpoint every `checkpoint_every` steps (0 = only at the end),
     resume from the newest checkpoint, the non-finite guard
     ("off"|"skip"|"halt") and its consecutive-skip abort; where
@@ -143,16 +145,39 @@ class TrainConfig:
     re-verified, its own COMMITTED last), and restores and the serve
     watcher walk the union of both tiers' committed steps, newest first.
 
-    `metrics_path` ("" = off) is the run's JSONL record stream, with one
-    `checkpoint_save` span a save under `ckpt_spans`. `ckpt_on_signal`: SIGTERM/SIGINT
-    commit the step reached and end the run. `keep_checkpoints` /
-    `keep_replica_checkpoints` keep the N newest committed steps of
-    each tier (0 = all) and sweep uncommitted debris after each save.
-    `ckpt_async`: the fit loop only snapshots and a writer thread
-    commits, at most one save in flight (`train/checkpoint.py`
-    `AsyncCheckpointWriter`). `publish_every` (0 = off; needs
-    `checkpoint_dir` and `data.stream=tail`): every Nth step commits a
-    checkpoint with a publication sidecar the server reads."""
+    `metrics_path` ("" = off) is the run's JSONL record stream, rolled
+    past `metrics_max_bytes` (0 = never): a window record every
+    `log_every` steps, written one step behind (StepTimer's split,
+    the card's memory, the health fields and the registry's counters),
+    the `final` record, one `checkpoint_save` span a save under
+    `ckpt_spans`, and a kind="pipeline" record a window under
+    `pipeline_metrics`. `health_metrics` ("off"|"norms"|"full") adds the
+    grad, update and param norms to each step (per table under "full"),
+    a loss EMA (`health_ema_decay`) and the occupancy gauges.
+    `heartbeat_path` ("" = off) gets a kind="heartbeat" record every
+    `heartbeat_every` steps and at start, checkpoints, evals and the
+    end; `hang_timeout_s` (0 = off) dumps every thread's stack once a
+    stall without a step. `profile_dir` ("" = off) receives a
+    `torch.profiler` Chrome trace of steps `trace_start_step` ..
+    `+ trace_num_steps - 1` (start 0: the whole run).
+
+    Evaluation: `eval_every` epochs (or publications, in the online
+    loop; 0 = only at the end) a streaming pass over `data.test_path`
+    logs `eval_auc`; `eval_buckets` (-1 = auto: exact on one process,
+    65,536 buckets for a streaming pass; 0 = exact; N = N buckets) and
+    `eval_window_decay` (0 = each pass fresh) shape it. `pred_dump`
+    writes `pred_0_<block>.txt` rows on the exact and bucketed paths.
+
+    `ckpt_on_signal`: SIGTERM/SIGINT commit the step reached and end
+    the run. `keep_checkpoints` / `keep_replica_checkpoints` keep the N
+    newest committed steps of each tier (0 = all) and sweep uncommitted
+    debris after each save. `ckpt_async`: the fit loop only snapshots
+    and a writer thread commits, at most one save in flight
+    (`train/checkpoint.py` `AsyncCheckpointWriter`). `publish_every` (0
+    = off; needs `checkpoint_dir` and `data.stream=tail`): every Nth
+    step commits a checkpoint with a publication sidecar the server
+    reads. Compile accounting (`compile_metrics`) is not taken over:
+    the torch step has no compile step."""
 
     epochs: int = 60
     seed: int = 0
@@ -172,6 +197,20 @@ class TrainConfig:
     ckpt_async: bool = False
     keep_replica_checkpoints: int = 0
     publish_every: int = 0
+    eval_every: int = 0
+    pred_dump: bool = True
+    eval_buckets: int = -1
+    eval_window_decay: float = 0.0
+    metrics_max_bytes: int = 0
+    health_metrics: str = "off"
+    health_ema_decay: float = 0.99
+    heartbeat_path: str = ""
+    heartbeat_every: int = 25
+    hang_timeout_s: float = 0.0
+    pipeline_metrics: bool = False
+    profile_dir: str = ""
+    trace_start_step: int = 0
+    trace_num_steps: int = 20
 
 
 @dataclass(frozen=True)

@@ -19,8 +19,14 @@ shard set's newly completed lines into sealed `IngestSegment`s, each
 converted to `.xfc` on arrival, and the trainer reads each segment
 through `batch_iterator` like any shard.
 
-Not taken over: the pipeline profiler; `COUNTERS` keeps the one total a
-checkpoint's data_state records.
+The pipeline profiler (train.pipeline_metrics, `telemetry.PipelineProfiler`)
+threads through `batch_iterator` and `prefetch` when one is passed: the
+native parser's batches as `parse`, `.xfc` slicing as `cache_read`, the
+prefetch queue's blocked put as `producer_wait` and its depth. Without a
+profiler the stream is the unprofiled one. The registry counts the
+shards read from a cache (`data.cache_shards`) and the caches that failed
+and fell back to the text (`data.cache_fallbacks`); `COUNTERS` keeps the
+one total a checkpoint's data_state records.
 """
 
 from __future__ import annotations
@@ -139,24 +145,27 @@ def batch_iterator(
     enforce_bad_rows: bool = True,
     quarantine: bool = True,
     skip: int = 0,
+    profiler=None,
 ) -> Iterator[SparseBatch]:
     """Padded batches of libffm shard `path` (`cfg` is a DataConfig), from
     its `.xfc` cache or its text, each through the bad-record monitor.
     `skip` passes over the first `skip` batches unmonitored (they were
-    monitored in the run being resumed)."""
-    raw = _raw_batch_iterator(path, cfg, batch_size)
+    monitored in the run being resumed). `profiler` times the parse or
+    the cache read."""
+    raw = _raw_batch_iterator(path, cfg, batch_size, profiler)
     if skip > 0:
         raw = skip_batches(raw, skip)
     yield from monitor_bad_rows(raw, cfg, path, enforce=enforce_bad_rows,
                                 quarantine=quarantine)
 
 
-def _cache_batch_iterator(path: str, cfg, bs: int) -> Optional[Iterator[SparseBatch]]:
+def _cache_batch_iterator(path: str, cfg, bs: int,
+                          profiler=None) -> Optional[Iterator[SparseBatch]]:
     """The verified cache's batch iterator for text shard `path`, or None
     to read the text. A cache that fails its digest, or cannot be opened,
-    is recorded to data.quarantine_path, warned about on stderr, and the
-    shard is read as text, even under data.cache=on. A missing or stale
-    cache under "on" raises."""
+    is recorded to data.quarantine_path, counted (`data.cache_fallbacks`),
+    warned about on stderr, and the shard is read as text, even under
+    data.cache=on. A missing or stale cache under "on" raises."""
     if cfg.cache not in ("auto", "on"):
         if cfg.cache != "off":
             raise ValueError(f"data.cache={cfg.cache!r}: expected auto|on|off")
@@ -168,12 +177,15 @@ def _cache_batch_iterator(path: str, cfg, bs: int) -> Optional[Iterator[SparseBa
         cache_path_for,
         resolve_cache,
     )
+    from xflow_tpu_torch.telemetry import default_registry
 
+    reg = default_registry()
     try:
         sc = resolve_cache(path, cfg)
     except ShardCacheStale:
         raise  # only under cache=on: the operator asserted cached input
     except ShardCacheError as e:
+        reg.counter("data.cache_fallbacks").inc()
         qw = JsonlAppender(cfg.quarantine_path)
         qw.append({
             "source": path,
@@ -188,16 +200,32 @@ def _cache_batch_iterator(path: str, cfg, bs: int) -> Optional[Iterator[SparseBa
         return None
     if sc is None:
         return None
-    return sc.iter_batches(bs)
+    reg.counter("data.cache_shards").inc()
+    return sc.iter_batches(bs, profiler=profiler)
 
 
-def _raw_batch_iterator(path: str, cfg, batch_size: Optional[int] = None
-                        ) -> Iterator[SparseBatch]:
+def _raw_batch_iterator(path: str, cfg, batch_size: Optional[int] = None,
+                        profiler=None) -> Iterator[SparseBatch]:
     from xflow_tpu_torch.data.native import native_batch_iterator
 
     bs = batch_size or cfg.batch_size
-    cached = _cache_batch_iterator(path, cfg, bs)
-    yield from cached if cached is not None else native_batch_iterator(path, cfg, bs)
+    cached = _cache_batch_iterator(path, cfg, bs, profiler)
+    if cached is not None:
+        yield from cached
+        return
+    native = native_batch_iterator(path, cfg, bs)
+    if profiler is None:
+        yield from native
+        return
+    # the C parser reads, parses, hashes and pads inside one call: its
+    # whole batch is the `parse` stage
+    while True:
+        with profiler.stage("parse"):
+            b = next(native, None)
+        if b is None:
+            return
+        profiler.count_batch(b.num_rows)
+        yield b
 
 
 def count_batches(path: str, cfg, batch_size: Optional[int] = None) -> int:
@@ -209,7 +237,7 @@ def count_batches(path: str, cfg, batch_size: Optional[int] = None) -> int:
     return -(-native_count_rows(path) // bs)
 
 
-def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+def prefetch(iterator: Iterator, depth: int = 2, profiler=None) -> Iterator:
     """Run `iterator` in a background thread with a bounded queue.
 
     Abandonment-safe: when the consumer drops the generator (an exception
@@ -217,7 +245,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     queue, so a worker blocked on a full queue wakes, sees the flag,
     closes the underlying iterator (releasing the native parser's handle
     and the quarantine file at once) and exits. An exception in the
-    worker is raised in the consumer."""
+    worker is raised in the consumer. `profiler` times the worker's
+    blocked puts (`producer_wait`) and samples the queue's depth."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
@@ -225,7 +254,12 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     def worker() -> None:
         try:
             for item in iterator:
-                q.put(item)
+                if profiler is None:
+                    q.put(item)
+                else:
+                    with profiler.stage("producer_wait"):
+                        q.put(item)
+                    profiler.observe_queue(q.qsize(), depth)
                 if stop.is_set():
                     return
             q.put(end)
@@ -242,6 +276,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     try:
         while True:
             item = q.get()
+            if profiler is not None:
+                profiler.observe_queue(q.qsize(), depth)
             if item is end:
                 break
             if isinstance(item, BaseException):

@@ -37,6 +37,7 @@ bytes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -371,11 +372,12 @@ class ShardCache:
                     )
 
     # -------------------------------------------------------- iteration
-    def iter_batches(self, batch_size: int) -> Iterator[SparseBatch]:
+    def iter_batches(self, batch_size: int, profiler=None) -> Iterator[SparseBatch]:
         """Padded SparseBatches as zero-copy memmap slices: a full batch is
         five views into the file; the last partial batch is the one copy,
         padded as `make_batch` pads it, so cache batches are bitwise equal
-        to text batches."""
+        to text batches. `profiler` times each batch's slicing as the
+        `cache_read` stage."""
         mms = self.arrays()
         slots, fields, mask, labels = (
             mms["slots"], mms["fields"], mms["mask"], mms["labels"],
@@ -383,13 +385,22 @@ class ShardCache:
         B = int(batch_size)
         full, rem = self.rows // B, self.rows % B
         ones = np.ones((B,), np.float32)
+        stage = profiler.stage if profiler is not None else (lambda _: contextlib.nullcontext())
         for i in range(full):
-            s = slice(i * B, (i + 1) * B)
-            CALLS["batches"] += 1
-            yield SparseBatch(slots[s], fields[s], mask[s], labels[s], ones)
+            with stage("cache_read"):
+                s = slice(i * B, (i + 1) * B)
+                CALLS["batches"] += 1
+                b = SparseBatch(slots[s], fields[s], mask[s], labels[s], ones)
+            if profiler is not None:
+                profiler.count_batch(B)
+            yield b
         if rem:
-            CALLS["batches"] += 1
-            yield self._tail_batch(B, full * B, rem)
+            with stage("cache_read"):
+                CALLS["batches"] += 1
+                b = self._tail_batch(B, full * B, rem)
+            if profiler is not None:
+                profiler.count_batch(rem)
+            yield b
 
     def _tail_batch(self, B: int, start: int, n: int) -> SparseBatch:
         mms = self.arrays()

@@ -192,14 +192,25 @@ def predict_batches(cfg: Config, tables: dict, path: str,
         stream.close()  # an early close stops the reader at once
 
 
-def evaluate(cfg: Config, tables: dict, path: str, device="cuda") -> tuple[float, float]:
+def dump_rows(fout, p, y) -> None:
+    """The reference's prediction rows, `pctr\t1-label\tlabel`, into
+    `fout` (nothing when it is None)."""
+    if fout is not None:
+        fout.writelines(f"{pi:.6f}\t{int(1 - yi)}\t{int(yi)}\n" for pi, yi in zip(p, y))
+
+
+def evaluate(cfg: Config, tables: dict, path: str, device="cuda",
+             fout=None) -> tuple[float, float]:
     """(auc, logloss) of `tables` on libffm file `path`; logloss keeps the
-    reference's sign (a mean log-likelihood)."""
+    reference's sign (a mean log-likelihood). With `fout`, each real
+    row's prediction goes there too (`dump_rows`), in file order."""
     pctrs, labels = [], []
     for batch, p in predict_batches(cfg, tables, path, device):
-        rm = batch.row_mask > 0
-        pctrs.append(p[rm])
-        labels.append(batch.labels[rm])
+        rm = np.asarray(batch.row_mask) > 0
+        p, y = p[rm], np.asarray(batch.labels)[rm]
+        pctrs.append(p)
+        labels.append(y)
+        dump_rows(fout, p, y)
     if not pctrs:
         return float("nan"), float("nan")
     return auc_logloss(np.concatenate(pctrs), np.concatenate(labels))

@@ -5,6 +5,8 @@ same table slot in both packages."""
 
 from __future__ import annotations
 
+import numpy as np
+
 FNV_OFFSET = 0xCBF29CE484222325
 FNV_PRIME = 0x100000001B3
 _MASK64 = (1 << 64) - 1
@@ -27,3 +29,13 @@ def slot_of(key: int, log2_slots: int) -> int:
     x = (x * _FINALIZE_MUL) & _MASK64
     x ^= x >> 32
     return x & ((1 << log2_slots) - 1)
+
+
+def slots_of(keys: np.ndarray, log2_slots: int) -> np.ndarray:
+    """`slot_of` over a uint64 array (int64 slots)."""
+    x = keys.astype(np.uint64)
+    x = x ^ (x >> np.uint64(32))
+    with np.errstate(over="ignore"):
+        x = x * np.uint64(_FINALIZE_MUL)
+    x = x ^ (x >> np.uint64(32))
+    return (x & np.uint64((1 << log2_slots) - 1)).astype(np.int64)

@@ -1,6 +1,7 @@
 """Metrics (`xflow_tpu/metrics.py`): the training loss, the reference's
 clamped sigmoid, its rank-sum AUC with its logloss sign, and the
-streaming bucketed AUC.
+streaming bucketed AUC with its decayed window (the trainer's
+`eval_every` passes).
 """
 
 from __future__ import annotations
@@ -26,6 +27,14 @@ def reference_pctr(logits: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def log_likelihood(pctrs, labels) -> np.ndarray:
+    """Per-row ``y log p + (1-y) log(1-p)`` in float64, p clipped to
+    [1e-15, 1 - 1e-15]."""
+    p = np.clip(np.asarray(pctrs, dtype=np.float64), 1e-15, 1.0 - 1e-15)
+    y = np.asarray(labels, dtype=np.float64)
+    return y * np.log(p) + (1.0 - y) * np.log(1.0 - p)
+
+
 def auc_logloss(pctrs: np.ndarray, labels: np.ndarray, log2: bool = False) -> tuple[float, float]:
     """Rank-sum AUC and mean log-likelihood on the host, (auc, logloss).
 
@@ -41,12 +50,17 @@ def auc_logloss(pctrs: np.ndarray, labels: np.ndarray, log2: bool = False) -> tu
     tp_n = float(sorted_labels.sum())
     fp_n = float(len(labels) - tp_n)
     auc = area / (tp_n * fp_n) if tp_n > 0 and fp_n > 0 else float("nan")
-    eps = 1e-15
-    p = np.clip(pctrs, eps, 1.0 - eps)
-    ll = labels * np.log(p) + (1.0 - labels) * np.log(1.0 - p)
+    ll = log_likelihood(pctrs, labels)
     if log2:
         ll = ll / np.log(2.0)
     return auc, float(ll.mean())
+
+
+def resolve_eval_buckets(value: int) -> int:
+    """train.eval_buckets -1 = auto: exact, as the JAX trainer's rule
+    (`xflow_tpu/train/trainer.py`) on one process; its 65,536 buckets
+    are for a multi-process world."""
+    return value if value >= 0 else 0
 
 
 class BucketAUC(NamedTuple):
@@ -69,6 +83,12 @@ class BucketAUC(NamedTuple):
         pos = self.pos + np.bincount(idx, weights=y, minlength=nb)
         neg = self.neg + np.bincount(idx, weights=1.0 - y, minlength=nb)
         return BucketAUC(pos=pos, neg=neg)
+
+    def decay(self, factor: float) -> "BucketAUC":
+        """Both histograms times `factor`: the decayed window's step
+        (train.eval_window_decay; 0 resets, 1 keeps the lifetime sum)."""
+        f = float(factor)
+        return BucketAUC(pos=self.pos * f, neg=self.neg * f)
 
     def compute(self) -> float:
         """AUC from the bucket counts (ties within a bucket count 1/2)."""

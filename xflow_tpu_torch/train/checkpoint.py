@@ -26,8 +26,9 @@ FM ``wv`` and the two-table ``w`` / ``v`` restore into each other
 The write side: `prune_checkpoints` (retention and the sweep of
 uncommitted debris), `mirror_step` (the tier-2 replica, digest
 re-verified, its own COMMITTED last) and the async writer
-(`SaveSnapshot`, `SaveJob`, `AsyncCheckpointWriter`). Orbax checkpoints
-are not taken over.
+(`SaveSnapshot`, `SaveJob`, `AsyncCheckpointWriter`). `export_sparse_array`
+writes a table's nonzero rows as text (`python -m xflow_tpu_torch
+export`). Orbax checkpoints are not taken over.
 """
 
 from __future__ import annotations
@@ -835,3 +836,19 @@ class AsyncCheckpointWriter:
 
         emit_op_span(sink, "checkpoint_save", t0_wall, dur_s,
                      step=int(job.snapshot.step), bytes=int(job.snapshot.nbytes))
+
+
+def export_sparse_array(w: np.ndarray, out_path: str) -> int:
+    """Write the nonzero rows of a weight array as `slot\\tweight...`
+    text (`%.8g`); returns their count."""
+    w = np.asarray(w)
+    if w.ndim == 1:
+        nz = np.nonzero(w)[0]
+    else:
+        nz = np.nonzero(np.abs(w).sum(axis=tuple(range(1, w.ndim))))[0]
+    with open(out_path, "w") as f:
+        for i in nz:
+            vals = ("%.8g" % w[i] if w.ndim == 1
+                    else "\t".join("%.8g" % x for x in np.ravel(w[i])))
+            f.write(f"{int(i)}\t{vals}\n")
+    return int(nz.size)

@@ -14,6 +14,14 @@ occurrence cotangent to the one `scatter_ftrl_sorted` pass, so the
 
 Masked padded rows contribute zero gradient; the loss mean divides by
 the number of real rows.
+
+`train.health_metrics` adds the grad, update and param norms to each
+step's metrics (`health_norms`; per table under "full"): on the fused
+path the grad norm is the occurrence cotangent's, since the table
+gradient never exists there; on the two-pass path the dense gradient's.
+They are taken on the proposed update, before the guard's discard. With
+health off the metrics stay `{"loss", "rows"}` (plus `"update_ok"` under
+the guard).
 """
 
 from __future__ import annotations
@@ -70,6 +78,69 @@ def guard_nonfinite(cfg: Config, state: TrainState, new_state: TrainState, metri
     if not ok:
         new_state = TrainState(state.tables, state.opt_state, new_state.step)
     return new_state, dict(metrics, update_ok=ok)
+
+
+def health_mode(cfg: Config) -> str:
+    """Validate train.health_metrics and return the mode."""
+    m = cfg.train.health_metrics
+    if m not in ("off", "norms", "full"):
+        raise ValueError(f"train.health_metrics={m!r}: expected off|norms|full")
+    return m
+
+
+def health_metric_keys(cfg: Config) -> tuple:
+    """The health keys of every step's metrics under this config: the
+    global grad/update/param norms ("norms"), and per table ("full")."""
+    mode = health_mode(cfg)
+    if mode == "off":
+        return ()
+    keys = ["grad_norm", "update_norm", "param_norm"]
+    if mode == "full":
+        from xflow_tpu_torch.weights import table_shapes
+
+        for t in sorted(table_shapes(cfg)):
+            keys += [f"grad_norm.{t}", f"update_norm.{t}", f"param_norm.{t}"]
+    return tuple(keys)
+
+
+def health_norms(cfg: Config, old_tables: dict, new_tables: dict, grads=None,
+                 grad_sq=None) -> dict:
+    """One step's health scalars (0-dim tensors, no host read): per table
+    the squared grad norm (from `grads`, or a squared norm the step
+    passes in `grad_sq` where the table gradient never exists), the
+    squared update norm ||new - old||^2 and the squared param norm
+    ||new||^2, summed over tables and square-rooted; per table too under
+    "full"."""
+    mode = health_mode(cfg)
+    if mode == "off":
+        return {}
+    names = sorted(new_tables)
+    sqsum = lambda x: (x.float() ** 2).sum()  # noqa: E731
+    ref = new_tables[names[0]]
+    sq = {}
+    for name in names:
+        if grad_sq is not None and name in grad_sq:
+            sq[name] = grad_sq[name].float()
+        elif grads is not None and name in grads:
+            sq[name] = sqsum(grads[name])
+        else:
+            sq[name] = torch.zeros((), dtype=torch.float32, device=ref.device)
+    upd = {n: sqsum(new_tables[n] - old_tables[n]) for n in names}
+    par = {n: sqsum(new_tables[n]) for n in names}
+    total = lambda d: torch.sqrt(sum(d.values()))  # noqa: E731
+    out = {"grad_norm": total(sq), "update_norm": total(upd), "param_norm": total(par)}
+    if mode == "full":
+        for n in names:
+            out[f"grad_norm.{n}"] = torch.sqrt(sq[n])
+            out[f"update_norm.{n}"] = torch.sqrt(upd[n])
+            out[f"param_norm.{n}"] = torch.sqrt(par[n])
+    return out
+
+
+def metrics_keys(cfg: Config) -> tuple:
+    """The keys of a step's metrics under this config."""
+    base = ("loss", "rows") + health_metric_keys(cfg)
+    return base + (("update_ok",) if nonfinite_guard_on(cfg) else ())
 
 
 def _fused_scatter_eligible(cfg: Config) -> bool:
@@ -148,7 +219,12 @@ def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
         table.shape[1], cfg.optim.ftrl, cfg.data.sorted_bf16,
     )
     new_state = TrainState({tname: w_new}, {tname: {"n": n_new, "z": z_new}}, state.step + 1)
-    return new_state, {"loss": loss, "rows": batch["row_mask"].sum()}
+    metrics = {"loss": loss, "rows": batch["row_mask"].sum()}
+    if health_mode(cfg) != "off":
+        with torch.no_grad():
+            metrics.update(health_norms(cfg, state.tables, new_state.tables,
+                                        grad_sq={tname: (d_occ.float() ** 2).sum()}))
+    return new_state, metrics
 
 
 def _two_pass_step(state: TrainState, batch: dict, model: Model, optimizer: Optimizer,
@@ -163,14 +239,17 @@ def _two_pass_step(state: TrainState, batch: dict, model: Model, optimizer: Opti
     }
     with torch.no_grad():
         new_tables, new_opt = optimizer.apply(state.tables, state.opt_state, grads, cfg)
-    new_state = TrainState(new_tables, new_opt, state.step + 1)
-    return new_state, {"loss": loss.detach(), "rows": batch["row_mask"].sum()}
+        metrics = {"loss": loss.detach(), "rows": batch["row_mask"].sum()}
+        metrics.update(health_norms(cfg, state.tables, new_tables, grads=grads))
+    return TrainState(new_tables, new_opt, state.step + 1), metrics
 
 
 def make_train_step(model: Model, optimizer: Optimizer, cfg: Config) -> Callable:
     """Returns train_step(state, batch tensors) -> (state, metrics) with
-    metrics {"loss", "rows"} plus "update_ok" when the guard is on."""
+    metrics `metrics_keys(cfg)`: {"loss", "rows"}, the health norms under
+    train.health_metrics, "update_ok" under the guard."""
     fuse = _fused_scatter_eligible(cfg)
+    health_mode(cfg)  # validates train.health_metrics at construction
 
     def train_step(state: TrainState, batch: dict):
         # the fused path needs a flat sorted plan without per-occurrence
