@@ -235,13 +235,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    6 eval batches, #3 40, #4-#6 0). It prints the window split, the
    pipeline stages and verdict, and #1-#3's mean trace time on Zipf
    batches beside their uniform times; then 1 epoch with the guard off
-   and 1 with the guard and every record off, their examples/s and split.
+   and 1 with the guard and every record off, their examples/s and split;
+18. the multi-device engines (`run_mesh`) as a world of one NCCL rank
+   over a TCPStore on localhost (the machine holds one card, and NCCL
+   puts no two ranks of a communicator on one device: a world of 2 here
+   must raise naming that rule), on a 1 x 1 mesh: two steps each of the
+   fully-sharded and the replicated engine at FM width on phase 3's
+   shard, from a seeded state, against the port's single-device
+   two-pass step on the same batches (losses within 2e-5 relative, w, n
+   and z within 2e-4 relative over 1e-6), their launch counts set to 0
+   just before and read just after (#2, #5, #6 and #1, #2, #4 a step);
+   one fully-sharded step of MVM's segment side (full width) and of FFM
+   (K = 73, 131,072 rows) as checked; #5 bit-exact and #6 bitwise
+   against their plain versions on the fully-sharded buffer with `cap`'s
+   pads (its compact wire dtypes crossing NCCL as bytes), with their
+   times; the overflow fallback: a batch with 9 hot fields overflows a
+   1 x 8 split's buffers at slack 2.0 (a 1 x 1 block holds every
+   occurrence and cannot), and `Trainer`'s per-batch agreement runs it
+   on the row-major sharded step (counted), as checked; and one epoch of
+   `Trainer(cfg, mesh=mesh).fit()` over the rate shard (#2, #5, #6 once
+   a step) beside the single-device two-pass epoch, examples/s each.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
 `widths` hold its entry at each of ch 24, 32, 104, 128 and 136; #1, #3
 and #4 carry their FFM figures and launches under `ffm`, #1-#3 their
-phase-17 trace time on Zipf batches and launches under `zipf`), and
+phase-17 trace time on Zipf batches and launches under `zipf`, #1, #2,
+#4, #5 and #6 their phase-18 launches under `mesh`, with #5's and #6's
+times on the fully-sharded buffer), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -3479,6 +3500,331 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
     return zipf
 
 
+# ------------------------------------------------------------ phase 18
+
+MESH_STEPS = 2  # steps of each mesh engine held against the single-device step
+MESH_LOSS_RTOL, MESH_RTOL, MESH_ATOL = 2e-5, 2e-4, 1e-6  # tests/test_sorted_fullshard.py
+MESH_KERNELS = ("gather_sorted", "row_sums", "scatter_sorted", "gather_sorted_multi",
+                "scatter_sorted_multi")
+
+
+def seeded_state(name: str, K: int, scale: float, seed: int) -> tuple:
+    """({name: table}, {name: {n, z}}) on the card from a seeded CUDA
+    generator: the table ~ N(0, scale²), FTRL n and z on the lower half
+    of the slots (the upper half never touched), as `write_state`."""
+    import torch
+
+    S = 1 << LOG2_SLOTS
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    t = torch.randn((S, K), generator=g, device=DEVICE) * scale
+    n = torch.randn((S, K), generator=g, device=DEVICE).abs() * 0.1
+    z = torch.randn((S, K), generator=g, device=DEVICE) * 1e-4
+    n[S // 2:] = 0.0
+    z[S // 2:] = 0.0
+    return {name: t}, {name: {"n": n, "z": z}}
+
+
+def mesh_state_close(got, want, what: str) -> float:
+    """Every table and FTRL leaf of `got` within MESH_RTOL x |want| +
+    MESH_ATOL of `want`; returns the largest absolute difference."""
+    err = 0.0
+    for name in want.tables:
+        pairs = [("table", got.tables[name], want.tables[name])] + [
+            (leaf, got.opt_state[name][leaf], want.opt_state[name][leaf])
+            for leaf in want.opt_state[name]]
+        for leaf, a, b in pairs:
+            d = (a - b).abs()
+            if not bool((d <= MESH_ATOL + MESH_RTOL * b.abs()).all()):
+                fail(f"{what}: {name} {leaf} differs from the single-device step: max abs "
+                     f"{d.max().item()}")
+            err = max(err, d.max().item())
+    return err
+
+
+def single_steps(cfg, tables, opt, batches, arrays_of) -> tuple:
+    """The port's single-device two-pass step over `batches` on the card
+    from (tables, opt): (losses, final state)."""
+    from xflow_tpu_torch.evaluate import to_device
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.state import TrainState
+    from xflow_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(get_model(cfg.model.name)(cfg), get_optimizer("ftrl"), cfg)
+    state = TrainState(tables, opt, 0)
+    losses = []
+    for b in batches:
+        state, m = step(state, to_device(arrays_of(b), DEVICE))
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def mesh_steps(step, tables, opt, batches, arrays_of, what: str, want_losses, want) -> dict:
+    """`step` over `batches` from (tables, opt), the launch counts set to 0
+    just before and read just after; each loss within MESH_LOSS_RTOL and
+    the state within MESH_RTOL / MESH_ATOL of the single-device run.
+    Returns {launches, max_abs_err, ms} (ms: the mean step, CUDA events)."""
+    import torch
+
+    from xflow_tpu_torch.evaluate import to_device
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.train.state import TrainState
+
+    hosts = [arrays_of(b) for b in batches]
+    state = TrainState(tables, opt, 0)
+    losses = []
+    torch.cuda.synchronize()
+    st.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for h in hosts:
+        state, m = step(state, to_device(h, DEVICE))
+        losses.append(float(m["loss"]))
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(st.LAUNCHES)
+    for got, ref in zip(losses, want_losses):
+        if not abs(got - ref) <= MESH_LOSS_RTOL * abs(ref):
+            fail(f"{what}: losses {losses} against the single-device step's {want_losses}")
+    err = mesh_state_close(state, want, what)
+    ms = start.elapsed_time(end) / len(hosts)
+    print(f"# {what}: {len(hosts)} step(s), losses {losses} (single device {want_losses}), "
+          f"state max abs err {err:.3e}, {ms:.2f} ms a step with the transfer; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return {"launches": launches, "max_abs_err": err, "ms": ms}
+
+
+def clone_state(tables, opt) -> tuple:
+    return ({n: t.clone() for n, t in tables.items()},
+            {n: {k: v.clone() for k, v in s.items()} for n, s in opt.items()})
+
+
+def check_fs_layout(cfg, mesh, batch, tables) -> dict:
+    """#5 and #6 against their plain versions at the fully-sharded buffer
+    layout with `cap`'s pads (the one 1 x 1 buffer of a 65,536-row FM
+    batch: its real occurrences, then pads at slot S-1 with mask 0), bit
+    exact / bitwise, and their times on it."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.parallel.sorted_fullshard import fullshard_arrays
+
+    host = fullshard_arrays(batch, cfg, mesh, False)
+    if host["fs_row"].dtype != np.uint16 or host["fs_mask"].dtype != np.uint8:
+        fail(f"the fully-sharded wire form is {host['fs_row'].dtype} rows, "
+             f"{host['fs_mask'].dtype} mask: expected uint16 and uint8 across the collective")
+    ss_cpu = torch.from_numpy(np.ascontiguousarray(host["fs_slots"].reshape(-1)))
+    off_cpu = torch.from_numpy(np.ascontiguousarray(host["fs_off"]))
+    m_np = host["fs_mask"].reshape(-1).astype(np.float32)
+    ss, off = ss_cpu.to(DEVICE), off_cpu.to(DEVICE)
+    table = tables["wv"]
+    S, K = table.shape
+    got = st.gather_sorted_multi_cuda(table, ss, off)
+    want = st.gather_sorted_multi_plain(table.cpu(), ss_cpu, off_cpu)
+    if not torch.equal(got.cpu(), want):
+        fail("gather_sorted_multi at the fully-sharded layout differs from its plain version")
+    rng = np.random.default_rng(SEED + 13)
+    d_np = rng.standard_normal((st._k8(K), ss_cpu.numel()), dtype=np.float32)
+    d_np[:K] *= m_np[None, :]
+    d_cpu = torch.from_numpy(d_np)
+    d = d_cpu.to(DEVICE)
+    got = st.scatter_sorted_multi_cuda(d, ss, off, S, K)
+    again = st.scatter_sorted_multi_cuda(d, ss, off, S, K)
+    want = st.scatter_sorted_multi_plain(d_cpu, ss_cpu, off_cpu, S, K)
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs().max().item()
+    if not (torch.equal(got, again) and torch.equal(got.cpu(), want)):
+        fail(f"scatter_sorted_multi at the fully-sharded layout is not bitwise its plain "
+             f"version and itself: max abs err {err}")
+    real = int(m_np.sum())
+    out = {
+        "fs_positions": int(ss_cpu.numel()), "fs_real": real,
+        "fs_pads": int(ss_cpu.numel()) - real,
+        "fs_gather_ms": cuda_ms(lambda: st.gather_sorted_multi_cuda(table, ss, off),
+                                reps=5, warmup=1),
+        "fs_scatter_ms": cuda_ms(lambda: st.scatter_sorted_multi_cuda(d, ss, off, S, K),
+                                 reps=5, warmup=1),
+        "fs_max_abs_err": err,
+    }
+    print(f"# #5/#6 at the fully-sharded layout ({out['fs_positions']} positions: "
+          f"{real} real, {out['fs_pads']} pads at slot {S - 1}): bit-exact / bitwise; "
+          f"gather {out['fs_gather_ms']:.4f} ms, scatter {out['fs_scatter_ms']:.4f} ms",
+          flush=True)
+    return out
+
+
+def skewed(batch):
+    """`batch` with every row's first 9 fields on slots HOT_SLOT..HOT_SLOT+8."""
+    import numpy as np
+
+    from xflow_tpu_torch.data.schema import SparseBatch
+
+    slots = np.array(batch.slots)
+    slots[:, :9] = HOT_SLOT + np.arange(9, dtype=np.int32)
+    return SparseBatch(slots, batch.fields, batch.mask, batch.labels, batch.row_mask)
+
+
+def run_mesh(cfg, work: str, path: str, rate_path: str, card: str) -> dict:
+    """Phase 18: the multi-device engines as a world of one NCCL rank on a
+    1 x 1 mesh (the card's machine holds one card, and NCCL puts no two
+    ranks of a communicator on one device). Returns {name: {fullshard,
+    replicated, fit launches}} and the #5/#6 layout figures."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+    from xflow_tpu_torch.evaluate import batch_arrays, to_device
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.parallel import train_step as ts
+    from xflow_tpu_torch.parallel.distributed import init_world, local_device, shutdown
+    from xflow_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from xflow_tpu_torch.parallel.sorted_fullshard import (
+        FullshardOverflowError,
+        fullshard_arrays,
+        make_fullshard_train_step,
+        plan_fullshard_batch,
+    )
+    from xflow_tpu_torch.parallel.sorted_sharded import (
+        make_sorted_sharded_train_step,
+        sorted_arrays,
+    )
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    try:
+        local_device("cuda", 0, 2)
+        fail("a world of 2 on one card did not raise")
+    except RuntimeError as e:
+        if "NCCL" not in str(e):
+            fail(f"a world of 2 on one card raised without NCCL's reason: {e}")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dev = init_world(0, 1, "cuda", coordinator=f"127.0.0.1:{port}")
+    if dist.get_backend() != "nccl":
+        fail(f"the mesh on the card runs {dist.get_backend()}, not NCCL")
+    try:
+        mcfg = override(cfg, **{"mesh.data": 1, "mesh.table": 1,
+                                "optim.fused_scatter": "off", "train.checkpoint_dir": ""})
+        mesh = make_mesh(mcfg, device=dev)
+        ftrl = get_optimizer("ftrl")
+        it = batch_iterator(path, mcfg.data)
+        batches = [next(it) for _ in range(MESH_STEPS)]
+        it.close()
+        out = {"launches": {}}
+        # FM at full width: both engines against the single-device two-pass step
+        tables, opt = seeded_state("wv", 1 + V_DIM, 0.05, SEED + 11)
+        want_losses, want = single_steps(mcfg, *clone_state(tables, opt), batches,
+                                         lambda b: batch_arrays(b, mcfg))
+        fs = mesh_steps(make_fullshard_train_step(ftrl, mcfg, mesh), *clone_state(tables, opt),
+                        batches, lambda b: fullshard_arrays(b, mcfg, mesh, False),
+                        "FM fully-sharded engine, 1 x 1 NCCL mesh", want_losses, want)
+        rcfg = override(mcfg, **{"data.sorted_mesh": "replicated"})
+        rep = mesh_steps(make_sorted_sharded_train_step(ftrl, rcfg, mesh),
+                         *clone_state(tables, opt), batches, lambda b: sorted_arrays(b, rcfg),
+                         "FM replicated engine, 1 x 1 NCCL mesh", want_losses, want)
+        for k in ("row_sums", "gather_sorted_multi", "scatter_sorted_multi"):
+            if fs["launches"][k] < MESH_STEPS:
+                fail(f"the fully-sharded steps launched {k} {fs['launches'][k]} times")
+        for k in ("gather_sorted", "row_sums", "scatter_sorted"):
+            if rep["launches"][k] < MESH_STEPS:
+                fail(f"the replicated steps launched {k} {rep['launches'][k]} times")
+        out.update(check_fs_layout(mcfg, mesh, batches[0], tables))
+        # the overflow fallback: the planner refuses a hot batch at slack 2.0
+        # (shown at a 1 x 8 split: one 1 x 1 block holds every occurrence
+        # and can never overflow), and the row-major sharded step runs it
+        hot = skewed(batches[0])
+        try:
+            plan_fullshard_batch(hot.slots, hot.mask, mcfg, Mesh(data=1, table=8))
+            fail("the hot batch did not overflow the 1 x 8 buffers at slack 2.0")
+        except FullshardOverflowError as e:
+            print(f"# overflow at slack {mcfg.data.fullshard_slack}: {e}", flush=True)
+        trainer = Trainer(mcfg, device=dev, mesh=mesh)
+        if trainer._mesh_engine != "fullshard":
+            fail(f"Trainer on the 1 x 1 mesh chose {trainer._mesh_engine!r}, not fullshard")
+        hot_want_losses, hot_want = single_steps(mcfg, *clone_state(tables, opt), [hot],
+                                                 lambda b: batch_arrays(b, mcfg))
+        runs0 = ts.RUNS["row_major"]
+
+        def fallback(b):
+            host = ts.row_share({"slots": b.slots, "fields": b.fields, "mask": b.mask,
+                                 "labels": b.labels, "row_mask": b.row_mask}, mesh)
+            host["_fs_overflow"] = True
+            return trainer._prepare(b, host)
+
+        mesh_steps(trainer.train_step, *clone_state(tables, opt), [hot], fallback,
+                   "FM overflow fallback (row-major sharded step)", hot_want_losses, hot_want)
+        if ts.RUNS["row_major"] - runs0 != 1:
+            fail(f"the fallback ran the row-major step {ts.RUNS['row_major'] - runs0} times")
+        del trainer, tables, opt, want
+        # MVM's segment side at full width, FFM at its smoke shape: one step each
+        scfg = mvm_config(mcfg, "", **{"model.mvm_exclusive": "off"})
+        tables, opt = seeded_state("v", V_DIM, MVM_V_SCALE, SEED + 12)
+        wl, want = single_steps(scfg, *clone_state(tables, opt), batches[:1],
+                                lambda b: batch_arrays(b, scfg))
+        seg = mesh_steps(make_fullshard_train_step(ftrl, scfg, mesh), tables, opt,
+                         batches[:1], lambda b: fullshard_arrays(b, scfg, mesh, True),
+                         "MVM segment side, fully-sharded", wl, want)
+        del tables, opt, want
+        fcfg = ffm_config(mcfg, "")
+        it = batch_iterator(path, fcfg.data)
+        fbatch = next(it)
+        it.close()
+        tables, opt = seeded_state("wv", 1 + NUM_FIELDS * FFM_V_DIM, FFM_V_SCALE, SEED + 14)
+        wl, want = single_steps(fcfg, *clone_state(tables, opt), [fbatch],
+                                lambda b: batch_arrays(b, fcfg))
+        ffm = mesh_steps(make_fullshard_train_step(ftrl, fcfg, mesh), tables, opt, [fbatch],
+                         lambda b: fullshard_arrays(b, fcfg, mesh, True),
+                         "FFM segment side, fully-sharded", wl, want)
+        del tables, opt, want
+        torch.cuda.empty_cache()
+        # one epoch of the trainer on the mesh, beside the single-device two-pass epoch
+        ecfg = override(mcfg, **{"data.train_path": rate_path[: -len("-00000")],
+                                 "train.epochs": 1, "data.cache": "off"})
+        eps = {}
+        for what, mesh_arg in (("single device", None), ("1 x 1 mesh", mesh)):
+            trainer = Trainer(ecfg, device=dev if mesh_arg is not None else DEVICE,
+                              mesh=mesh_arg)
+            torch.cuda.synchronize()
+            st.reset_launches()
+            res = trainer.fit()
+            torch.cuda.synchronize()
+            eps[what] = (res.examples_per_sec, res.seconds / max(res.steps, 1) * 1e3,
+                         dict(st.LAUNCHES), res.steps)
+            if res.steps != RATE_BATCHES or not np.isfinite(res.last_loss):
+                fail(f"the {what} epoch ran {res.steps} steps, last loss {res.last_loss}")
+            del trainer
+        fit_launches = eps["1 x 1 mesh"][2]
+        for k in ("row_sums", "gather_sorted_multi", "scatter_sorted_multi"):
+            if fit_launches[k] != RATE_BATCHES:
+                fail(f"the mesh epoch launched {k} {fit_launches[k]} times, not {RATE_BATCHES}")
+        for what, (rate, step_ms, launches, steps) in eps.items():
+            print(f"# FM epoch over the rate shard ({steps} x {BATCH} rows), {what}, two-pass: "
+                  f"{rate:.1f} examples/s, {step_ms:.2f} ms a step (host clock), launches "
+                  f"{ {k: v for k, v in launches.items() if v} } [{card}]", flush=True)
+        out["epoch_examples_per_sec"] = eps["1 x 1 mesh"][0]
+        out["epoch_step_ms"] = eps["1 x 1 mesh"][1]
+        out["single_examples_per_sec"] = eps["single device"][0]
+        out["single_step_ms"] = eps["single device"][1]
+        for k in MESH_KERNELS:
+            out["launches"][k] = {"fullshard": fs["launches"][k], "replicated":
+                                  rep["launches"][k], "mvm_segment": seg["launches"][k],
+                                  "ffm": ffm["launches"][k], "fit": fit_launches[k]}
+        out["step_ms"] = {"fullshard": fs["ms"], "replicated": rep["ms"],
+                          "mvm_segment": seg["ms"], "ffm": ffm["ms"]}
+    finally:
+        shutdown()
+    print(f"# phase 18 (mesh) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
@@ -3537,6 +3883,7 @@ def main() -> int:
         run_fleet(cfg, work, path, card)
         run_online(cfg, work, path, rate_path, card)
         zipf = run_observe(work, rate_path, card)
+        mesh = run_mesh(cfg, work, path, rate_path, card)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")
@@ -3553,6 +3900,13 @@ def main() -> int:
         k.update(hot.get(k["name"], {}))
         if k["name"] in zipf:
             k["zipf"] = zipf[k["name"]]
+        if k["name"] in mesh["launches"]:
+            k["mesh"] = dict(mesh["launches"][k["name"]])
+        if k["name"] == "scatter_sorted_multi":
+            k["mesh"].update({key: mesh[key] for key in (
+                "fs_positions", "fs_real", "fs_pads", "fs_scatter_ms", "fs_max_abs_err")})
+        if k["name"] == "gather_sorted_multi":
+            k["mesh"]["fs_gather_ms"] = mesh["fs_gather_ms"]
     kern += lab_kern
     for k in kern:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]

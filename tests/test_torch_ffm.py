@@ -219,13 +219,29 @@ def test_aligned_logits_and_cotangent_match_jax_vjp_with_exact_zeros():
 
 
 def test_sorted_batch_without_a_placement_raises():
+    """A sorted batch without its placement no longer raises: it takes the
+    per-(row, field) segment row side (the fully-sharded engine's), whose
+    logits and gradient agree with the aligned hybrid's and with JAX's
+    segment row side on the same table."""
     b, plan = _aligned_plan(4)
     tcfg = override(Config(), **_pairs())
     arrays = to_device(batch_arrays(b, tcfg), "cpu")
-    del arrays["ffm_invperm"]
-    table = {"wv": torch.zeros((S, K))}
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        get_model("ffm")(tcfg)(table, arrays)
+    seg = {k: v for k, v in arrays.items() if k != "ffm_invperm"}
+    rng = np.random.default_rng(5)
+    wv = (rng.standard_normal((S, K)) * 0.1).astype(np.float32)
+    model = get_model("ffm")(tcfg)
+    grads = []
+    for batch in (arrays, seg):
+        t = torch.from_numpy(wv.copy()).requires_grad_(True)
+        logits = model({"wv": t}, batch)
+        logits.sum().backward()
+        grads.append((logits.detach().numpy(), t.grad.numpy()))
+    np.testing.assert_allclose(grads[1][0], grads[0][0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(grads[1][1], grads[0][1], rtol=1e-5, atol=1e-6)
+    jcfg = joverride(JConfig(), **_pairs())
+    jbatch = {k: jnp.asarray(np.asarray(v)) for k, v in seg.items()}
+    want = jffm._forward_sorted({"wv": jnp.asarray(wv)}, jbatch, jcfg)
+    np.testing.assert_allclose(grads[1][0], np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------------------- steps

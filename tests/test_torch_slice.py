@@ -205,6 +205,11 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.launch.local, xflow_tpu_torch.testing.faults\n"
         "import xflow_tpu_torch.serve.lifecycle, xflow_tpu_torch.train.checkpoint\n"
         "import xflow_tpu_torch.tools.collisions\n"
+        "import xflow_tpu_torch.parallel, xflow_tpu_torch.parallel.mesh\n"
+        "import xflow_tpu_torch.parallel.distributed, xflow_tpu_torch.parallel.collectives\n"
+        "import xflow_tpu_torch.parallel.train_step, xflow_tpu_torch.parallel.sorted_sharded\n"
+        "import xflow_tpu_torch.parallel.sorted_fullshard\n"
+        "import xflow_tpu_torch.tools.fullshard_overflow_sim\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
@@ -247,6 +252,41 @@ def test_cli_train_without_jax(slice_case, tmp_path):
     assert (out["steps"], out["epochs"], out["examples"], out["bad_steps"]) == (8, 2, 2 * ROWS, 0)
     assert out["device"] == "cpu" and 0.0 <= out["auc"] <= 1.0
     assert tckpt.committed_steps(str(tmp_path / "ck")) == [8]
+
+
+def test_cli_two_rank_train_without_jax(slice_case, tmp_path):
+    """Two ranks of `train` with jax and xflow_tpu blocked: `--help` names
+    the world's flags, and a 2-rank gloo run over the shard (the second
+    rank's shard missing: it pads with empty batches) exits 0 with rank
+    0's summary alone."""
+    import socket
+
+    main = "from xflow_tpu_torch.__main__ import main\nsys.exit(main(sys.argv[1:]))\n"
+    helps = [_run_without_jax(main, "train", "--help") for _ in range(2)]
+    for r in helps:
+        assert r.returncode == 0, r.stderr
+        assert "--num-processes" in r.stdout and "--coordinator" in r.stdout
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    prefix = slice_case["path"][: -len("-00000")]
+    code = _NO_JAX + f"sys.path.insert(0, {REPO_ROOT!r})\n" + main
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, "train", "--train", prefix, "--epochs", "1",
+         "--batch-size", str(B), "--log2-slots", str(LOG2_S), "--device", "cpu",
+         "--checkpoint-dir", str(tmp_path / "ck"), "--set", f"data.max_nnz={NNZ}",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(r)], cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert "is blocked" not in err
+    assert outs[1][0].strip() == ""
+    out = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert (out["world"], out["rank"], out["steps"], out["examples"]) == (2, 0, 4, ROWS)
+    assert tckpt.committed_steps(str(tmp_path / "ck")) == [4]
 
 
 def test_cli_tail_train_without_jax(slice_case, tmp_path):

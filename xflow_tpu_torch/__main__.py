@@ -8,7 +8,14 @@ Trains on `<PREFIX>-00000` on one device (resuming from the newest
 checkpoint under D when there is one), evaluates `<test PREFIX>-00000`
 when given, and prints one JSON summary line {"rank", "steps", "epochs",
 "examples", "seconds", "examples_per_sec", "last_loss", "occupancy",
-"bad_steps", ["auc", "logloss"], "device"}. With `--set data.stream=tail`
+"bad_steps", ["auc", "logloss"], "device"}. With `--coordinator
+HOST:PORT --num-processes N --process-id K` (or the `XFLOW_COORDINATOR`,
+`XFLOW_NUM_PROCESSES`, `XFLOW_PROCESS_ID` environment) and N above 1,
+each process is one rank of a `torch.distributed` world (NCCL on the
+card, one card a rank; gloo with `--device cpu`) and the ranks train on
+a ('data', 'table') mesh (`--set mesh.data=D --set mesh.table=T`):
+data coordinate d reads `<PREFIX>-0000d`, rank 0 writes the checkpoint
+and prints the summary (with "world"). With `--set data.stream=tail`
 it follows the growing shard set instead (the online loop, publishing
 every `train.publish_every` steps). SIGTERM or SIGINT commit the step
 reached; the summary then carries "interrupted" (the signal), no
@@ -171,19 +178,45 @@ def cmd_serve_fleet(args) -> int:
 
 
 def cmd_train(args) -> int:
+    from xflow_tpu_torch.parallel.distributed import maybe_initialize, shutdown
+
+    rank = maybe_initialize(args.coordinator, args.num_processes, args.process_id,
+                            device=args.device)
+    try:
+        return _train(args, rank)
+    finally:
+        shutdown()
+
+
+def _train(args, rank: int) -> int:
+    import torch.distributed as dist
+
     from xflow_tpu_torch.train.trainer import Trainer
 
-    if (args.num_processes or 1) > 1:
-        print("train: the port trains on one device; multi-process runs are not "
-              "ported", file=sys.stderr)
-        return 2
     cfg = build_config(args)
-    trainer = Trainer(cfg, device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh, device = None, args.device
+    if world > 1:
+        if args.no_mesh:
+            print("train: --no-mesh with a world of several processes would train each "
+                  "rank alone; drop --no-mesh, or run one process", file=sys.stderr)
+            return 2
+        import torch
+
+        from xflow_tpu_torch.parallel.distributed import local_device
+        from xflow_tpu_torch.parallel.mesh import make_mesh
+
+        device = local_device(args.device, rank, world)
+        mesh = make_mesh(cfg, device=device)
+        if torch.device(device).type == "cpu":
+            device = "cpu"
+    trainer = Trainer(cfg, device=device, mesh=mesh)
     if trainer.maybe_restore():
-        print(f"resumed from step {trainer.state.step}", file=sys.stderr)
+        if rank == 0:
+            print(f"resumed from step {trainer.state.step}", file=sys.stderr)
     res = trainer.fit()
     summary = {
-        "rank": 0,
+        "rank": rank,
         "steps": res.steps,
         "epochs": res.epochs,
         "examples": res.examples,
@@ -201,11 +234,15 @@ def cmd_train(args) -> int:
         print(json.dumps(summary))
         return 0
     if cfg.data.test_path:
-        auc, ll = trainer.evaluate()
+        auc, ll = trainer.evaluate()  # every rank takes part on a mesh
         summary["auc"], summary["logloss"] = auc, ll
-        print(f"logloss: {ll}\tauc = {auc}", file=sys.stderr)
+        if rank == 0:
+            print(f"logloss: {ll}\tauc = {auc}", file=sys.stderr)
     summary["device"] = args.device
-    print(json.dumps(summary))
+    if world > 1:
+        summary["world"] = world
+    if rank == 0:
+        print(json.dumps(summary))
     return 0
 
 
@@ -280,11 +317,13 @@ def main(argv=None) -> int:
     tr.add_argument("--log2-slots", type=int, default=None)
     tr.add_argument("--checkpoint-dir", default=None)
     tr.add_argument("--no-mesh", action="store_true",
-                    help="accepted for flag parity: the port always runs one device")
-    tr.add_argument("--coordinator", default=None, help="accepted for flag parity")
+                    help="one process, one device (a world of several refuses it)")
+    tr.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's store (else XFLOW_COORDINATOR)")
     tr.add_argument("--num-processes", type=int, default=None,
-                    help="accepted for flag parity; more than 1 is refused")
-    tr.add_argument("--process-id", type=int, default=None, help="accepted for flag parity")
+                    help="world size (else XFLOW_NUM_PROCESSES); above 1 trains on a mesh")
+    tr.add_argument("--process-id", type=int, default=None,
+                    help="this rank (else XFLOW_PROCESS_ID)")
     tr.add_argument("--device", default="cuda")
     tr.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="dotted config override, e.g. --set optim.name=sgd")

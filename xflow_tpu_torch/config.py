@@ -1,12 +1,13 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
 (FM inference, single-device LR, FM, MVM and FFM training, the host
 input plane, the server and its fleet, the online training loop and
-the trainer's observability) read, with the JAX package's
+the trainer's observability, the multi-device engines) read, with the
+JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
 Sections and fields not listed here belong to paths the port has not
-taken over yet (multi-device engines, `train.signal_sync_every`) or
+taken over yet (`sync.*`, `train.signal_sync_every`) or
 leaves out by design (`train.compile_metrics`); an override naming one
 raises KeyError.
 """
@@ -85,6 +86,15 @@ class DataConfig:
     sub-batches a batch's plan is stacked into (0 = auto:
     `ops/sorted_table.resolve_sub_batches`).
 
+    On a mesh (`parallel/`): `sorted_mesh` picks the sorted engine,
+    "fullshard" (table and optimizer state sharded over every rank,
+    `parallel/sorted_fullshard.py`) or "replicated" (sharded over the
+    table axis, repeated across the data axis,
+    `parallel/sorted_sharded.py`); `fullshard_slack` sizes the
+    fully-sharded engine's per-(source, owner) occurrence buffers as a
+    multiple of the uniform-hash expectation (a batch that overflows
+    them runs the row-major sharded step).
+
     `dedup` ("auto"|"off") ships a row-major batch as (unique_slots,
     inverse) when its unique slots fit `dedup_cap_frac * batch_size *
     max_nnz` (`ops/sorted_table.dedup_slots`): the table gather then
@@ -123,8 +133,10 @@ class DataConfig:
     sorted_layout: str = "auto"
     sorted_bf16: bool = False
     sorted_sub_batches: int = 0
+    sorted_mesh: str = "fullshard"
     dedup: str = "off"
     dedup_cap_frac: float = 0.5
+    fullshard_slack: float = 2.0
     stream: str = "off"
     stream_poll_s: float = 0.25
     stream_idle_s: float = 0.0
@@ -282,10 +294,22 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The ('data', 'table') mesh of a multi-rank run
+    (`parallel/mesh.py`): `data` ranks split the batch (the reference's
+    workers), `table` ranks split the table's slot range (its servers).
+    -1 infers the axis from the world size."""
+
+    data: int = -1
+    table: int = 1
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 

@@ -237,6 +237,21 @@ def count_batches(path: str, cfg, batch_size: Optional[int] = None) -> int:
     return -(-native_count_rows(path) // bs)
 
 
+def assign_shards(prefix: str, rank: int, world: int,
+                  num_shards: int = 0) -> list[tuple[int, str]]:
+    """Round-robin shard ownership (`xflow_tpu/data/pipeline.py`):
+    [(shard index, path)] for member `rank` of `world` (on a mesh, the
+    data coordinate of D). `num_shards` is the shard set in play; for a
+    fresh run it is the world, so member k owns shard k alone. A smaller
+    world covers the whole set (k, k+M, k+2M, ...); a larger one gives
+    members N..M-1 the shard of their own index. The paths need not
+    exist: a missing shard counts as no batches."""
+    from xflow_tpu_torch.data.libffm import shard_path
+
+    n = max(int(num_shards), int(world), 1)
+    return [(s, shard_path(prefix, s)) for s in range(int(rank), n, int(world))]
+
+
 def prefetch(iterator: Iterator, depth: int = 2, profiler=None) -> Iterator:
     """Run `iterator` in a background thread with a bounded queue.
 

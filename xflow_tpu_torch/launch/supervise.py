@@ -10,6 +10,9 @@ serving fleet needs.
   configuration error (a crash loop would burn every restart in
   seconds), and supervision stops with its exit code.
 
+- `retry_call(fn, ...)` calls `fn` with bounded backoff-spaced retries
+  (the rendezvous of `parallel/distributed.py`).
+
 The training launchers' multi-rank wait, teardown and degraded-mode
 supervision are not taken over (they come with the launch layer).
 """
@@ -19,16 +22,49 @@ from __future__ import annotations
 import random
 import sys
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 BACKOFF_CAP_S = 60.0
 
 
-def backoff_delay(attempt: int, base_s: float, rng=None) -> float:
-    """base_s * 2^attempt capped at BACKOFF_CAP_S, scaled uniformly into
+def backoff_delay(attempt: int, base_s: float, rng=None,
+                  cap_s: float = BACKOFF_CAP_S) -> float:
+    """base_s * 2^attempt capped at `cap_s`, scaled uniformly into
     [0.5, 1.0]x, so N restarted processes do not relaunch in lockstep."""
-    d = min(float(base_s) * (2.0 ** max(int(attempt), 0)), BACKOFF_CAP_S)
+    d = min(float(base_s) * (2.0 ** max(int(attempt), 0)), float(cap_s))
     return d * (rng or random).uniform(0.5, 1.0)
+
+
+def retry_call(
+    fn: Callable,
+    what: str,
+    retries: int,
+    base_s: float,
+    cap_s: float = BACKOFF_CAP_S,
+    cleanup: Optional[Callable] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    out=None,
+):
+    """`fn()` with up to `retries` backoff-spaced retries: each failure is
+    logged with its reason and the delay, `cleanup` (when given) tears
+    down what the failed call left between attempts, and the last
+    failure propagates unchanged."""
+    for attempt in range(max(int(retries), 0) + 1):
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 — every failure retries; the last propagates
+            if attempt >= retries:
+                raise
+            delay = backoff_delay(attempt, base_s, cap_s=cap_s)
+            print(f"{what}: attempt {attempt + 1}/{retries + 1} failed "
+                  f"({type(e).__name__}: {e}); retrying in {delay:.1f}s",
+                  file=out or sys.stderr)
+            if cleanup is not None:
+                try:
+                    cleanup()
+                except Exception:  # noqa: BLE001 — a failed teardown must not mask the retry
+                    pass
+            sleep(delay)
 
 
 def supervise(

@@ -23,10 +23,14 @@ exact for multi-valued fields too. Two forward forms, one function:
   0/1 selector on the MXU, both for the TPU's tiles; here the placement
   is [B, nf, K] and the swap a gather, which moves the same values.
 
-A sorted batch without `ffm_invperm` needs the per-(row, field) segment
-engine (`make_ffm_row_op` in the JAX package), whose one real user is
-the multi-device fullshard engine: it is not ported (`ROADMAP.md` Queue
-1 item 7), and `forward` raises on such a batch.
+- sorted, the per-(row, field) SEGMENT row side (a sorted batch without
+  `ffm_invperm`, flat or stacked): one segment sum keyed on
+  ``row * nf + field`` of the occurrence channels (w, the v blocks,
+  ‖v_self‖²) and the field-sum contraction, with a hand-written backward
+  exact at zeros (`make_ffm_row_op`). It is the fully-sharded mesh
+  engine's row side (`parallel/sorted_fullshard.py`), where the row
+  aggregates cross the ranks; the single-device trainer plans aligned
+  batches, and the hybrid above, as before.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from xflow_tpu_torch.models.base import Model, register_model
 from xflow_tpu_torch.models.mvm import has_field_duplicates
 from xflow_tpu_torch.ops.sorted_table import (
     batch_rows,
+    segment_sum_channels,
+    sorted_gather_map,
     table_gather_sorted,
     wire_mask,
     wire_rows,
@@ -205,17 +211,120 @@ def ffm_aligned_logits(occ_t: torch.Tensor, batch: dict, cfg) -> torch.Tensor:
     return AlignedRowMath.apply(A, nf, k)
 
 
+# ------------------------------------------------------- segment row side
+
+def ffm_logits_from_sums(sums: torch.Tensor, nf: int, k: int) -> torch.Tensor:
+    """[rows, nf, K+1] per-(row, field) channel sums -> [rows] logits.
+    Channel 0 is w, 1..nf·k the v blocks, K = nf·k+1 the ‖v_self‖² term;
+    ``sums[r, c1]`` sums row r's field-c1 occurrences. The field-sum
+    contraction Σ ⟨S[c1, c2], S[c2, c1]⟩ is an elementwise product and a
+    sum (no matmul, so no reduced-precision path on the card)."""
+    K = 1 + nf * k
+    R = sums.shape[0]
+    wx = sums[:, :, 0].sum(dim=1)
+    S = sums[:, :, 1:K].reshape(R, nf, nf, k)
+    qsum = sums[:, :, K].sum(dim=1)
+    full = (S * S.transpose(1, 2)).sum(dim=(1, 2, 3))
+    return wx + 0.5 * (full - qsum)
+
+
+def ffm_occurrence_channels(occ_t, mask, fields, nf: int, k: int) -> torch.Tensor:
+    """[K8, Np] gathered rows, mask and per-occurrence field ids ->
+    [K+1, Np]: the masked w and v blocks, then ‖v_{occ, f_occ}‖² (the
+    own-field block by a one-hot sum, not a gather)."""
+    K = 1 + nf * k
+    occm = occ_t[:K] * mask[None, :]
+    v3 = occm[1:].reshape(nf, k, occm.shape[1])
+    onehot = (fields[None, :] == torch.arange(nf, device=fields.device)[:, None]).to(occm.dtype)
+    vself = (v3 * onehot[:, None, :]).sum(dim=0)  # [k, Np]
+    q = (vself * vself).sum(dim=0)
+    return torch.cat([occm, q[None, :]], dim=0)
+
+
+class FFMRowOp(torch.autograd.Function):
+    """Logits [R] of the segment row side from the gathered rows, through
+    `reduce_segments(data [K+1, Np], seg [Np]) -> [R, nf, K+1]`. The
+    backward is JAX's `make_ffm_row_op` hand VJP:
+
+        d v_i[c] = dl_b · (S[b, c, f_i] − [c == f_i] · v_i[c]),  d w_i = dl_b
+
+    the two terms in one subtraction, so it is exactly 0 where
+    S[b, c, f_i] is v_i's own bits (a single-occupant field) or 0 (an
+    absent field): the zeros FTRL's lazy-init guard reads. The row
+    aggregates reach the occurrences through `broadcast_rows` (the
+    identity on one device, `all_gather` over `data` in the fully-sharded
+    engine) after `restore_dl` fixes up the cotangent."""
+
+    @staticmethod
+    def forward(ctx, occ_t, mask, fields, rows, hooks):
+        reduce_segments, _, _, nf, k = hooks
+        data = ffm_occurrence_channels(occ_t, mask, fields, nf, k)
+        sums = reduce_segments(data, rows * nf + fields)  # [R, nf, K+1]
+        ctx.save_for_backward(occ_t, mask, fields, rows, sums)
+        ctx.hooks = hooks
+        return ffm_logits_from_sums(sums, nf, k)
+
+    @staticmethod
+    def backward(ctx, dl):
+        occ_t, mask, fields, rows, sums = ctx.saved_tensors
+        _, broadcast_rows, restore_dl, nf, k = ctx.hooks
+        K = 1 + nf * k
+        R = sums.shape[0]
+        dl = restore_dl(dl)
+        packed = broadcast_rows(torch.cat([dl[:, None], sums.reshape(R, -1)], dim=1))
+        dl_all, sums_all = packed[:, 0], packed[:, 1:]
+        R_all = sums_all.shape[0]
+        A = sums_all.reshape(R_all, nf, K + 1)[:, :, 1:K].reshape(R_all, nf, nf, k)
+        # Tmat[b*nf + f, c*k + kk] = S[b, c, f, kk]
+        Tmat = A.transpose(1, 2).reshape(R_all * nf, nf * k)
+        ri = rows.long()
+        G = Tmat[ri * nf + fields.long()].T  # [nf*k, Np]
+        occm_v = occ_t[1:K] * mask[None, :]
+        blockmask = torch.repeat_interleave(
+            (fields[None, :] == torch.arange(nf, device=fields.device)[:, None]).to(occ_t.dtype),
+            k, dim=0)
+        dl_occ = dl_all[ri] * mask
+        d_v = (G - occm_v * blockmask) * dl_occ[None, :]
+        d_occ = occ_t.new_zeros(occ_t.shape)
+        d_occ[0] = dl_occ
+        d_occ[1:K] = d_v
+        return d_occ, None, None, None, None
+
+
+def make_ffm_row_op(reduce_segments, broadcast_rows, nf: int, k: int, restore_dl=None):
+    """`op(occ_t [K8, Np], mask, fields, rows) -> logits [R]` with the
+    hooks of JAX's `make_ffm_row_op` (None: the identity)."""
+    ident = lambda x: x  # noqa: E731
+    hooks = (reduce_segments, broadcast_rows or ident, restore_dl or ident, nf, k)
+    return lambda occ_t, mask, fields, rows: FFMRowOp.apply(occ_t, mask, fields, rows, hooks)
+
+
+def _row_side_sorted(occ_t, sorted_row, sorted_mask, sorted_fields, rows: int, cfg):
+    """One (sub-)batch's segment row side on one device: the segment sum
+    into [rows·nf, K+1] field sums, then the logits."""
+    nf, k = _dims(cfg)
+    K = 1 + nf * k
+    op = make_ffm_row_op(
+        lambda data, seg: segment_sum_channels(data, seg, rows * nf).reshape(rows, nf, K + 1),
+        None, nf, k,
+    )
+    return op(occ_t, wire_mask(sorted_mask), wire_rows(sorted_fields), wire_rows(sorted_row))
+
+
 def _forward_sorted(tables: dict, batch: dict, cfg) -> torch.Tensor:
-    if "ffm_invperm" not in batch or batch["sorted_slots"].ndim != 1:
-        raise ValueError(
-            "FFM: this sorted batch has no ffm_invperm (or a stacked plan); only the "
-            "aligned hybrid is ported. Its rows need the per-(row, field) segment "
-            "engine, which comes with the multi-device engines (ROADMAP.md Queue 1 "
-            "item 7); route the batch row-major (data.sorted_layout=auto or off)"
-        )
-    occ_t = table_gather_sorted(tables["wv"], batch["sorted_slots"], batch["win_off"],
-                                cfg.data.sorted_bf16)
-    return ffm_aligned_logits(occ_t, batch, cfg)
+    """The aligned hybrid for a batch with its placement, else the
+    segment row side (flat or stacked plans)."""
+    if "ffm_invperm" in batch:
+        occ_t = table_gather_sorted(tables["wv"], batch["sorted_slots"], batch["win_off"],
+                                    cfg.data.sorted_bf16)
+        return ffm_aligned_logits(occ_t, batch, cfg)
+    nf, k = _dims(cfg)
+    return sorted_gather_map(
+        tables["wv"], batch, ("sorted_row", "sorted_mask", "sorted_fields"),
+        batch["labels"].shape[0],
+        lambda occ, sr, sm, sf, rows: _row_side_sorted(occ, sr, sm, sf, rows, cfg),
+        1 + nf * k, cfg.data.sorted_bf16,
+    )
 
 
 @register_model

@@ -119,8 +119,9 @@ def _products_from_sums(S, NC, ZC):
 
 class RowProducts(torch.autograd.Function):
     """P [rows, k], P[r, c] = Π over row r's masked occurrences of
-    occ_t_k[c, occ], through `row_sums_sorted` in log space. The backward
-    is written by hand (`make_row_products` in the JAX package):
+    occ_t_k[c, occ], in log space through `reduce_rows` (the
+    occurrence -> row reduction). The backward is written by hand
+    (`make_row_products` in the JAX package):
 
         dP/dv_j = sign_ex · exp(S − L_j) · [ZC − Z_j == 0]
 
@@ -131,17 +132,19 @@ class RowProducts(torch.autograd.Function):
     Autograd through log/exp would not give those zeros."""
 
     @staticmethod
-    def forward(ctx, occ_t_k, mask, rows, num_rows, k):
-        sums = row_sums_sorted(mvm_product_channels(occ_t_k, mask, k), rows, num_rows)
+    def forward(ctx, occ_t_k, mask, rows, hooks):
+        reduce_rows, broadcast_rows, restore_dP, k = hooks
+        sums = reduce_rows(mvm_product_channels(occ_t_k, mask, k), rows)
         ctx.save_for_backward(occ_t_k, mask, rows, sums)
-        ctx.k = k
+        ctx.hooks = hooks
         return _products_from_sums(sums[:, :k], sums[:, k : 2 * k], sums[:, 2 * k : 3 * k])
 
     @staticmethod
     def backward(ctx, dP):
         occ_t_k, mask, rows, sums = ctx.saved_tensors
-        k = ctx.k
-        per = torch.cat([dP, sums[:, : 3 * k]], dim=1)[rows.long()].T  # [4k, Np]
+        _, broadcast_rows, restore_dP, k = ctx.hooks
+        dP = restore_dP(dP)
+        per = broadcast_rows(torch.cat([dP, sums[:, : 3 * k]], dim=1))[rows.long()].T  # [4k, Np]
         dPo, S, NC, ZC = (per[i * k : (i + 1) * k] for i in range(4))
         m = mask[None, :]
         L = torch.log(torch.clamp(occ_t_k.abs(), min=MVM_LOG_TINY))
@@ -149,12 +152,30 @@ class RowProducts(torch.autograd.Function):
         NC_ex = NC - m * (occ_t_k < 0.0)
         ZC_ex = ZC - m * (occ_t_k == 0.0)
         P_ex = _products_from_sums(S_ex, NC_ex, ZC_ex)
-        return dPo * P_ex * m, None, None, None, None
+        return dPo * P_ex * m, None, None, None
+
+
+def _identity(x):
+    return x
+
+
+def make_row_products(reduce_rows, broadcast_rows, k: int, restore_dP=None):
+    """The product op, `op(occ_t_k [k, Np], mask [Np], rows [Np]) -> P
+    [R, k]`, with the hooks of JAX's `make_row_products`:
+    `reduce_rows(channels [ch, Np], rows) -> [R, ch]` (the row-sum kernel
+    on one device; the row sum and `owner_reduce` in the fully-sharded
+    engine), `broadcast_rows` the backward's transport of the [R, 4k] row
+    aggregates (the identity on one device; `all_gather` over `data` in
+    the engine) and `restore_dP` a fix-up of the incoming cotangent
+    (None: the identity)."""
+    hooks = (reduce_rows, broadcast_rows or _identity, restore_dP or _identity, k)
+    return lambda occ_t_k, mask, rows: RowProducts.apply(occ_t_k, mask, rows, hooks)
 
 
 def row_products(occ_t_k, mask, rows, num_rows: int, k: int) -> torch.Tensor:
-    """The product op (`make_row_products` on one device): [rows, k]."""
-    return RowProducts.apply(occ_t_k, mask, rows, num_rows, k)
+    """The product op on one device: [rows, k]."""
+    op = make_row_products(lambda ch, r: row_sums_sorted(ch, r, num_rows), None, k)
+    return op(occ_t_k, mask, rows)
 
 
 def _product_row_side(occ_t, sorted_row, sorted_mask, rows: int, k: int,

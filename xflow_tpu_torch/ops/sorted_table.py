@@ -254,21 +254,28 @@ def resolve_sub_batches(cfg) -> int:
 def compact_plan_wire(arrays: dict, rows_bound: int, fields_bound: int = 0) -> dict:
     """Shrink the plan's host-to-device wire format: row ids to uint16
     (when `rows_bound` <= 2^16), fields to uint8 (when `fields_bound` <=
-    2^8), the 0/1 mask to uint8. The device side widens them with
-    `wire_rows` / `wire_mask`. Raises on a mask that is not 0/1. Arrays
-    already compact (the native planner's wire form) pass through
-    untouched."""
+    2^8), the 0/1 mask to uint8, for the flat or stacked plan
+    (`sorted_*`) and the fully-sharded engine's buffers (`fs_*`). The
+    bounds come from the config, never the data, so every rank of a mesh
+    picks the same dtypes. The device side widens them with `wire_rows` /
+    `wire_mask`. Raises on a mask that is not 0/1. Arrays already compact
+    (the native planner's wire form) pass through untouched."""
     out = dict(arrays)
-    if rows_bound <= (1 << 16) and _dtype(out, "sorted_row") == np.int32:
-        out["sorted_row"] = np.asarray(out["sorted_row"]).astype(np.uint16)
-    if 0 < fields_bound <= (1 << 8) and _dtype(out, "sorted_fields") == np.int32:
-        out["sorted_fields"] = np.asarray(out["sorted_fields"]).astype(np.uint8)
-    if _dtype(out, "sorted_mask") == np.float32:
-        m = np.asarray(out["sorted_mask"])
-        u8 = m.astype(np.uint8)
-        if not (m == u8).all():
-            raise ValueError("sorted_mask carries non-0/1 values: the mask is a presence mask")
-        out["sorted_mask"] = u8
+    if rows_bound <= (1 << 16):
+        for key in ("sorted_row", "fs_row"):
+            if _dtype(out, key) == np.int32:
+                out[key] = np.asarray(out[key]).astype(np.uint16)
+    if 0 < fields_bound <= (1 << 8):
+        for key in ("sorted_fields", "fs_fields"):
+            if _dtype(out, key) == np.int32:
+                out[key] = np.asarray(out[key]).astype(np.uint8)
+    for key in ("sorted_mask", "fs_mask"):
+        if _dtype(out, key) == np.float32:
+            m = np.asarray(out[key])
+            u8 = m.astype(np.uint8)
+            if not (m == u8).all():
+                raise ValueError(f"{key} carries non-0/1 values: the mask is a presence mask")
+            out[key] = u8
     return out
 
 

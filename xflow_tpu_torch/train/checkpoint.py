@@ -18,7 +18,9 @@ fsync (`write_flat`), with the disk-fault seam of
 `restore_tiered` and `restore_tables` read the tables only (serving and
 evaluation never read optimizer state); `restore_state` reads tables,
 optimizer state and step for the trainer. `restore_tiered` and
-`restore_state` walk the primary dir and a tier-2 replica dir. All
+`restore_state` walk the primary dir and a tier-2 replica dir
+(`restore_state_mesh` on a mesh: rank 0 walks, the step and the whole
+leaves are broadcast, each rank keeps its range). All
 verify digests and walk back past a step that fails to load; a fused
 FM ``wv`` and the two-table ``w`` / ``v`` restore into each other
 (`_fused_alias`).
@@ -302,6 +304,50 @@ def restore_state(ckpt_dir: str, shapes: dict, opt_leaves: tuple, verify: str = 
 
     (tables, opt), step, src = _walk_tiers(_tiers(ckpt_dir, replica_dir), load)
     return tables, opt, step, src
+
+
+def restore_state_mesh(ckpt_dir: str, shapes: dict, opt_leaves: tuple, mesh, layout: str,
+                       device, verify: str = "auto", replica_dir: Optional[str] = None):
+    """`restore_state` on a mesh: rank 0 walks the tiers, broadcasts the
+    step it loaded (-1: none, FileNotFoundError on every rank) and every
+    leaf whole, and each rank keeps its own range of the `layout`
+    (`parallel/mesh.shard_tensor`). Returns (tables, opt_state, step,
+    data_state) as tensors on `device`; the data_state is the tier's
+    that restored, read by rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from xflow_tpu_torch.parallel.mesh import shard_tensor
+
+    got = None
+    if mesh.rank == 0:
+        try:
+            tables, opt, step, src = restore_state(ckpt_dir, shapes, opt_leaves, verify=verify,
+                                                   replica_dir=replica_dir)
+            got = (tables, opt, step, read_data_state(src, step))
+        except FileNotFoundError:
+            got = None
+    head = torch.tensor([got[2] if got else -1], dtype=torch.int64, device=device)
+    dist.broadcast(head, src=0)
+    step = int(head.item())
+    if step < 0:
+        raise FileNotFoundError(f"no loadable checkpoint under {ckpt_dir}")
+    box = [got[3] if got else None]
+    dist.broadcast_object_list(box, src=0, device=device if torch.device(device).type == "cuda"
+                               else None)
+
+    def leaf(arr, shape):
+        t = (torch.from_numpy(np.ascontiguousarray(arr)).to(device) if arr is not None
+             else torch.empty(shape, dtype=torch.float32, device=device))
+        dist.broadcast(t, src=0)
+        return shard_tensor(t, mesh, layout)
+
+    tables, opt = {}, {}
+    for n in sorted(shapes):
+        shape = tuple(shapes[n])
+        tables[n] = leaf(got[0][n] if got else None, shape)
+        opt[n] = {k: leaf(got[1][n][k] if got else None, shape) for k in opt_leaves}
+    return tables, opt, step, box[0]
 
 
 def read_publication(ckpt_dir: str, step: int) -> Optional[dict]:

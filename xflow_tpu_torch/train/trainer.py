@@ -1,4 +1,4 @@
-"""Single-device training (a subset of `xflow_tpu/train/trainer.py`).
+"""Training on one device or a mesh (a subset of `xflow_tpu/train/trainer.py`).
 
 `Trainer(cfg, device).fit()` runs epochs over the rank-0 shard of
 `data.train_path` (`<prefix>-00000`) in file order, no shuffle. A
@@ -49,9 +49,26 @@ window and `final` records, `eval_auc`, `pipeline`, `ingest`, `ckpt`,
 (`train.eval_buckets`; a streaming pass takes 65,536 under auto) with
 the decayed window, either writing `pred_0_<block>.txt` rows.
 
+On a mesh (`Trainer(cfg, device, mesh)`, `parallel/`): each rank
+drives one device; the engine follows the JAX trainer's choice
+(`data.sorted_mesh`: the fully-sharded engine under auto when it
+validates, the replicated one when asked, else the row-major sharded
+step, which LR always takes). A data coordinate reads its shards
+(`pipeline.assign_shards(prefix, d, D)`); one all_reduce(MAX) a pass
+fixes the pass's step count, so ragged shards pad with empty batches
+instead of deadlocking; one all_reduce(MAX) a batch agrees on the
+fully-sharded engine's overflow fallback (and MVM's row side under
+`mvm_exclusive=auto`), so every rank runs the same step. Checkpoints
+gather the shards and rank 0 writes the single-device format; restore
+is rank 0's walk, broadcast. `evaluate` runs on every rank and rank 0
+reports and dumps; rank 0 alone writes the records and the heartbeat.
+The online loop, the signal-driven save (it needs the JAX package's
+`signal_sync_every`) and an elastic resume onto another world are not
+taken over on a mesh.
+
 Not taken over from the JAX trainer: compile accounting and its
-roofline gauges (the torch step has no compile step), the fault
-injectors of the fit loop, and multi-process coordination.
+roofline gauges (the torch step has no compile step) and the fault
+injectors of the fit loop.
 """
 
 from __future__ import annotations
@@ -81,7 +98,12 @@ from xflow_tpu_torch.evaluate import (
     to_device,
 )
 from xflow_tpu_torch.jsonl import JsonlAppender
-from xflow_tpu_torch.metrics import BucketAUC, log_likelihood, resolve_eval_buckets
+from xflow_tpu_torch.metrics import (
+    BucketAUC,
+    auc_logloss,
+    log_likelihood,
+    resolve_eval_buckets,
+)
 from xflow_tpu_torch.models import get_model
 from xflow_tpu_torch.optim import get_optimizer
 from xflow_tpu_torch.telemetry import (
@@ -169,7 +191,7 @@ class _StepLog:
         t, prof = self.t, self.prof
         pc = time.perf_counter
         t0 = pc()
-        arrays = to_device(host, t.device)
+        arrays = to_device(t._prepare(batch, host), t.device)
         t1 = pc()
         t.state, m = t.train_step(t.state, arrays)
         m = stage_metrics(m)
@@ -299,22 +321,32 @@ class _StepLog:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", mesh=None):
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
         self.model = get_model(cfg.model.name)(cfg)
         self.optimizer = get_optimizer(cfg.optim.name)
-        # batches ship as slot-sorted plans (the JAX trainer's single-device
-        # rule); validates data.sorted_layout at construction
-        self.sorted = sorted_layout_on(cfg)
         self._guarded = nonfinite_guard_on(cfg)  # validates train.nonfinite_guard
         self.dedup = HostDedup(cfg)  # row-major batches; validates data.dedup
-        self.state: TrainState = init_state(self.model, self.optimizer, cfg, device)
-        self.train_step = make_train_step(self.model, self.optimizer, cfg)
-        self.metrics = MetricsLogger(cfg.train.metrics_path,
+        if mesh is None:
+            # batches ship as slot-sorted plans (the JAX trainer's
+            # single-device rule); validates data.sorted_layout
+            self.sorted = sorted_layout_on(cfg)
+            self._mesh_engine = None
+            self._layout = None
+            self.state: TrainState = init_state(self.model, self.optimizer, cfg, device)
+            self.train_step = make_train_step(self.model, self.optimizer, cfg)
+        else:
+            self._init_mesh(cfg, mesh)
+        # rank 0 alone writes the run's records and heartbeat on a mesh
+        lead = self.rank == 0
+        self.metrics = MetricsLogger(cfg.train.metrics_path if lead else "",
                                      max_bytes=cfg.train.metrics_max_bytes)
         # liveness: {step} records, and start/checkpoint/eval/final events
-        self.heartbeat = JsonlAppender(cfg.train.heartbeat_path, stamp={"kind": "heartbeat"})
+        self.heartbeat = JsonlAppender(cfg.train.heartbeat_path if lead else "",
+                                       stamp={"kind": "heartbeat"})
         self._health = HealthMonitor(mode=health_mode(cfg),
                                      ema_decay=cfg.train.health_ema_decay,
                                      num_slots=cfg.num_slots)
@@ -322,14 +354,234 @@ class Trainer:
         self.pipeline_prof = PipelineProfiler() if cfg.train.pipeline_metrics else None
         self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = None  # started lazily
         # data-stream position pinned by the next checkpoint's data_state:
-        # (epoch, batches consumed within it) of the one shard
+        # (epoch, batches consumed within it) of the one shard (on a mesh,
+        # the pass's global step offset, with this coordinate's real
+        # batches in _local_pos)
         self._epoch_pos = (0, 0)
+        self._local_pos = 0
+        self._last_real = True
+        self._fs_overflow_warned = False
         self._examples_seen = 0
         self._examples_base = 0
         self._resume_data_state: Optional[dict] = None
+        self._resume_offset = 0
         # the decayed eval window (BucketAUC, ll_sum, rows), from the
         # first pass under train.eval_window_decay
         self._eval_window: Optional[tuple] = None
+
+    # ------------------------------------------------------------------- mesh
+    def _init_mesh(self, cfg: Config, mesh) -> None:
+        """The JAX trainer's engine selection on a mesh: `data.sorted_mesh`
+        "fullshard" (under auto, whenever it validates) or "replicated"
+        (only under sorted_layout=on), else the row-major sharded step;
+        `optim.fused_scatter=on` raises at startup (the mesh engines run
+        the two-pass form). The state is initialised whole from
+        `train.seed`, as on one device, and each rank keeps its range."""
+        from xflow_tpu_torch.parallel import train_step as ts
+        from xflow_tpu_torch.parallel.mesh import check_divisible, shard_tensor
+        from xflow_tpu_torch.parallel.sorted_fullshard import (
+            make_fullshard_eval_step,
+            make_fullshard_train_step,
+            validate_sorted_fullshard,
+        )
+        from xflow_tpu_torch.parallel.sorted_sharded import (
+            make_sorted_sharded_train_step,
+            validate_sorted_sharded,
+        )
+
+        engine = cfg.data.sorted_mesh
+        if engine not in ("fullshard", "replicated"):
+            raise ValueError(
+                f"data.sorted_mesh={engine!r}: expected 'fullshard' or 'replicated'")
+        sl = cfg.data.sorted_layout
+        if sl not in ("auto", "on", "off"):
+            raise ValueError(f"data.sorted_layout={sl!r}: expected auto|on|off")
+        self._mesh_engine = None
+        if sl == "on":
+            (validate_sorted_fullshard if engine == "fullshard" else validate_sorted_sharded)(
+                cfg, mesh)
+            self._mesh_engine = engine
+        elif sl == "auto" and engine == "fullshard":
+            try:
+                validate_sorted_fullshard(cfg, mesh)
+                self._mesh_engine = "fullshard"
+            except ValueError:
+                self._mesh_engine = None
+        self.sorted = self._mesh_engine is not None
+        if cfg.optim.fused_scatter not in ("auto", "on", "off"):
+            raise ValueError(
+                f"optim.fused_scatter={cfg.optim.fused_scatter!r}: expected auto|on|off")
+        if cfg.optim.fused_scatter == "on":
+            raise ValueError(
+                "optim.fused_scatter=on requires the single-device "
+                "step; mesh engines run the two-pass form — use auto "
+                "(fuses where eligible) or off"
+            )
+        self._layout = "table" if self._mesh_engine == "replicated" else "full"
+        check_divisible(cfg.num_slots, mesh)
+        whole = init_state(self.model, self.optimizer, cfg, "cpu")
+
+        def put(x):
+            return shard_tensor(x, mesh, self._layout).to(self.device)
+
+        self.state = TrainState({n: put(t) for n, t in whole.tables.items()},
+                                {n: {k: put(v) for k, v in st.items()}
+                                 for n, st in whole.opt_state.items()}, 0)
+        del whole
+        row_step = ts.make_sharded_train_step(self.model, self.optimizer, cfg, mesh,
+                                              self._layout)
+        row_eval = ts.make_sharded_eval_step(self.model, cfg, mesh, self._layout)
+        if self._mesh_engine == "fullshard":
+            fs_step = make_fullshard_train_step(self.optimizer, cfg, mesh)
+            fs_eval = make_fullshard_eval_step(cfg, mesh)
+            # a batch that overflowed the buffers arrives as a row share and
+            # runs the row-major step: the same layout, so the two interleave
+            self.train_step = lambda st, b: (fs_step if "fs_slots" in b else row_step)(st, b)
+            self.eval_step = lambda tb, b: (fs_eval if "fs_slots" in b else row_eval)(tb, b)
+        elif self._mesh_engine == "replicated":
+            self.train_step = make_sorted_sharded_train_step(self.optimizer, cfg, mesh)
+            self.eval_step = row_eval
+        else:
+            self.train_step = row_step
+            self.eval_step = row_eval
+
+    def _host_arrays(self, batch, train: bool = True) -> dict:
+        """A batch's host arrays: on one device `evaluate.batch_arrays`; on
+        a mesh this rank's buffers of the fully-sharded engine (with the
+        overflow and MVM duplicate flags the main thread agrees on), the
+        replicated engine's flat plan (training), or the rank's row share."""
+        cfg, mesh = self.cfg, self.mesh
+        if mesh is None:
+            return batch_arrays(batch, cfg, self.dedup)
+        from xflow_tpu_torch.models.mvm import has_field_duplicates, resolve_mvm_product
+        from xflow_tpu_torch.parallel.train_step import row_share
+
+        mvm, ffm = cfg.model.name == "mvm", cfg.model.name == "ffm"
+        if (mvm or ffm) and batch.fields.size and int(batch.fields.max()) >= cfg.model.num_fields:
+            raise ValueError(
+                f"libffm field id {int(batch.fields.max())} >= model.num_fields="
+                f"{cfg.model.num_fields}; raise model.num_fields")
+        if self._mesh_engine == "fullshard":
+            from xflow_tpu_torch.parallel.sorted_fullshard import (
+                FullshardOverflowError,
+                fullshard_arrays,
+            )
+
+            dup = None
+            if mvm:
+                excl = cfg.model.mvm_exclusive
+                if excl == "auto":
+                    # plan with fields; the ranks agree on the row side
+                    want, dup = True, bool(has_field_duplicates(batch.fields, batch.mask))
+                else:
+                    has = excl != "off" and has_field_duplicates(batch.fields, batch.mask)
+                    want = not resolve_mvm_product(excl, has, mesh.size)
+            else:
+                want = ffm
+            try:
+                out = fullshard_arrays(batch, cfg, mesh, want)
+                if dup is not None:
+                    out["_mvm_dup"] = dup
+                return out
+            except FullshardOverflowError:
+                if not self._fs_overflow_warned:
+                    self._fs_overflow_warned = True
+                    print(f"fullshard: batch too skewed for data.fullshard_slack="
+                          f"{cfg.data.fullshard_slack}; falling back to the row-major "
+                          "sharded step for such batches (raise the slack to keep the "
+                          "fast path)", file=sys.stderr)
+                    self.metrics.log({"fullshard_overflow_fallback": True})
+                out = row_share(_row_major(batch), mesh)
+                out["_fs_overflow"] = True
+                return out
+        if self._mesh_engine == "replicated" and train:
+            from xflow_tpu_torch.parallel.sorted_sharded import sorted_arrays
+
+            return sorted_arrays(batch, cfg)
+        return row_share(_row_major(batch), mesh)
+
+    def _prepare(self, batch, host: dict) -> dict:
+        """On the main thread, before the transfer: pop the mesh markers
+        and agree on the fully-sharded engine's per-batch choices with
+        one all_reduce(MAX) of [overflowed, MVM duplicate] over the world:
+        any overflow sends every rank to the row-major step for this batch
+        (a rank whose plan fit rebuilds its row share from the batch), and
+        MVM's product row side runs only when no rank saw a duplicate
+        field."""
+        if self.mesh is None:
+            return host
+        self._last_real = host.pop("_shard", None) is not None
+        over = bool(host.pop("_fs_overflow", False))
+        dup = host.pop("_mvm_dup", None)
+        if self._mesh_engine != "fullshard":
+            return host
+        from xflow_tpu_torch.parallel import collectives as C
+        from xflow_tpu_torch.parallel.train_step import row_share
+
+        any_over, any_dup = C.reduce_host([over, bool(dup)], "max", device=self.mesh.device)
+        if any_over:
+            default_registry().counter("fullshard.overflow_fallback").inc()
+            if not over:
+                host = row_share(_row_major(batch), self.mesh)
+        elif dup is not None and not any_dup:
+            host.pop("fs_fields", None)
+        return host
+
+    def _mesh_feed(self, shards: list, skip: int, quarantine: bool, profiler=None,
+                   train: bool = True):
+        """The data coordinate's (batch, host arrays) for one pass over
+        `shards` ([(index, path)]) after `skip` batches, exactly the
+        pass's agreed step count long: one all_reduce(MAX) of the local
+        batch counts (here, on the main thread), then the real batches
+        (marked `_shard`) and empty padding batches. Raises when the
+        parser yields another count than the counter (a file that
+        changed under the pass)."""
+        from xflow_tpu_torch.parallel import collectives as C
+
+        local = 0
+        for _, p in shards:
+            if os.path.exists(p):
+                local += pipeline.count_batches(p, self.cfg.data)
+        local = max(local - skip, 0)
+        (steps,) = C.reduce_host([local], "max", device=self.mesh.device)
+        cfg = self.cfg
+
+        def feed():
+            produced = 0
+            left = skip
+            for idx, p in shards:
+                if not os.path.exists(p):
+                    continue
+                n = pipeline.count_batches(p, cfg.data)
+                s = min(left, n)
+                left -= s
+                for batch in pipeline.batch_iterator(
+                        p, cfg.data, skip=s, quarantine=quarantine and train,
+                        enforce_bad_rows=train, profiler=profiler):
+                    if train:
+                        self._health.observe_batch(batch.slots, batch.mask)
+                    if profiler is None:
+                        host = self._host_arrays(batch, train)
+                    else:
+                        with profiler.stage("plan"):
+                            host = self._host_arrays(batch, train)
+                    host["_shard"] = idx
+                    produced += 1
+                    yield batch, host
+            if produced != local:
+                raise RuntimeError(
+                    f"batch count drift on {[p for _, p in shards]}: counted {local}, "
+                    f"parser produced {produced}")
+            for _ in range(steps - produced):
+                empty = _empty_batch(cfg)
+                yield empty, self._host_arrays(empty, train)
+
+        return feed()
+
+    def _shards(self, prefix: str) -> list:
+        from xflow_tpu_torch.data.pipeline import assign_shards
+
+        return assign_shards(prefix, self.mesh.d, self.mesh.data)
 
     # ------------------------------------------------------------------ train
     def _install_signal_checkpoint(self):
@@ -339,7 +591,7 @@ class Trainer:
         puts the previous handlers back, so a second signal acts as it
         would have. Main thread only. Returns (flag dict or None, restore)."""
         cfg = self.cfg
-        if not (cfg.train.ckpt_on_signal and cfg.train.checkpoint_dir) or (
+        if not (cfg.train.ckpt_on_signal and cfg.train.checkpoint_dir) or self.mesh is not None or (
                 threading.current_thread() is not threading.main_thread()):
             return None, lambda: None
         flag: dict = {}
@@ -379,10 +631,16 @@ class Trainer:
         if cfg.data.stream not in ("off", "tail"):
             raise ValueError(f"data.stream={cfg.data.stream!r}: expected 'off' or 'tail'")
         if cfg.data.stream == "tail":
+            if self.mesh is not None:
+                raise ValueError("data.stream=tail: the online loop runs on one device; "
+                                 "it is not taken over on a mesh")
             return self._fit_tail(train_path)
-        path = train_path or shard_path(cfg.data.train_path, 0)
-        if not os.path.exists(path):
-            raise FileNotFoundError(path)
+        if self.mesh is None:
+            path = train_path or shard_path(cfg.data.train_path, 0)
+            if not os.path.exists(path):
+                raise FileNotFoundError(path)
+        else:
+            shards = self._shards(train_path or cfg.data.train_path)
         res = TrainResult()
         start = time.perf_counter()
         trace = TraceWindow(cfg.train.profile_dir, cfg.train.trace_start_step,
@@ -400,18 +658,22 @@ class Trainer:
                   "no streaming eval will run", file=sys.stderr)
         self.heartbeat.append({"event": "start", "step": 0})
         sig_flag, sig_restore = self._install_signal_checkpoint()
-        start_epoch, skip = self._consume_resume_position()
+        start_epoch, skip_local = self._consume_resume_position()
+        skip = self._resume_offset
         self._epoch_pos = (start_epoch, skip)
         stop_sig = 0
         halted = False
         try:
             for epoch in range(start_epoch, cfg.train.epochs):
                 offset = skip if epoch == start_epoch else 0
+                self._local_pos = skip_local if epoch == start_epoch else 0
                 log.mark = None
+                if self.mesh is None:
+                    feed = self._feed(path, offset, quarantine=epoch == 0, profiler=prof)
+                else:
+                    feed = self._mesh_feed(shards, self._local_pos, epoch == 0, prof)
                 # closing: a halt or an error stops the reader thread at once
-                with contextlib.closing(pipeline.prefetch(
-                        self._feed(path, offset, quarantine=epoch == 0, profiler=prof),
-                        profiler=prof)) as stream:
+                with contextlib.closing(pipeline.prefetch(feed, profiler=prof)) as stream:
                     for batch, host in log.timer.batches(stream):
                         offset += 1
                         trace.before_step(res.steps + 1)
@@ -461,6 +723,12 @@ class Trainer:
             trace.close()
         log.finish()
         res.seconds = time.perf_counter() - start
+        if self.mesh is not None:
+            # every data coordinate's rows (its T ranks count the same ones)
+            from xflow_tpu_torch.parallel import collectives as C
+
+            share = res.examples if self.mesh.t == 0 else 0
+            (res.examples,) = C.reduce_host([share], "sum", device=self.mesh.device)
         res.occupancy = self._occupancy()
         log.final_record()
         if cfg.train.checkpoint_dir:
@@ -475,6 +743,8 @@ class Trainer:
         res.examples += rows
         self._examples_seen += rows
         self._epoch_pos = pos
+        if self._last_real:
+            self._local_pos += 1
 
     def _cadence_save(self, log: _StepLog, hang: HangWatchdog, save):
         """A checkpoint at its cadence, `save()`'s result returned: the
@@ -709,7 +979,13 @@ class Trainer:
                 touched = t != (self.cfg.optim.v_init_sgd if t.ndim > 1 else 0.0)
             if touched.ndim > 1:
                 touched = touched.any(dim=-1)
-            out[name] = float(touched.float().mean())
+            if self.mesh is None:
+                out[name] = float(touched.float().mean())
+            else:
+                from xflow_tpu_torch.parallel import collectives as C
+
+                n = C.reduce_sum_tensor(touched.sum(), self.mesh.owner_group(self._layout))
+                out[name] = float(n) / self.cfg.num_slots
         return out
 
     # --------------------------------------------------------------- evaluate
@@ -723,19 +999,72 @@ class Trainer:
         `pred_0_<block>.txt` in the working directory: one row a real
         example, `pctr\\t1-label\\tlabel`, in file order."""
         cfg = self.cfg
-        path = test_path or shard_path(cfg.data.test_path, 0)
         dump = cfg.train.pred_dump if dump is None else dump
         buckets = resolve_eval_buckets(cfg.train.eval_buckets)
         if streaming and buckets == 0 and cfg.train.eval_buckets < 0:
             buckets = 65536
+        if self.mesh is not None:
+            return self._evaluate_mesh(test_path, buckets, dump, block)
+        path = test_path or shard_path(cfg.data.test_path, 0)
         if buckets:
             return self._evaluate_bucketed(path, buckets, dump, block)
         with self._pred_file(dump, block) as fout:
             return evaluate(cfg, self.state.tables, path, self.device, fout=fout)
 
-    @staticmethod
-    def _pred_file(dump: bool, block: int):
-        return open(f"pred_0_{block}.txt", "w") if dump else contextlib.nullcontext()
+    def _pred_file(self, dump: bool, block: int):
+        return (open(f"pred_0_{block}.txt", "w") if dump and self.rank == 0
+                else contextlib.nullcontext())
+
+    def _mesh_predictions(self, test_path: Optional[str]):
+        """(pctr, label, row_mask) float64 [rows, 3] of every data
+        coordinate's rows, batch by batch, the same on every rank: each
+        coordinate predicts its test shards (`assign_shards`; an explicit
+        `test_path` file is coordinate 0's alone) with the engine's eval
+        step, and the rows are gathered over `data`."""
+        from xflow_tpu_torch.parallel import collectives as C
+
+        mesh = self.mesh
+        if test_path:
+            shards = [(0, test_path)] if mesh.d == 0 else []
+        else:
+            shards = self._shards(self.cfg.data.test_path)
+        stream = pipeline.prefetch(self._mesh_feed(shards, 0, False, train=False))
+        try:
+            for batch, host in stream:
+                arrays = to_device(self._prepare(batch, host), self.device)
+                R = batch.labels.shape[0]
+                p = self.eval_step(self.state.tables, arrays)[:R].float()
+                y = torch.as_tensor(np.asarray(batch.labels, np.float32), device=p.device)
+                rm = torch.as_tensor(np.asarray(batch.row_mask, np.float32), device=p.device)
+                local = torch.stack([p, y, rm], dim=1)
+                yield C.all_gather(local.contiguous(), mesh.data_group).cpu().numpy()
+        finally:
+            stream.close()
+
+    def _evaluate_mesh(self, test_path: Optional[str], buckets: int, dump: bool,
+                       block: int) -> tuple[float, float]:
+        """`evaluate` on a mesh: every rank takes part and computes the
+        same (auc, logloss); rank 0 dumps."""
+        st = BucketAUC.init(buckets) if buckets else None
+        pctrs, labels = [], []
+        ll_sum, n_rows = 0.0, 0.0
+        with self._pred_file(dump, block) as fout:
+            for rows in self._mesh_predictions(test_path):
+                rm = rows[:, 2] > 0
+                p, y = rows[rm, 0].astype(np.float64), rows[rm, 1]
+                dump_rows(fout if self.rank == 0 else None, p, y)
+                if st is None:
+                    pctrs.append(p)
+                    labels.append(y)
+                    continue
+                st = st.update(p, y)
+                ll_sum += float(log_likelihood(p, y).sum())
+                n_rows += float(rm.sum())
+        if st is None:
+            if not pctrs:
+                return float("nan"), float("nan")
+            return auc_logloss(np.concatenate(pctrs), np.concatenate(labels))
+        return self._fold_window(st, ll_sum, n_rows, buckets)
 
     def _evaluate_bucketed(self, path: str, num_buckets: int, dump: bool = False,
                            block: int = 0) -> tuple[float, float]:
@@ -753,6 +1082,12 @@ class Trainer:
                 ll_sum += float(log_likelihood(p, y).sum())
                 n_rows += float(rm.sum())
                 dump_rows(fout, p, y)
+        return self._fold_window(st, ll_sum, n_rows, num_buckets)
+
+    def _fold_window(self, st, ll_sum: float, n_rows: float,
+                     num_buckets: int) -> tuple[float, float]:
+        """A streaming pass's result, folded into the decayed window
+        under train.eval_window_decay."""
         pos, neg = st.pos, st.neg
         decay = float(self.cfg.train.eval_window_decay)
         if decay > 0:
@@ -771,39 +1106,74 @@ class Trainer:
     # ------------------------------------------------------------- checkpoint
     def _data_state_record(self) -> dict:
         """The data-stream position saved with every checkpoint, in the
-        JAX trainer's version-2 form for one shard and one process."""
+        JAX trainer's version-2 form. On a mesh (a collective: every rank
+        calls it at the same step) the shard offsets and examples of every
+        data coordinate, one shard each."""
         epoch, batches = self._epoch_pos
+        tail = self.cfg.data.stream == "tail"
+        if self.mesh is None:
+            shard_batches = {"0": int(batches if not tail else 0)}
+            per_rank = [int(self._examples_seen)]
+            examples = int(self._examples_base + self._examples_seen)
+            world = 1
+        else:
+            from xflow_tpu_torch.parallel import collectives as C
+
+            D = self.mesh.data
+            vec = [0] * (2 * D)
+            if self.mesh.t == 0:
+                vec[self.mesh.d] = self._local_pos
+                vec[D + self.mesh.d] = self._examples_seen
+            vec = C.reduce_host(vec, "sum", device=self.mesh.device)
+            shard_batches = {str(d): int(vec[d]) for d in range(D)}
+            per_rank = [int(v) for v in vec[D:]]
+            examples = int(self._examples_base + sum(per_rank))
+            world = self.mesh.size
         return {
             "version": ckpt.DATA_STATE_VERSION,
             "epoch": int(epoch),
             "batches": int(batches),
             "completed": bool(epoch >= self.cfg.train.epochs),
-            "examples": int(self._examples_base + self._examples_seen),
-            "examples_per_rank": [int(self._examples_seen)],
+            "examples": examples,
+            "examples_per_rank": per_rank,
             # a tail run's position is its segments, not a shard offset
-            "shard_batches": {"0": int(batches if self.cfg.data.stream != "tail" else 0)},
-            "num_shards": 1,
-            "world_size": 1,
+            "shard_batches": shard_batches,
+            "num_shards": len(shard_batches),
+            "world_size": world,
             "quarantined_rows": int(pipeline.COUNTERS["quarantined_rows"]),
         }
 
     def _consume_resume_position(self) -> tuple[int, int]:
-        """(start_epoch, batches of shard 0 to skip) for this fit(), from
-        the data_state maybe_restore read. Fresh runs, missing or
-        malformed data_state and completed checkpoints (continuation
-        training) start at (0, 0)."""
+        """(start_epoch, this data coordinate's batches of its shard to
+        skip) for this fit(), from the data_state maybe_restore read, and
+        the pass's step offset in `_resume_offset` (on one device the
+        same). Fresh runs, missing or malformed data_state and completed
+        checkpoints (continuation training) start at (0, 0). A mesh
+        resumes the stream only on the world that wrote it (one shard a
+        data coordinate); another world restarts the stream, warned."""
         ds = self._resume_data_state
         self._resume_data_state = None
+        self._resume_offset = 0
         if not isinstance(ds, dict) or ds.get("completed"):
             return 0, 0
+        key = "0" if self.mesh is None else str(self.mesh.d)
         try:
             epoch = max(int(ds.get("epoch", 0)), 0)
             shards = ds.get("shard_batches")
             if isinstance(shards, dict):
-                skip = max(int(shards.get("0", 0)), 0)
+                skip_local = max(int(shards.get(key, 0)), 0)
             else:  # version 1: the global batch offset
-                skip = max(int(ds.get("batches", 0)), 0)
+                skip_local = max(int(ds.get("batches", 0)), 0)
+            skip = max(int(ds.get("batches", skip_local)), 0)
             examples = max(int(ds.get("examples", 0)), 0)
+            if self.mesh is None:
+                skip = skip_local
+            elif (int(ds.get("world_size", 1)) != self.mesh.size
+                    or int(ds.get("num_shards", 1)) != self.mesh.data):
+                print("xflow: warning: checkpoint data_state was written by another world; "
+                      "the elastic resume is not taken over on a mesh: restarting the data "
+                      "stream", file=sys.stderr)
+                return 0, 0
         except (TypeError, ValueError):
             print(
                 "xflow: warning: checkpoint data_state is malformed; "
@@ -812,9 +1182,11 @@ class Trainer:
             )
             return 0, 0
         self._examples_base, self._examples_seen = examples, 0
+        self._resume_offset = skip
         if epoch or skip:
-            print(f"resuming data stream at epoch {epoch}, shard offset {skip}", file=sys.stderr)
-        return epoch, skip
+            print(f"resuming data stream at epoch {epoch}, shard offset {skip_local}",
+                  file=sys.stderr)
+        return epoch, skip_local
 
     def _ckpt_async_on(self) -> bool:
         """train.ckpt_async (the port trains in one process, so the JAX
@@ -827,9 +1199,10 @@ class Trainer:
                 sink=self.metrics, ckpt_spans=self.cfg.train.ckpt_spans)
         return self._ckpt_writer
 
-    def _state_nbytes(self) -> int:
-        leaves = list(self.state.tables.values()) + [
-            v for st in self.state.opt_state.values() for v in st.values()]
+    def _state_nbytes(self, state: Optional[TrainState] = None) -> int:
+        state = state or self.state
+        leaves = list(state.tables.values()) + [
+            v for st in state.opt_state.values() for v in st.values()]
         return int(sum(t.numel() * t.element_size() for t in leaves))
 
     def _ckpt_span(self, name: str, t0_wall: float, t0: float, step: int) -> None:
@@ -853,17 +1226,25 @@ class Trainer:
         t0_wall, t0 = time.time(), time.perf_counter()
         step = int(self.state.step)
         data_state = self._data_state_record()
+        state = self.state
+        if self.mesh is not None:
+            # the shards gathered whole (a collective); rank 0 writes them
+            from xflow_tpu_torch.parallel.train_step import gather_state
+
+            state = gather_state(self.state, self.mesh, self._layout)
+            if self.rank != 0:
+                return True
         if self._ckpt_async_on():
             w = self._ensure_ckpt_writer()
             if wait:
                 w.drain()
             if w.busy():
-                w.skip(step, self._state_nbytes(), t0_wall)
+                w.skip(step, self._state_nbytes(state), t0_wall)
                 return False
             # the queue instant of an accepted save: after the busy check,
             # so it never precedes the previous save's last record
             t0_wall = time.time()
-            snap = ckpt.SaveSnapshot(self.state.tables, self.state.opt_state, step, w.staging)
+            snap = ckpt.SaveSnapshot(state.tables, state.opt_state, step, w.staging)
             ok = w.submit(ckpt.SaveJob(
                 snapshot=snap, ckpt_dir=tc.checkpoint_dir, replica_dir=tc.ckpt_replica_dir,
                 keep=tc.keep_checkpoints, keep_replica=tc.keep_replica_checkpoints,
@@ -874,7 +1255,7 @@ class Trainer:
             return ok
         if self._ckpt_writer is not None:
             self._ckpt_writer.drain()  # never interleave with an async write
-        ckpt.save_state(tc.checkpoint_dir, self.state.tables, self.state.opt_state, step,
+        ckpt.save_state(tc.checkpoint_dir, state.tables, state.opt_state, step,
                         data_state=data_state, publication=publication)
         self._ckpt_span("checkpoint_save", t0_wall, t0, step)
         ckpt.prune_checkpoints(tc.checkpoint_dir, tc.keep_checkpoints)
@@ -899,6 +1280,17 @@ class Trainer:
             return False
         self._check_format()
         leaves = tuple(sorted(next(iter(self.state.opt_state.values()), {})))
+        if self.mesh is not None:
+            try:
+                tables, opt, step, ds = ckpt.restore_state_mesh(
+                    cfg.train.checkpoint_dir, table_shapes(cfg), leaves, self.mesh,
+                    self._layout, self.device, verify=cfg.train.checkpoint_verify,
+                    replica_dir=cfg.train.ckpt_replica_dir or None)
+            except FileNotFoundError:
+                return False
+            self.state = TrainState(tables, opt, int(step))
+            self._resume_data_state = ds
+            return True
         try:
             tables, opt, step, src = ckpt.restore_state(
                 cfg.train.checkpoint_dir, table_shapes(cfg), leaves,
@@ -922,3 +1314,23 @@ class Trainer:
                 f"train.checkpoint_format={self.cfg.train.checkpoint_format!r}: "
                 "the port reads and writes npz checkpoints"
             )
+
+
+def _row_major(batch) -> dict:
+    return {"slots": batch.slots, "fields": batch.fields, "mask": batch.mask,
+            "labels": batch.labels, "row_mask": batch.row_mask}
+
+
+def _empty_batch(cfg: Config):
+    """A fully masked batch: the padding step of a data coordinate whose
+    shards ran out before the pass's agreed step count."""
+    from xflow_tpu_torch.data.schema import SparseBatch
+
+    B, F = cfg.data.batch_size, cfg.data.max_nnz
+    return SparseBatch(
+        slots=np.zeros((B, F), np.int32),
+        fields=np.zeros((B, F), np.int32),
+        mask=np.zeros((B, F), np.float32),
+        labels=np.zeros((B,), np.float32),
+        row_mask=np.zeros((B,), np.float32),
+    )
