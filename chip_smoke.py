@@ -254,15 +254,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    occurrence and cannot), and `Trainer`'s per-batch agreement runs it
    on the row-major sharded step (counted), as checked; and one epoch of
    `Trainer(cfg, mesh=mesh).fit()` over the rate shard (#2, #5, #6 once
-   a step) beside the single-device two-pass epoch, examples/s each.
+   a step) beside the single-device two-pass epoch, examples/s each;
+   then the signal leg (`run_mesh_signal`): the same fit with
+   `train.signal_sync_every=2` and a SIGTERM to this process once step 3
+   is counted must stop at step 4 (the all_reduce(MAX) of the pending
+   signal, a CUDA tensor on NCCL), commit step 4 and report the signal,
+   #2, #5, #6 4 times each;
+19. the launch layer (`run_launch`), FM at full width over phase 3's
+   rate shard cut into two slice shards of 6 batches: (1) `python -m
+   xflow_tpu_torch launch-multislice --slices 2` (bounded sync, K = 1, a
+   round every 4 steps, a snapshot every 2 rounds; 2 epochs, 12 steps a
+   slice), each slice a process on this one card (its /dev/nvidia* open)
+   with a trace window naming #1-#3, kind="sync" records and
+   `slice_sync` spans in each stream (each round's split printed: copy
+   off the card, npz write, wait, read and apply, copy back, snapshot;
+   its bytes), and each slice's last checkpoint the initial state plus
+   every delta it folded in, summed on the host in float64 (normwise
+   within 1e-5: float32 sums in another order); beside it one slice
+   alone with sync off, examples/s each; (2) the same launch with slice
+   1 killed entering round 2 (`XFLOW_FAULT_SLICE_KILL_ROUND`) and
+   `--max-restarts 1`: slice 0 finishes, slice 1 leaves the sync group,
+   rejoins at gen 1 on the card and adopts a snapshot, the job exits 0;
+   (3) `launch-local --num-processes 1 --device cuda --max-restarts 1`
+   with `XFLOW_FAULT_KILL_STEP=5`: both generations' heartbeats, the
+   resumed run at the uninterrupted run's (the solo run of (1)) steps
+   and examples, its state within `ftrl_errs` of it; (4) a checkpoint a
+   2-rank `launch-local --device cpu` world wrote at step 3 (2^18 slots,
+   4,096-row batches, two shards of 8 batches) resumed on the card in a
+   world of one (the restore timed; #1-#3 once a step, counted in this
+   process) trains the rest of both shards, within `ftrl_errs` of the
+   CPU's resume of the same checkpoint.
 
 The last three lines of standard output: the card line, the kernels
 JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
 `widths` hold its entry at each of ch 24, 32, 104, 128 and 136; #1, #3
 and #4 carry their FFM figures and launches under `ffm`, #1-#3 their
 phase-17 trace time on Zipf batches and launches under `zipf`, #1, #2,
-#4, #5 and #6 their phase-18 launches under `mesh`, with #5's and #6's
-times on the fully-sharded buffer), and
+#4, #5 and #6 their phase-18 launches under `mesh` (#2, #5, #6 the
+signal leg's under `mesh.signal`), with #5's and #6's times on the
+fully-sharded buffer, #1-#3 their phase-19 launches under `launch`: the
+elastic resume's counts and each slice's traced kernel events; the
+object's `launch` key holds what phase 19 proved), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -351,7 +383,7 @@ def rel_err(got, want, floor: float) -> float:
 
 
 def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True,
-              flips: bool = False) -> dict:
+              flips: bool = False, gate: bool = True) -> dict:
     """Errors of an FTRL step's (w', n', z') against a reference, from the
     pre-step (w, n, z); all must be within FTRL_RTOL (with `leaves`
     False, the three leaf errors are reported and only `g` and `w_rule`
@@ -387,7 +419,10 @@ def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True,
     last bit, is a few ulps off 0 and moves w by the rule. Two terms of
     unit scale cancel exactly about once in 2^24 sums, so at FFM's 10^8
     sums a step makes a few such entries; `g` holds their gradients to
-    agree all the same."""
+    agree all the same.
+
+    `gate` False reports the errors and fails on none (a comparison of
+    whole trajectories, which the one-step floors do not bound)."""
     import torch
 
     from xflow_tpu_torch.optim.ftrl import weight_of
@@ -411,7 +446,7 @@ def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True,
     ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
     g_err = ((g_got - g_want).abs() - ulp).clamp(min=0) / (g_want.abs() + 1e-2 * scale)
     errs["g"] = g_err.max().item()
-    if not errs["g"] <= FTRL_RTOL:
+    if gate and not errs["g"] <= FTRL_RTOL:
         i = int(g_err.argmax())
         at = lambda t: t.reshape(-1)[i].item()  # noqa: E731
         fail(f"{what}: g err {errs['g']} at flat index {i}: implied g {at(g_got)} vs "
@@ -434,8 +469,35 @@ def ftrl_errs(got, want, prev, hp, what: str, leaves: bool = True,
         errs["lazy_flips"] = int(flip.sum())
     gated = errs if leaves else {k: errs[k] for k in ("g", "w_rule")}
     gated = {k: v for k, v in gated.items() if k != "lazy_flips"}
-    if not all(e <= FTRL_RTOL for e in gated.values()):
+    if gate and not all(e <= FTRL_RTOL for e in gated.values()):
         fail(f"{what}: {errs} beyond {FTRL_RTOL} relative")
+    return errs
+
+
+def trajectory_errs(got, want, prev, hp, what: str) -> dict:
+    """Two runs of several steps from one state (one resumed, or on the
+    CPU) against each other. Each leaf's L2 error, ||got - want|| over
+    ||want||, must be within TRAJ_RTOL; w's leaves out the lazy-init
+    flips, entries where one side's n is 0 and the other's is not (a
+    (slot, channel) gradient that cancelled to exactly 0 on one side
+    only: that side keeps the init there, the other moves it by the
+    rule), counted in `lazy_flips`. The max normwise errors and
+    `ftrl_errs` are reported beside, not gated: the card's row sums
+    reorder each step's sums by atomics, and a flip's moved w feeds the
+    next steps' gradients, so the runs drift apart by more than one
+    step's rounding (PERF.md §6)."""
+    dev = want[0].device
+    got = tuple(t.to(dev) for t in got)
+    flip = (got[1] == 0) ^ (want[1] == 0)
+    errs = {"lazy_flips": int(flip.sum())}
+    for k, a, b in zip("wnz", got, want):
+        if k == "w":
+            a, b = a[~flip], b[~flip]
+        errs[f"l2_{k}"] = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+        errs[f"max_{k}"] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+    if not all(errs[f"l2_{k}"] <= TRAJ_RTOL for k in "wnz"):
+        fail(f"{what}: {errs}: an L2 error beyond {TRAJ_RTOL}")
+    errs["ftrl_errs"] = ftrl_errs(got, want, prev, hp, what, flips=True, gate=False)
     return errs
 
 
@@ -3809,6 +3871,7 @@ def run_mesh(cfg, work: str, path: str, rate_path: str, card: str) -> dict:
             print(f"# FM epoch over the rate shard ({steps} x {BATCH} rows), {what}, two-pass: "
                   f"{rate:.1f} examples/s, {step_ms:.2f} ms a step (host clock), launches "
                   f"{ {k: v for k, v in launches.items() if v} } [{card}]", flush=True)
+        out["signal"] = run_mesh_signal(ecfg, work, dev, mesh, card)
         out["epoch_examples_per_sec"] = eps["1 x 1 mesh"][0]
         out["epoch_step_ms"] = eps["1 x 1 mesh"][1]
         out["single_examples_per_sec"] = eps["single device"][0]
@@ -3823,6 +3886,494 @@ def run_mesh(cfg, work: str, path: str, rate_path: str, card: str) -> dict:
         shutdown()
     print(f"# phase 18 (mesh) took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+# ------------------------------------------------------------ phase 19
+LAUNCH_SLICE_BATCHES = 6  # a slice's shard: 6 batches of the rate shard's rows
+LAUNCH_EPOCHS = 2  # 12 steps a slice
+LAUNCH_TRACE_START, LAUNCH_TRACE_STEPS = 5, 2
+LAUNCH_TIMEOUT_S = 300  # a launch command's whole run
+SYNC_SUM_RTOL = 1e-5  # normwise: float32 sums of the deltas in another order
+# L2, a leaf: two card runs of 8-12 steps apart (on the H100 the max normwise
+# error of z reached 6e-4, of w 0.11 at a lazy-init flip; PERF.md §6)
+TRAJ_RTOL = 1e-3
+ELASTIC_LOG2_SLOTS, ELASTIC_BATCH, ELASTIC_BATCHES = 18, 4096, 8  # a shard: 8 batches
+
+
+def launch_env(extra: dict = None) -> dict:
+    """The environment of a launch command: the checkout importable, no
+    launcher or fault variables but `extra`."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XFLOW_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra or {})
+    return env
+
+
+def fm_args(prefix: str, ck: str, *extra: str, log2: int = 0, batch: int = 0,
+            device: str = "", epochs: int = LAUNCH_EPOCHS) -> list:
+    """`train` arguments of FM, at full width unless `log2` and `batch`
+    say otherwise (fused FTRL on one device)."""
+    log2, batch, device = log2 or LOG2_SLOTS, batch or BATCH, device or DEVICE
+    return ["--train", prefix, "--model", "fm", "--epochs", str(epochs), "--batch-size",
+            str(batch), "--log2-slots", str(log2), "--device", device, "--checkpoint-dir", ck,
+            "--set", f"model.v_dim={V_DIM}", "--set", f"model.num_fields={NUM_FIELDS}",
+            "--set", f"data.max_nnz={NUM_FIELDS}", "--set", "train.pred_dump=false",
+            "--set", "data.cache=off", "--set", "train.log_every=1", *extra]
+
+
+def split_rows(src: str, parts: list) -> list:
+    """Write [(path, first row, rows)] from `src`'s lines; returns the paths."""
+    with open(src) as f:
+        lines = f.readlines()
+    for path, lo, n in parts:
+        with open(path, "w") as f:
+            f.writelines(lines[lo:lo + n])
+    return [p for p, _, _ in parts]
+
+
+def proc_children(ppid: int) -> dict:
+    """{pid: environ} of the live children of `ppid` (/proc)."""
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) != ppid:
+                    continue
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+            out[int(pid)] = {k.decode(): v.decode() for k, v in env.items()}
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def run_launcher(argv: list, cwd: str, log: str, env: dict, key: str = "XFLOW_SLICE") -> dict:
+    """`python -m xflow_tpu_torch <argv>` with its output in `log`.out /
+    .err, polled until it exits (a bounded wait: past LAUNCH_TIMEOUT_S it
+    is killed and the phase fails). Its children are watched meanwhile:
+    {"rc", "wall_s", "opened": {child's `key` value: [(gen, pid) that held
+    /dev/nvidia* open]}, "seen": {...: [(gen, pid)]}}."""
+    t0 = time.perf_counter()
+    with open(log + ".out", "w") as fo, open(log + ".err", "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-m", "xflow_tpu_torch", *argv], cwd=cwd,
+                                env=env, stdout=fo, stderr=fe)
+    seen, opened = {}, {}
+    try:
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > LAUNCH_TIMEOUT_S:
+                fail(f"{argv[0]} ran past {LAUNCH_TIMEOUT_S} s: "
+                     f"{open(log + '.err').read()[-3000:]}")
+            for pid, cenv in proc_children(proc.pid).items():
+                if key not in cenv:
+                    continue
+                tag = (int(cenv.get("XFLOW_RESTART_GEN", 0)), pid)
+                j = int(cenv[key])
+                if tag not in seen.setdefault(j, []):
+                    seen[j].append(tag)
+                if tag not in opened.get(j, []):
+                    try:
+                        if opens_the_card(pid):
+                            opened.setdefault(j, []).append(tag)
+                    except OSError:
+                        pass  # exited meanwhile
+            time.sleep(0.2)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0, "opened": opened,
+            "seen": seen}
+
+
+def sync_rounds(recs: list) -> list:
+    """[(round, kind=sync record, its slice_sync span)] of one stream."""
+    spans = {r["round"]: r for r in recs
+             if r.get("kind") == "span" and r.get("name") == "slice_sync"}
+    return [(r["round"], r, spans.get(r["round"])) for r in recs if r.get("kind") == "sync"]
+
+
+def state_leaves(ck: str, step: int = None) -> tuple:
+    """(wv, n, z) float32 CPU tensors and the step of a committed
+    checkpoint (the newest when `step` is None)."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.train import checkpoint as ckpt
+
+    step = ckpt.latest_step(ck) if step is None else step
+    with np.load(os.path.join(ck, f"step_{step}", "state.npz")) as z:
+        return tuple(torch.from_numpy(z[k]) for k in ("tables/wv", "opt/wv/n",
+                                                       "opt/wv/z")), step
+
+
+def check_delta_sum(cfg, run: str, j: int, recs: list, sums: dict) -> float:
+    """Slice j's last checkpoint against the initial state plus every
+    delta it folded in (its own rounds, and each peer's up to its last
+    round less the lag its last record reports), summed on the host in
+    float64 (`sums` keeps each set's sum: slices that folded the same
+    rounds share it). Returns the largest normwise error (max |got -
+    want| over max |want|, a leaf), which must be within SYNC_SUM_RTOL."""
+    import numpy as np
+
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.state import init_state
+
+    rounds = sync_rounds(recs)
+    last_round, last, _ = rounds[-1]
+    upto = {j: last_round}
+    upto.update({int(p): last_round - lag for p, lag in last["lags"].items()})
+    key = tuple(sorted(upto.items()))
+    if key not in sums:
+        init = init_state(get_model("fm")(cfg), get_optimizer("ftrl"), cfg, "cpu")
+        acc = {"tables/wv": init.tables["wv"].numpy().astype(np.float64),
+               "opt/wv/n": init.opt_state["wv"]["n"].numpy().astype(np.float64),
+               "opt/wv/z": init.opt_state["wv"]["z"].numpy().astype(np.float64)}
+        del init
+        sync_dir = os.path.join(run, "sync")
+        n = 0
+        for s, top in upto.items():
+            for r in range(1, top + 1):
+                if not os.path.exists(os.path.join(sync_dir, f"delta_s{s}_r{r}.ok")):
+                    continue
+                with np.load(os.path.join(sync_dir, f"delta_s{s}_r{r}.npz")) as z:
+                    for k in acc:
+                        acc[k] += z[k]
+                n += 1
+        sums.clear()  # one set held at a time: 3 x 369 MB of float64
+        sums[key] = (acc, n)
+    want, folded = sums[key]
+    got, _ = state_leaves(os.path.join(run, f"ck{j}"))
+    errs = {}
+    for k, g in zip(want, got):
+        w = want[k]
+        errs[k] = float(np.abs(g.numpy() - w).max() / max(np.abs(w).max(), 1e-30))
+    if not max(errs.values()) <= SYNC_SUM_RTOL:
+        fail(f"multislice: slice {j}'s last checkpoint is not the initial state plus the "
+             f"{folded} deltas it folded in: normwise errors {errs}")
+    print(f"# multislice: slice {j}'s last checkpoint = initial state + {folded} deltas "
+          f"(rounds {upto}), normwise errors {errs}", flush=True)
+    return max(errs.values())
+
+
+def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
+    """Phase 19, the launch layer on the card: (1) `launch-multislice
+    --slices 2` of FM at full width, both slices on the card, bounded
+    sync (K = 1, a round every 4 steps, a snapshot every 2 rounds) with a
+    trace window in each, beside one slice alone with sync off; (2) the
+    same launch with slice 1 killed entering round 2 and relaunched;
+    (3) `launch-local --num-processes 1` killed after step 5 and
+    restarted, against the uninterrupted run of (1); (4) a checkpoint a
+    2-rank CPU world wrote, resumed on the card in a world of one,
+    against the CPU's resume. Returns what the JSON line's `launch` key
+    holds."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.launch.watchdog import classify, read_heartbeats
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.train import checkpoint as ckpt
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "launch")
+    os.makedirs(root)
+    out = {}
+    free = shutil.disk_usage(root).free / 1e9
+    shards = split_rows(rate_path, [
+        (os.path.join(root, f"slice{j}-00000"), j * LAUNCH_SLICE_BATCHES * BATCH,
+         LAUNCH_SLICE_BATCHES * BATCH) for j in range(2)])
+    steps = LAUNCH_SLICE_BATCHES * LAUNCH_EPOCHS
+    print(f"# launch phase: {len(shards)} slice shards of {LAUNCH_SLICE_BATCHES} x {BATCH} "
+          f"rows; {free:.0f} GB free on the work dir's disk", flush=True)
+    sync_flags = ["--set", "sync.mode=bounded", "--set", "sync.staleness_k=1",
+                  "--set", "sync.every_steps=4", "--set", "sync.snapshot_every=2",
+                  "--set", "sync.timeout_s=60", "--set", "sync.retries=0"]
+    trace_flags = ["--set", f"train.trace_start_step={LAUNCH_TRACE_START}",
+                   "--set", f"train.trace_num_steps={LAUNCH_TRACE_STEPS}"]
+
+    # (1) two slices on the card, then one alone (no trace window in either:
+    # its start would weigh on the rates; (2) traces the slices)
+    ms = os.path.join(root, "ms")
+    r = run_launcher(["launch-multislice", "--slices", "2", "--run-dir", ms, "--",
+                      *fm_args(os.path.join(root, "slice{slice}"), os.path.join(ms, "ck{slice}"),
+                               *sync_flags)],
+                     root, os.path.join(root, "ms"), launch_env())
+    if r["rc"] != 0:
+        fail(f"launch-multislice exited {r['rc']}: {open(os.path.join(root, 'ms.err')).read()[-3000:]}")
+    if sorted(r["opened"]) != [0, 1]:
+        fail(f"multislice: slices that opened the card {r['opened']} (seen {r['seen']})")
+    t_checks = time.perf_counter()
+    rates, splits, sums = {}, [], {}
+    for j in range(2):
+        recs = read_jsonl(os.path.join(ms, f"metrics_rank{j}.jsonl"))
+        rounds = sync_rounds(recs)
+        if [x[0] for x in rounds] != [1, 2, 3, 4] or not all(x[2] for x in rounds):
+            fail(f"multislice: slice {j}'s sync records and spans {[x[0] for x in rounds]}")
+        (final,) = [x for x in recs if x.get("final")]
+        if (final["steps"], final["examples"]) != (steps, steps * BATCH):
+            fail(f"multislice: slice {j}'s final record {final}")
+        rates[j] = final["examples"] / final["elapsed_s"]
+        for rnd, rec, span in rounds:
+            splits.append({"slice": j, "round": rnd, "dur_ms": span["dur_ms"],
+                           "bytes_out": rec["bytes_out"], "bytes_in": rec["bytes_in"],
+                           "applied": rec["applied"], "lag_max": rec["lag_max"],
+                           "timeouts": rec["timeouts"], **span["split_ms"]})
+            print(f"# multislice round: slice {j} round {rnd}: {span['dur_ms']:.1f} ms "
+                  f"({span['split_ms']}), {rec['bytes_out'] / 1e6:.1f} MB out, "
+                  f"{rec['bytes_in'] / 1e6:.1f} MB in, applied {rec['applied']}, lag "
+                  f"{rec['lag_max']}, timeouts {rec['timeouts']} [{card}]", flush=True)
+        check_delta_sum(cfg, ms, j, recs, sums)
+    del sums
+    print(f"# multislice: the streams and the delta sums checked in "
+          f"{time.perf_counter() - t_checks:.1f} s", flush=True)
+    solo_ck = os.path.join(root, "solo_ck")
+    t0 = time.perf_counter()
+    sout, _, solo_launches = port_cli(root, "train", *fm_args(
+        shards[0][: -len("-00000")], solo_ck,
+        "--set", f"train.metrics_path={os.path.join(root, 'solo.jsonl')}"))
+    solo_wall = time.perf_counter() - t0
+    (solo_final,) = [x for x in read_jsonl(os.path.join(root, "solo.jsonl")) if x.get("final")]
+    solo_rate = solo_final["examples"] / solo_final["elapsed_s"]
+    out["multislice"] = {
+        "slices_opened_card": {str(j): v for j, v in r["opened"].items()},
+        "examples_per_sec": {str(j): v for j, v in rates.items()},
+        "solo_examples_per_sec": solo_rate, "wall_s": r["wall_s"], "solo_wall_s": solo_wall,
+        "solo_launches": solo_launches,
+        "rounds": splits,
+    }
+    print(f"# multislice on {card}: 2 slices x {steps} steps of {BATCH} rows, bounded K=1, a "
+          f"round every 4 steps: {rates[0]:.1f} and {rates[1]:.1f} examples/s (final records: "
+          f"the fit's time, 3 in-loop rounds in it), {r['wall_s']:.1f} s wall; one slice alone, "
+          f"sync off: {solo_rate:.1f} examples/s, {solo_wall:.1f} s wall; its launches "
+          f"{solo_launches}", flush=True)
+    if any(solo_launches[k] != steps for k in ("gather_sorted", "row_sums", "scatter_ftrl")):
+        fail(f"multislice: the solo slice launched {solo_launches}, not {steps} of #1-#3")
+    shutil.rmtree(ms)
+
+    # (2) slice 1 killed entering round 2, relaunched at gen 1; a trace
+    # window over steps 5-6 of each slice's generation 0
+    kill = os.path.join(root, "kill")
+    r = run_launcher(["launch-multislice", "--slices", "2", "--run-dir", kill,
+                      "--max-restarts", "1", "--restart-backoff", "0.5", "--",
+                      *fm_args(os.path.join(root, "slice{slice}"),
+                               os.path.join(kill, "ck{slice}"), *sync_flags, *trace_flags,
+                               "--set", f"train.profile_dir={os.path.join(kill, 'prof{slice}')}",
+                               "--set", "train.checkpoint_every=4")],
+                     root, os.path.join(root, "kill"),
+                     launch_env({"XFLOW_FAULT_SLICE_KILL_ROUND": "2", "XFLOW_FAULT_SLICE": "1"}))
+    err = open(os.path.join(root, "kill.err")).read()
+    if r["rc"] != 0:
+        fail(f"multislice kill drill exited {r['rc']}: {err[-3000:]}")
+    need = ("slice 1 left the sync group (exit rc=", "slice 1 rejoined the sync group "
+            "(relaunch gen 1)", "multislice: slice 1 caught up from snapshot round ")
+    missing = [n for n in need if n not in err]
+    if missing:
+        fail(f"multislice kill drill: stderr lacks {missing}: {err[-3000:]}")
+    gens1 = sorted(g for g, _ in r["seen"].get(1, []))
+    if gens1 != [0, 1] or sorted(g for g, _ in r["opened"].get(1, [])) != [0, 1]:
+        fail(f"multislice kill drill: slice 1's processes {r['seen']}, on the card {r['opened']}")
+    recs0 = read_jsonl(os.path.join(kill, "metrics_rank0.jsonl"))
+    (final0,) = [x for x in recs0 if x.get("final")]
+    if final0["steps"] != steps:
+        fail(f"multislice kill drill: slice 0's final record {final0}")
+    # the launcher's membership writes, in order (slice 0's rounds, seconds
+    # apart, may fall on either side of the short gap)
+    trail = [ln.split("launch-multislice: ", 1)[1] for ln in err.splitlines()
+             if ln.startswith("launch-multislice: slice ")]
+    traced = {}
+    for j in range(2):
+        tk = trace_kernels(os.path.join(kill, f"prof{j}"))
+        if not all(tk.values()):
+            fail(f"multislice: slice {j}'s trace names no {[k for k, v in tk.items() if not v]}")
+        traced[str(j)] = {k: len(v) for k, v in tk.items()}
+    recs1 = read_jsonl(os.path.join(kill, "metrics_rank1.jsonl"))
+    (final1,) = [x for x in recs1 if x.get("final")]
+    if final1.get("gen") != 1 or ckpt.latest_step(os.path.join(kill, "ck1")) != steps:
+        fail(f"multislice kill drill: slice 1's final record {final1}")
+    adopt = [ln for ln in err.splitlines() if "caught up from snapshot" in ln]
+    out["kill_drill"] = {"rc": r["rc"], "wall_s": r["wall_s"], "slice1_gens": gens1,
+                         "membership": trail, "adopted": adopt}
+    out["multislice"]["trace_launches"] = traced
+    slice0_waits = [round(sp["split_ms"]["wait"], 1) for _, _, sp in sync_rounds(recs0)]
+    print(f"# multislice kill drill on {card}: slice 1 killed entering round 2 and relaunched "
+          f"(gen 1): {adopt}; membership {trail}; slice 0 finished {final0['steps']} steps, "
+          f"its rounds' waits {slice0_waits} ms; both slices' traces (steps "
+          f"{LAUNCH_TRACE_START}-{LAUNCH_TRACE_START + LAUNCH_TRACE_STEPS - 1}) name #1-#3: "
+          f"{traced}; {r['wall_s']:.1f} s wall", flush=True)
+    shutil.rmtree(kill)
+
+    # (3) supervised launch-local, killed after step 5, against (1)'s solo run
+    ll = os.path.join(root, "ll")
+    r = run_launcher(["launch-local", "--num-processes", "1", "--max-restarts", "1",
+                      "--restart-backoff", "0.5", "--run-dir", ll, "--",
+                      *fm_args(shards[0][: -len("-00000")], os.path.join(ll, "ck"),
+                               "--set", "train.checkpoint_every=4",
+                               "--set", "train.heartbeat_every=1")],
+                     root, os.path.join(root, "ll"), launch_env({"XFLOW_FAULT_KILL_STEP": "5"}),
+                     key="XFLOW_PROCESS_ID")
+    err = open(os.path.join(root, "ll.err")).read()
+    if r["rc"] != 0 or "hard-killing rank 0 at step 5" not in err \
+            or "resumed from step 4" not in err:
+        fail(f"launch-local drill exited {r['rc']}: {err[-3000:]}")
+    if sorted(g for g, _ in r["opened"].get(0, [])) != [0, 1]:
+        fail(f"launch-local drill: ranks on the card {r['opened']} (seen {r['seen']})")
+    beats = {g: read_heartbeats(ll, gen=g) for g in (0, 1)}
+    rows = {g: classify(b, max(x["ts"] for x in b.values())) for g, b in beats.items()}
+    if beats[0][0]["step"] != 5 or beats[0][0]["event"] is not None \
+            or beats[1][0]["event"] != "final" or beats[1][0]["step"] != steps - 4:
+        fail(f"launch-local drill: heartbeats {beats}")
+    wd_events = (read_jsonl(os.path.join(ll, "watchdog.jsonl"))
+                 if os.path.exists(os.path.join(ll, "watchdog.jsonl")) else [])
+    hb = read_jsonl(os.path.join(ll, "heartbeat_rank0.jsonl"))
+    t_kill = max(x["ts"] for x in hb if x["gen"] == 0)
+    t_back = min(x["ts"] for x in hb if x["gen"] == 1)
+    ds = ckpt.read_data_state(os.path.join(ll, "ck"), steps)
+    if ds is None or ds["examples"] != steps * BATCH or not ds["completed"]:
+        fail(f"launch-local drill: data_state {ds}")
+    (got, gstep), (want, _) = state_leaves(os.path.join(ll, "ck")), state_leaves(solo_ck)
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.state import init_state
+
+    st0 = init_state(get_model("fm")(cfg), get_optimizer("ftrl"), cfg, "cpu")
+    prev = (st0.tables["wv"], st0.opt_state["wv"]["n"], st0.opt_state["wv"]["z"])
+    errs = trajectory_errs(got, want, prev, cfg.optim.ftrl,
+                           "launch-local resumed vs uninterrupted")
+    del st0, prev, got, want
+    out["supervised"] = {"wall_s": r["wall_s"], "solo_wall_s": solo_wall,
+                         "kill_to_restart_s": t_back - t_kill, "ftrl_errs": errs,
+                         "watchdog_events": len(wd_events),
+                         "gen_rows": {str(g): v for g, v in rows.items()}}
+    print(f"# launch-local drill on {card}: killed after step 5 (last gen-0 beat), gen 1's "
+          f"first beat {t_back - t_kill:.1f} s later, resumed from step 4; {r['wall_s']:.1f} s "
+          f"wall against the uninterrupted run's {solo_wall:.1f} s (lost "
+          f"{r['wall_s'] - solo_wall:.1f} s); step {gstep}, examples {ds['examples']}; "
+          f"state vs the uninterrupted run {errs}; watchdog events {wd_events}; per "
+          f"generation {rows}", flush=True)
+    shutil.rmtree(ll)
+
+    # (4) a 2-rank CPU world's checkpoint, resumed on the card in a world of one
+    el = os.path.join(root, "elastic")
+    os.makedirs(el)
+    rows_per = ELASTIC_BATCHES * ELASTIC_BATCH
+    eshards = split_rows(rate_path, [(os.path.join(el, f"e-0000{j}"), j * rows_per, rows_per)
+                                     for j in range(2)])
+    eprefix = eshards[0][: -len("-00000")]
+    eck = os.path.join(el, "ck")
+    r = run_launcher(["launch-local", "--num-processes", "2", "--",
+                      *fm_args(eprefix, eck, "--set", "train.checkpoint_every=3",
+                               log2=ELASTIC_LOG2_SLOTS, batch=ELASTIC_BATCH, device="cpu",
+                               epochs=1)],
+                     el, os.path.join(el, "cpu"), launch_env({"XFLOW_FAULT_KILL_STEP": "3"}),
+                     key="XFLOW_PROCESS_ID")
+    if r["rc"] == 0 or ckpt.committed_steps(eck) != [3]:
+        fail(f"elastic: the CPU world exited {r['rc']} with steps {ckpt.committed_steps(eck)}: "
+             f"{open(os.path.join(el, 'cpu.err')).read()[-3000:]}")
+    ds = ckpt.read_data_state(eck, 3)
+    if (ds["num_shards"], ds["world_size"], ds["shard_batches"]) != (2, 2, {"0": 3, "1": 3}):
+        fail(f"elastic: the CPU world's data_state {ds}")
+    shutil.copytree(eck, eck + "_cpu")
+    ecfg = override(cfg, **{"data.log2_slots": ELASTIC_LOG2_SLOTS,
+                            "data.batch_size": ELASTIC_BATCH, "data.train_path": eprefix,
+                            "train.epochs": 1, "train.checkpoint_dir": eck,
+                            "train.log_every": 0, "train.pred_dump": False})
+    prev, _ = state_leaves(eck, 3)
+    res = {}
+    for dev, ck in ((DEVICE, eck), ("cpu", eck + "_cpu")):
+        trainer = Trainer(override(ecfg, **{"train.checkpoint_dir": ck}), device=dev)
+        t0 = time.perf_counter()
+        if not trainer.maybe_restore() or trainer.state.step != 3:
+            fail(f"elastic: the {dev} resume restored step {trainer.state.step}")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        st.reset_launches()
+        t0 = time.perf_counter()
+        fit = trainer.fit()
+        torch.cuda.synchronize()
+        res[ck] = (fit, t_restore, time.perf_counter() - t0, dict(st.LAUNCHES))
+        del trainer
+    fit, t_restore, t_fit, elaunches = res[eck]
+    want_ex = 2 * rows_per - 3 * 2 * ELASTIC_BATCH
+    if (fit.steps, fit.examples) != (2 * (ELASTIC_BATCHES - 3), want_ex):
+        fail(f"elastic: the card's resume ran {fit.steps} steps, {fit.examples} examples; "
+             f"expected {2 * (ELASTIC_BATCHES - 3)}, {want_ex}")
+    if res[eck + "_cpu"][0].examples != want_ex:
+        fail(f"elastic: the CPU resume trained {res[eck + '_cpu'][0].examples} examples")
+    for k in ("gather_sorted", "row_sums", "scatter_ftrl"):
+        if elaunches[k] != fit.steps:
+            fail(f"elastic: the card's resume launched {k} {elaunches[k]} times, not {fit.steps}")
+    (got, _), (want, _) = state_leaves(eck), state_leaves(eck + "_cpu")
+    eerrs = trajectory_errs(tuple(t.to(DEVICE) for t in got), want, prev, cfg.optim.ftrl,
+                            "elastic resume, card vs CPU")
+    out["elastic"] = {"restore_s": t_restore, "fit_s": t_fit, "steps": fit.steps,
+                      "examples": fit.examples, "launches": elaunches, "ftrl_errs": eerrs,
+                      "cpu_world_wall_s": r["wall_s"]}
+    print(f"# elastic on {card}: a 2-rank CPU world's step-3 checkpoint (wv [2^"
+          f"{ELASTIC_LOG2_SLOTS}, {1 + V_DIM}], 2 shards) resumed in a world of one: restore "
+          f"{t_restore:.3f} s, {fit.steps} steps / {fit.examples} examples in {t_fit:.2f} s, "
+          f"launches {elaunches}; vs the CPU resume {eerrs}", flush=True)
+    shutil.rmtree(el)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"# phase 19 (launch) took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+
+def run_mesh_signal(ecfg, work: str, dev, mesh, card: str) -> dict:
+    """Phase 18's signal leg: the fully-sharded `Trainer.fit` on the
+    one-rank NCCL mesh with `train.signal_sync_every=2`, a SIGTERM to
+    this process once step 3 is counted (its heartbeat): the
+    all_reduce(MAX) of the pending signal at step 4 (a CUDA tensor on
+    NCCL) stops the run there, and the collective save commits step 4.
+    Returns the leg's launches of #2, #5 and #6."""
+    import signal
+
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.train import checkpoint as ckpt
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    ck = os.path.join(work, "mesh_signal_ck")
+    scfg = override(ecfg, **{"train.checkpoint_dir": ck, "train.ckpt_on_signal": True,
+                             "train.signal_sync_every": 2, "train.heartbeat_every": 1,
+                             "train.heartbeat_path": os.path.join(work, "mesh_signal_hb.jsonl")})
+    trainer = Trainer(scfg, device=dev, mesh=mesh)
+    beat = trainer.heartbeat.append
+
+    def append(rec):
+        beat(rec)
+        if rec.get("step") == 3 and "event" not in rec:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    trainer.heartbeat.append = append
+    torch.cuda.synchronize()
+    st.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: st.LAUNCHES[k] for k in ("row_sums", "gather_sorted_multi",
+                                            "scatter_sorted_multi")}
+    if (res.steps, res.interrupted) != (4, int(signal.SIGTERM)):
+        fail(f"the mesh signal leg stopped at step {res.steps}, interrupted {res.interrupted}: "
+             "expected step 4 and SIGTERM")
+    if ckpt.committed_steps(ck) != [4]:
+        fail(f"the mesh signal leg committed steps {ckpt.committed_steps(ck)}, not [4]")
+    if any(v != 4 for v in launches.values()):
+        fail(f"the mesh signal leg launched {launches}, not 4 of each")
+    print(f"# mesh signal leg on {card}: SIGTERM after step 3, stopped at step {res.steps} "
+          f"(signal_sync_every=2, the all_reduce on {mesh.device}), step 4 committed, "
+          f"{wall:.1f} s with the save; launches {launches}", flush=True)
+    return {"steps": res.steps, "interrupted": res.interrupted, "launches": launches}
 
 
 def main() -> int:
@@ -3884,6 +4435,7 @@ def main() -> int:
         run_online(cfg, work, path, rate_path, card)
         zipf = run_observe(work, rate_path, card)
         mesh = run_mesh(cfg, work, path, rate_path, card)
+        launch = run_launch(cfg, work, rate_path, card)
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")
@@ -3907,11 +4459,18 @@ def main() -> int:
                 "fs_positions", "fs_real", "fs_pads", "fs_scatter_ms", "fs_max_abs_err")})
         if k["name"] == "gather_sorted_multi":
             k["mesh"]["fs_gather_ms"] = mesh["fs_gather_ms"]
+        if k["name"] in mesh["signal"]["launches"]:
+            k["mesh"]["signal"] = mesh["signal"]["launches"][k["name"]]
+        if k["name"] in launch["elastic"]["launches"] and k["name"] in OBS_KERNEL_NAMES:
+            k["launch"] = {"elastic_resume": launch["elastic"]["launches"][k["name"]],
+                           "solo_slice": launch["multislice"]["solo_launches"][k["name"]],
+                           "slices_traced": {j: v[k["name"]] for j, v in
+                                             launch["multislice"]["trace_launches"].items()}}
     kern += lab_kern
     for k in kern:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card)
-    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"kernels": kern, "launch": launch}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

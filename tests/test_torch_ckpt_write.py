@@ -546,7 +546,7 @@ def test_kill_mid_async_save_then_resume_restores_as_jax(lr_data, tmp_path):
     j = JTrainer(joverride(jcfg, **{"train.checkpoint_dir": jck5}))
     assert j.maybe_restore() and int(j.state.step) == 5
     jepoch, jskips = j._consume_resume_position()
-    assert t._consume_resume_position() == (jepoch, jskips[0]) == (0, 5)
+    assert t._consume_resume_position() == (jepoch, jskips) == (0, {0: 5})
 
 
 def test_new_config_fields_have_the_jax_defaults():

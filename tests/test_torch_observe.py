@@ -102,9 +102,10 @@ def test_every_shared_config_field_has_the_jax_default():
     for key, v in port.items():
         assert v == ref[key] and type(v) is type(ref[key]), key
     assert {f"train.{k}" for k in NEW_TRAIN_FIELDS} <= set(port)
-    # multi-process, and compile accounting (no compile step in torch)
-    assert {k for k in ref if k.startswith("train.")} - set(port) == {
-        "train.signal_sync_every", "train.compile_metrics"}
+    # compile accounting alone (no compile step in torch); the sync tier whole
+    assert {k for k in ref if k.startswith("train.")} - set(port) == {"train.compile_metrics"}
+    assert {k for k in ref if k.startswith("sync.")} == {k for k in port if k.startswith("sync.")}
+    assert len([k for k in port if k.startswith("sync.")]) == 9
 
 
 # ------------------------------------------------------ the JAX unit tests

@@ -9,7 +9,8 @@ both row sides, and FM's online loop in tail mode with async tiered
 saves and publications), with `jax` and `xflow_tpu` blocked: through the native
 parser and planner, and from an `.xfc` cache the port packs; so do
 `serve` and `serve-fleet` (the fleet's replica too, and torch blocked
-in the fleet process, which only routes).
+in the fleet process, which only routes), and the launchers'
+`--help` and `launch-dist --dry-run`.
 """
 
 import http.client
@@ -210,10 +211,28 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.parallel.train_step, xflow_tpu_torch.parallel.sorted_sharded\n"
         "import xflow_tpu_torch.parallel.sorted_fullshard\n"
         "import xflow_tpu_torch.tools.fullshard_overflow_sim\n"
+        "import xflow_tpu_torch.launch.watchdog, xflow_tpu_torch.launch.dist\n"
+        "import xflow_tpu_torch.parallel.multislice\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_cli_launchers_without_jax(tmp_path):
+    """`launch-local --help`, `launch-multislice --help` and `launch-dist
+    --dry-run` with jax and xflow_tpu blocked: the port's command lines,
+    the XFLOW_* contract."""
+    main = "from xflow_tpu_torch.__main__ import main\nsys.exit(main(sys.argv[1:]))\n"
+    for cmd, want in (("launch-local", "--allow-shrink"), ("launch-multislice", "{slice}")):
+        r = _run_without_jax(main, cmd, "--help")
+        assert r.returncode == 0, r.stderr
+        assert want in r.stdout and "--max-restarts" in r.stdout
+    r = _run_without_jax(main, "launch-dist", "--host", "a", "--host", "b", "--dry-run",
+                         "--", "--train", "/d/t", "--device", "cpu", cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.count("-m xflow_tpu_torch train") == 2
+    assert "XFLOW_PROCESS_ID=1" in r.stdout and "XFLOW_COORDINATOR=a:29431" in r.stdout
 
 
 def test_cli_evaluate_without_jax(slice_case):

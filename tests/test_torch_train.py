@@ -286,7 +286,7 @@ def test_jax_checkpoint_restores_in_port(fit_case):
     got, want = _port_leaves(t.state), _jax_leaves(fit_case["jt"].state)
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
-    assert t._consume_resume_position() == (0, 0)  # completed: a fresh pass
+    assert t._consume_resume_position() == (0, {})  # completed: a fresh pass
 
 
 def test_resume_from_interrupted_run_equals_uninterrupted(fit_case, tmp_path):

@@ -56,6 +56,28 @@ router-first drain on SIGTERM. One JSON ready line {"serving", "fleet",
     python -m xflow_tpu_torch export CHECKPOINT_DIR [--table w|v|wv] --out FILE
     python -m xflow_tpu_torch collisions FILE [FILE ...] [--log2-slots N] [--salt N]
 
+    python -m xflow_tpu_torch launch-local [--num-processes N] [--run-dir R] \
+        [--max-restarts K] [--allow-shrink] -- TRAIN_ARGS
+    python -m xflow_tpu_torch launch-dist --hosts FILE [--dry-run] [--ssh-cmd C] \
+        [--workdir W] [--env K=V] [--run-dir R] [--max-restarts K] -- TRAIN_ARGS
+    python -m xflow_tpu_torch launch-multislice [--slices N] --run-dir R \
+        [--max-restarts K] -- TRAIN_ARGS
+
+The launchers of `python -m xflow_tpu`, with its flags and messages
+(`launch/local.py`, `launch/dist.py`, `parallel/multislice.py`):
+`launch-local` starts N `train` ranks on this host joined over
+127.0.0.1, `launch-dist` one rank a host over ssh (`--dry-run` prints
+each host's environment and command), `launch-multislice` N slices, each
+a world of its own, that exchange table deltas in `<R>/sync`
+(`--set sync.mode=...`; `{slice}` in TRAIN_ARGS becomes the slice).
+With `--run-dir` each rank writes `metrics_rank<k>.jsonl` and
+`heartbeat_rank<k>.jsonl` there and the watchdog polls them;
+`--max-restarts` relaunches a failed world (or slice) with
+`train.resume=true`. The children take TRAIN_ARGS' `--device` (cuda by
+default; the JAX launcher forces the CPU): `--device cpu` runs a
+multi-rank world over gloo on one host, which is how a world larger
+than the host's cards runs.
+
 The data tools of `python -m xflow_tpu`, with its flags and outputs:
 `gen-data` writes synthetic libffm shards (`data/synth.py`, byte-equal
 to the JAX writers' for the same seeds) and prints their paths;
@@ -231,7 +253,10 @@ def _train(args, rank: int) -> int:
         # the grace period is not spent on it
         summary["interrupted"] = res.interrupted
         summary["device"] = args.device
-        print(json.dumps(summary))
+        if world > 1:
+            summary["world"] = world
+        if rank == 0:
+            print(json.dumps(summary))
         return 0
     if cfg.data.test_path:
         auc, ll = trainer.evaluate()  # every rank takes part on a mesh
@@ -302,6 +327,90 @@ def cmd_collisions(args) -> int:
 
     print(json.dumps(measure(args.paths, args.log2_slots, args.salt)))
     return 0
+
+
+def _add_watchdog_flags(ap) -> None:
+    """The liveness watchdog's flags (with --run-dir; 0 = the module default)."""
+    ap.add_argument("--straggler-factor", type=float, default=0.0,
+                    help="flag a rank whose heartbeat step trails the leader "
+                         "by more than this factor (default 2.0)")
+    ap.add_argument("--dead-after-s", type=float, default=0.0,
+                    help="flag a rank with no heartbeat for this many "
+                         "seconds as dead (default 60)")
+    ap.add_argument("--watchdog-poll-s", type=float, default=0.0,
+                    help="heartbeat poll interval in seconds (default 2)")
+
+
+def _add_supervise_flags(ap) -> None:
+    """The supervised restart's flags (`launch/supervise.py`)."""
+    ap.add_argument("--max-restarts", type=int, default=0,
+                    help="relaunch the whole job (with train.resume=true) up "
+                         "to this many times after a nonzero rank exit or a "
+                         "watchdog dead-rank verdict (default 0 = no "
+                         "supervision)")
+    ap.add_argument("--restart-backoff", type=float, default=1.0,
+                    help="base seconds between restarts; doubles per attempt "
+                         "with jitter, capped at 60s (default 1.0)")
+    ap.add_argument("--min-uptime-s", type=float, default=0.0,
+                    help="an attempt dying faster than this is treated as a "
+                         "config error and NOT restarted (default 0 = always "
+                         "restart while the budget lasts)")
+    ap.add_argument("--allow-shrink", action="store_true",
+                    help="degraded-mode supervision: a watchdog dead-HOST "
+                         "verdict (unreachable across the grace window, vs a "
+                         "process that merely exits) relaunches on the "
+                         "surviving host set with a recomputed world size; "
+                         "the elastic restore reshards the checkpoint and "
+                         "re-assigns the lost rank's data shards (default: "
+                         "relaunch same-shape)")
+
+
+def cmd_launch_local(args) -> int:
+    from xflow_tpu_torch.launch.local import launch_local
+
+    return launch_local(
+        args.num_processes, args.forward, port=args.port, run_dir=args.run_dir,
+        straggler_factor=args.straggler_factor, dead_after_s=args.dead_after_s,
+        watchdog_poll_s=args.watchdog_poll_s, max_restarts=args.max_restarts,
+        restart_backoff=args.restart_backoff, min_uptime_s=args.min_uptime_s,
+        allow_shrink=args.allow_shrink,
+    )
+
+
+def cmd_launch_multislice(args) -> int:
+    from xflow_tpu_torch.parallel.multislice import launch_multislice
+
+    return launch_multislice(
+        args.slices, args.forward, run_dir=args.run_dir,
+        straggler_factor=args.straggler_factor, dead_after_s=args.dead_after_s,
+        watchdog_poll_s=args.watchdog_poll_s, max_restarts=args.max_restarts,
+        restart_backoff=args.restart_backoff, min_uptime_s=args.min_uptime_s,
+    )
+
+
+def cmd_launch_dist(args) -> int:
+    from xflow_tpu_torch.launch.dist import launch_dist, parse_hosts
+
+    hosts = list(args.host or [])
+    if args.hosts:
+        hosts = parse_hosts(args.hosts) + hosts
+    if len(hosts) < 2:
+        print("launch-dist needs >= 2 hosts (--hosts FILE or repeated --host)",
+              file=sys.stderr)
+        return 2
+    for kv in args.env or []:
+        if "=" not in kv:
+            print(f"--env expects K=V, got {kv!r}", file=sys.stderr)
+            return 2
+    env_extra = dict(kv.split("=", 1) for kv in (args.env or []))
+    return launch_dist(
+        hosts, args.forward, port=args.port, ssh_cmd=args.ssh_cmd, workdir=args.workdir,
+        python=args.python, env_extra=env_extra, dry_run=args.dry_run, run_dir=args.run_dir,
+        straggler_factor=args.straggler_factor, dead_after_s=args.dead_after_s,
+        watchdog_poll_s=args.watchdog_poll_s, max_restarts=args.max_restarts,
+        restart_backoff=args.restart_backoff, min_uptime_s=args.min_uptime_s,
+        allow_shrink=args.allow_shrink,
+    )
 
 
 def main(argv=None) -> int:
@@ -437,6 +546,74 @@ def main(argv=None) -> int:
     co.add_argument("--log2-slots", type=int, default=22)
     co.add_argument("--salt", type=int, default=0)
     co.set_defaults(fn=cmd_collisions)
+    ll = sub.add_parser("launch-local", help="start a local multi-process world "
+                                             "(scripts/local.sh analog)")
+    ll.add_argument("--num-processes", type=int, default=2)
+    ll.add_argument("--port", type=int, default=0, help="coordinator port (0 = pick free)")
+    ll.add_argument("--run-dir", default="",
+                    help="collect per-rank telemetry here: each rank writes "
+                         "<run-dir>/metrics_rank<k>.jsonl (overrides any "
+                         "train.metrics_path in the forwarded args) and all "
+                         "ranks share one run_id; summarize with "
+                         "tools/metrics_report.py")
+    _add_watchdog_flags(ll)
+    _add_supervise_flags(ll)
+    ll.add_argument("forward", nargs=argparse.REMAINDER,
+                    help="-- followed by `train` args to run in every process (their "
+                         "--device, cuda by default: one card a rank; cpu: gloo)")
+    ll.set_defaults(fn=cmd_launch_local)
+    lm = sub.add_parser(
+        "launch-multislice",
+        help="emulate N slices with bounded-staleness table sync "
+             "across them (sync.mode/staleness_k; each slice is an "
+             "independent supervised `train`)",
+    )
+    lm.add_argument("--slices", type=int, default=2,
+                    help="slice count (default 2); each slice is its own "
+                         "single-process training world exchanging table "
+                         "deltas via <run-dir>/sync")
+    lm.add_argument("--run-dir", required=True,
+                    help="REQUIRED shared run dir: the sync tier lives in "
+                         "<run-dir>/sync (deltas, snapshots, "
+                         "membership.json) and slice j writes "
+                         "<run-dir>/metrics_rank<j>.jsonl + "
+                         "heartbeat_rank<j>.jsonl; summarize with "
+                         "tools/metrics_report.py")
+    _add_watchdog_flags(lm)
+    _add_supervise_flags(lm)
+    lm.add_argument("forward", nargs=argparse.REMAINDER,
+                    help="-- followed by `train` args for every "
+                         "slice; the literal {slice} substitutes to the "
+                         "slice index (per-slice --train prefix / "
+                         "--checkpoint-dir)")
+    lm.set_defaults(fn=cmd_launch_multislice)
+    ld = sub.add_parser("launch-dist", help="start one rank per machine over ssh "
+                                            "(run_ps_dist.sh analog)")
+    ld.add_argument("--hosts", help="hosts file: one host per line, first = rank 0 "
+                                    "(scripts/hosts shape)")
+    ld.add_argument("--host", action="append",
+                    help="repeatable inline host (appended after --hosts entries)")
+    ld.add_argument("--port", type=int, default=29431, help="coordinator port on host 0")
+    ld.add_argument("--ssh-cmd", default="ssh",
+                    help="remote runner prefix (default ssh; e.g. 'ssh -i key')")
+    ld.add_argument("--workdir", default="",
+                    help="remote working dir; {rank}/{host} placeholders supported")
+    ld.add_argument("--python", default="", help="remote python (default python3)")
+    ld.add_argument("--env", action="append", metavar="K=V",
+                    help="extra env for every rank (repeatable)")
+    ld.add_argument("--run-dir", default="",
+                    help="REMOTE dir (shared filesystem recommended) for "
+                         "per-rank telemetry: each rank writes "
+                         "<run-dir>/metrics_rank<k>.jsonl and all ranks share "
+                         "one run_id (XFLOW_RUN_ID); summarize with "
+                         "tools/metrics_report.py")
+    ld.add_argument("--dry-run", action="store_true",
+                    help="print the per-host command lines instead of running")
+    _add_watchdog_flags(ld)
+    _add_supervise_flags(ld)
+    ld.add_argument("forward", nargs=argparse.REMAINDER,
+                    help="-- followed by `train` args to run on every host")
+    ld.set_defaults(fn=cmd_launch_dist)
     args = ap.parse_args(argv)
     return args.fn(args)
 

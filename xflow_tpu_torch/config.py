@@ -1,15 +1,14 @@
 """Configuration tree of the PyTorch port: the fields the ported slices
 (FM inference, single-device LR, FM, MVM and FFM training, the host
 input plane, the server and its fleet, the online training loop and
-the trainer's observability, the multi-device engines) read, with the
+the trainer's observability, the multi-device engines, the launchers
+and the multi-slice sync tier) read, with the
 JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
-Sections and fields not listed here belong to paths the port has not
-taken over yet (`sync.*`, `train.signal_sync_every`) or
-leaves out by design (`train.compile_metrics`); an override naming one
-raises KeyError.
+Fields not listed here belong to what the port leaves out by design
+(`train.compile_metrics`); an override naming one raises KeyError.
 """
 
 from __future__ import annotations
@@ -181,7 +180,9 @@ class TrainConfig:
     writes `pred_0_<block>.txt` rows on the exact and bucketed paths.
 
     `ckpt_on_signal`: SIGTERM/SIGINT commit the step reached and end
-    the run. `keep_checkpoints` / `keep_replica_checkpoints` keep the N
+    the run; a world of several ranks agrees on the step with one
+    all_reduce(MAX) of the pending signal every `signal_sync_every`
+    steps (0: no handler is installed on such a world). `keep_checkpoints` / `keep_replica_checkpoints` keep the N
     newest committed steps of each tier (0 = all) and sweep uncommitted
     debris after each save. `ckpt_async`: the fit loop only snapshots
     and a writer thread commits, at most one save in flight
@@ -205,6 +206,7 @@ class TrainConfig:
     metrics_path: str = ""
     ckpt_spans: bool = True
     ckpt_on_signal: bool = True
+    signal_sync_every: int = 100
     keep_checkpoints: int = 0
     ckpt_async: bool = False
     keep_replica_checkpoints: int = 0
@@ -305,6 +307,30 @@ class MeshConfig:
 
 
 @dataclass(frozen=True)
+class SyncConfig:
+    """The multi-slice sync tier (`parallel/multislice.py`): slices that
+    train apart exchange additive table deltas through the shared `dir`
+    every `every_steps` steps. `mode`: "off" (no tier), "sync" (wait for
+    every live peer's round: K = 0), "bounded" (wait until every live
+    peer is within `staleness_k` rounds) or "async" (never wait). Every
+    wait is bounded by `timeout_s` with `retries` re-checks `backoff_s`
+    apart (doubling, jittered); a missed bound then follows `on_stale`
+    ("wait": after the bounded wait; "proceed": check once and go on).
+    Every `snapshot_every` rounds (0 = never) a slice publishes its whole
+    state, which a relaunched slice adopts."""
+
+    mode: str = "off"
+    staleness_k: int = 0
+    every_steps: int = 50
+    dir: str = ""
+    timeout_s: float = 30.0
+    retries: int = 3
+    backoff_s: float = 0.5
+    on_stale: str = "wait"
+    snapshot_every: int = 10
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
@@ -312,6 +338,7 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    sync: SyncConfig = field(default_factory=SyncConfig)
 
     @property
     def num_slots(self) -> int:

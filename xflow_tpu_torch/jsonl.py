@@ -8,8 +8,11 @@ state, so a later append reopens in append mode. An empty path disables
 the sink. Every record is prefixed with `ts` (wall-clock seconds) and
 the JAX package's stamp: `rank`, `run_id`, `gen` and `world`, resolved
 from the launcher's environment at the first append
-(`telemetry.resolve_*`), plus `replica` and `port` in a serving fleet's
-replicas (absent keys elsewhere, not nulls). With none of the `XFLOW_*`
+(`telemetry.resolve_*`; a rank started with `--process-id` flags takes
+rank and world from the `torch.distributed` world it joined, which it
+has by then), plus `replica` and `port` in a serving fleet's replicas
+and `slice` in a multi-slice run's slices (absent keys elsewhere, not
+nulls). With none of the `XFLOW_*`
 variables set the stamp is a one-process run's: rank 0, one random
 run id a process, gen 0, world 1. A caller that knows its identity
 passes `stamp=` (the fleet's router: rank -1); the keys it leaves out
@@ -36,8 +39,9 @@ from xflow_tpu_torch import telemetry
 
 
 def _resolve_stamp(stamp: Optional[dict] = None) -> dict:
-    """`stamp` completed from the environment: rank, run_id, gen, world,
-    and replica / port inside a fleet."""
+    """`stamp` completed from the environment (or the joined world): rank,
+    run_id, gen, world, replica / port inside a fleet, and slice inside a
+    multi-slice run."""
     out = dict(stamp or {})
     if "rank" not in out:
         out["rank"] = telemetry.resolve_rank()
@@ -54,6 +58,10 @@ def _resolve_stamp(stamp: Optional[dict] = None) -> dict:
             port = telemetry.resolve_replica_port()
             if port is not None:
                 out["port"] = port
+    if "slice" not in out:
+        sl = telemetry.resolve_slice()
+        if sl is not None:
+            out["slice"] = sl
     return out
 
 
@@ -107,17 +115,19 @@ class JsonlAppender:
                 self._f = None
 
 
-def read_jsonl_counted(path: str) -> tuple[list, int]:
+def read_jsonl_counted(path: str, warn: bool = True) -> tuple[list, int]:
     """(records, skipped) of a JSONL file, a `<path>.1` roll read first so
     the records keep file order. Unparseable lines (a record cut by a
     crash mid-append, or damage) are skipped and counted, with one
-    warning a file on stderr."""
-    old, old_skipped = _read_file(path + ".1") if os.path.exists(path + ".1") else ([], 0)
-    live, skipped = _read_file(path)
+    warning a file on stderr unless `warn` is False (a poller that
+    rereads the file)."""
+    old, old_skipped = (_read_file(path + ".1", warn) if os.path.exists(path + ".1")
+                        else ([], 0))
+    live, skipped = _read_file(path, warn)
     return old + live, old_skipped + skipped
 
 
-def _read_file(path: str) -> tuple[list, int]:
+def _read_file(path: str, warn: bool = True) -> tuple[list, int]:
     records, skipped, first_bad = [], 0, 0
     with open(path) as f:
         for i, line in enumerate(f, 1):
@@ -133,13 +143,13 @@ def _read_file(path: str) -> tuple[list, int]:
                 first_bad = first_bad or i
                 continue
             records.append(rec)
-    if skipped:
+    if skipped and warn:
         print(f"xflow: warning: {path}: skipped {skipped} unparseable JSONL line(s) "
               f"(first at line {first_bad}; truncated append or corruption)",
               file=sys.stderr)
     return records, skipped
 
 
-def read_jsonl(path: str) -> list:
+def read_jsonl(path: str, warn: bool = True) -> list:
     """The records of a JSONL file (see `read_jsonl_counted`)."""
-    return read_jsonl_counted(path)[0]
+    return read_jsonl_counted(path, warn)[0]

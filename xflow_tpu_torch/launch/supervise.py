@@ -1,20 +1,26 @@
-"""Supervised restart, after `xflow_tpu/launch/supervise.py`: the part the
-serving fleet needs.
+"""Supervised restart, after `xflow_tpu/launch/supervise.py`: the one
+loop the training launchers and the serving fleet wrap their jobs in.
 
 - `supervise(run_attempt, ...)` re-runs an attempt until it exits 0 or
   the restart budget (`max_restarts`) is spent, with exponential backoff
   and jitter between attempts. The attempt index is the restart
-  generation: the fleet exports it to a relaunched replica as
-  `XFLOW_RESTART_GEN`, stamped as `gen` into every record it writes.
+  generation: the launchers export it as `XFLOW_RESTART_GEN`, stamped as
+  `gen` into every record. A training relaunch forces
+  `train.resume=true` (`resume_forward_args`), so it restores the last
+  committed checkpoint and its data_state.
 - `min_uptime_s`: an attempt that dies faster than this is taken for a
   configuration error (a crash loop would burn every restart in
   seconds), and supervision stops with its exit code.
+- `wait_fail_fast` is the launchers' one wait: the first rank that
+  exits non-zero, or the watchdog's dead verdict (a wedged rank never
+  exits), tears the whole world down (`terminate_procs`), since its
+  peers would block in a collective forever.
+- `DeadHostTracker`: with `--allow-shrink`, a dead verdict (a lost host,
+  where a crashed process would have exited) shrinks the next attempt to
+  the survivors; the elastic resume then covers the lost rank's shards.
 
 - `retry_call(fn, ...)` calls `fn` with bounded backoff-spaced retries
   (the rendezvous of `parallel/distributed.py`).
-
-The training launchers' multi-rank wait, teardown and degraded-mode
-supervision are not taken over (they come with the launch layer).
 """
 
 from __future__ import annotations
@@ -25,6 +31,68 @@ import time
 from typing import Callable, Optional
 
 BACKOFF_CAP_S = 60.0
+# the exit code of an attempt that only the watchdog's dead verdict
+# failed (a wedged rank has no exit code of its own): EX_TEMPFAIL
+EX_TEMPFAIL = 75
+
+
+class DeadHostTracker:
+    """The lost hosts of degraded-mode supervision (`--allow-shrink`).
+
+    A rank that exits non-zero is a dead process on a live host: the
+    relaunch keeps the world's shape. A watchdog dead or missing verdict
+    (no heartbeat across the grace window) is a lost host: with
+    `allow_shrink` the next attempt runs on the survivors, with the
+    world size recomputed. `record` takes a label (a host for
+    launch-dist, a (gen, rank) tag for launch-local's emulated slots);
+    launch-dist `revive`s a host its probe reaches again. Off, every
+    method leaves the shape alone."""
+
+    def __init__(self, allow_shrink: bool = False):
+        self.allow_shrink = bool(allow_shrink)
+        self.lost: set = set()
+
+    def record(self, label) -> None:
+        if self.allow_shrink:
+            self.lost.add(label)
+
+    def attempt_recorder(self, labels: Optional[list] = None, gen: int = 0):
+        """The watchdog's `on_dead` hook for one attempt. It records one
+        loss: once a host wedges, its peers block in the next collective
+        and go stale too, and the culprit ordering (lowest step first)
+        makes the first verdict the lost host. `labels` maps the
+        verdict's rank to a host (launch-dist); None tags it (gen, rank).
+        Malformed or out-of-range ranks are ignored."""
+        fired: list = []
+
+        def on_dead(row: dict) -> None:
+            r = row.get("rank")
+            if fired or not isinstance(r, int) or r < 0:
+                return
+            if labels is None:
+                fired.append(row)
+                self.record((gen, r))
+            elif r < len(labels):
+                fired.append(row)
+                self.record(labels[r])
+
+        return on_dead
+
+    def revive(self, label) -> None:
+        self.lost.discard(label)
+
+    def shrunk_world(self, total: int, floor: int = 1) -> int:
+        """The next attempt's world: `total` less the lost, at least `floor`."""
+        if not self.allow_shrink:
+            return int(total)
+        return max(int(total) - len(self.lost), int(floor))
+
+    def survivors(self, items: list) -> list:
+        """`items` less the lost labels, in order (the first survivor is
+        rank 0 and the coordinator)."""
+        if not self.allow_shrink:
+            return list(items)
+        return [x for x in items if x not in self.lost]
 
 
 def backoff_delay(attempt: int, base_s: float, rng=None,
@@ -65,6 +133,55 @@ def retry_call(
                 except Exception:  # noqa: BLE001 — a failed teardown must not mask the retry
                     pass
             sleep(delay)
+
+
+def terminate_procs(procs, kill_after_s: float = 5.0) -> None:
+    """SIGTERM every live process, then SIGKILL what is left after
+    `kill_after_s` (a rank blocked in a collective never reaches a
+    point where it would act on the TERM)."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    deadline = time.monotonic() + kill_after_s
+    while time.monotonic() < deadline and any(p.poll() is None for p in procs):
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+
+
+def wait_fail_fast(procs, teardown: Callable, dead_verdict=None, label: str = "launch",
+                   grace_s: float = 0.0, poll_s: float = 0.2, out=None) -> int:
+    """Poll the ranks until all exit. On the first non-zero exit, or the
+    watchdog's verdict (`dead_verdict`, a threading.Event its on_dead
+    policy sets), wait `grace_s` for the others' own error output, then
+    `teardown(procs)`. Returns the first bad exit code (EX_TEMPFAIL for a
+    verdict alone), or 0 when every rank exited clean."""
+    first_bad = 0
+    while True:
+        codes = [p.poll() for p in procs]
+        bad = [c for c in codes if c]  # non-zero and not None
+        if not first_bad and (bad or (dead_verdict is not None and dead_verdict.is_set())):
+            first_bad = bad[0] if bad else EX_TEMPFAIL
+            reason = (f"a rank exited with code {first_bad}" if bad
+                      else "watchdog verdict: dead/missing rank")
+            grace_note = f" in {grace_s:.0f}s" if grace_s > 0 else ""
+            print(f"{label}: {reason}; terminating the remaining ranks{grace_note} (peers "
+                  "would otherwise block in collectives forever)", file=out or sys.stderr)
+            if grace_s > 0:
+                deadline = time.monotonic() + grace_s
+                while time.monotonic() < deadline and any(p.poll() is None for p in procs):
+                    time.sleep(poll_s)
+            teardown(procs)
+        if all(c is not None for c in codes):
+            return first_bad or next((c for c in codes if c), 0)
+        time.sleep(poll_s)
+
+
+def resume_forward_args(forward_args: list) -> list:
+    """A relaunch's `train` argv: the original one with `train.resume=true`
+    forced last, so it wins over a `--set train.resume=false` given."""
+    return [*forward_args, "--set", "train.resume=true"]
 
 
 def supervise(

@@ -3,9 +3,12 @@ after `xflow_tpu/telemetry.py`: named counters, gauges and timers that
 the server's telemetry increments and `GET /stats` snapshots, and the
 `resolve_*` functions that read a process's identity from the launcher's
 environment (`XFLOW_RUN_ID`, `XFLOW_PROCESS_ID`, `XFLOW_RESTART_GEN`,
-`XFLOW_NUM_PROCESSES`, `XFLOW_REPLICA`, `XFLOW_REPLICA_PORT`; the
-serving fleet exports them to every replica). Unset, a process is rank
-0 of a world of 1, generation 0, outside a fleet.
+`XFLOW_NUM_PROCESSES`, `XFLOW_REPLICA`, `XFLOW_REPLICA_PORT`,
+`XFLOW_SLICE`, `XFLOW_NUM_SLICES`; the launchers and the serving fleet
+export them). A rank started with flags instead of that environment
+takes its rank and world size from the `torch.distributed` world it
+joined. Unset, a process is rank 0 of a world of 1, generation 0,
+outside a fleet and a multi-slice run.
 
 The trainer's observability, after the JAX module: the card's memory
 gauges (`device_memory_stats`, `hbm_window_fields`), `StepTimer`'s
@@ -64,10 +67,29 @@ def resolve_run_id() -> str:
     return _RUN_ID
 
 
+def _joined_world():
+    """`torch.distributed` when this process has joined a world, else
+    None. Never imports torch: a process that has not (the serving
+    fleet's router) has joined none."""
+    dist = sys.modules.get("torch.distributed")
+    try:
+        if dist is not None and dist.is_available() and dist.is_initialized():
+            return dist
+    except Exception:  # noqa: BLE001 — a half-torn-down group reads as none
+        pass
+    return None
+
+
 def resolve_rank() -> int:
-    """XFLOW_PROCESS_ID, else 0 (the port runs one process)."""
+    """XFLOW_PROCESS_ID, the launcher's authority; else this process's
+    rank in the `torch.distributed` world it joined (a rank started with
+    `--process-id`), as the JAX package falls back to
+    `jax.process_index()`; else 0."""
     rank = _env_int("XFLOW_PROCESS_ID")
-    return 0 if rank is None else rank
+    if rank is not None:
+        return rank
+    dist = _joined_world()
+    return int(dist.get_rank()) if dist is not None else 0
 
 
 def resolve_restart_gen() -> int:
@@ -76,15 +98,32 @@ def resolve_restart_gen() -> int:
 
 
 def resolve_world_size() -> int:
-    """XFLOW_NUM_PROCESSES when positive, else 1 (a fleet's world is its
-    replica count)."""
+    """XFLOW_NUM_PROCESSES when positive; else the size of the
+    `torch.distributed` world this process joined, as the JAX package
+    falls back to `jax.process_count()`; else 1."""
     n = _env_int("XFLOW_NUM_PROCESSES")
-    return n if n and n > 0 else 1
+    if n and n > 0:
+        return n
+    dist = _joined_world()
+    return int(dist.get_world_size()) if dist is not None else 1
 
 
 def resolve_replica() -> Optional[int]:
     """This serving replica's index (XFLOW_REPLICA), or None outside a fleet."""
     return _env_int("XFLOW_REPLICA")
+
+
+def resolve_slice() -> Optional[int]:
+    """This process's slice index in a multi-slice run (XFLOW_SLICE,
+    exported by `launch-multislice`), or None outside one."""
+    return _env_int("XFLOW_SLICE")
+
+
+def resolve_num_slices() -> int:
+    """The slice count of this launch (XFLOW_NUM_SLICES), 1 outside a
+    multi-slice run."""
+    n = _env_int("XFLOW_NUM_SLICES")
+    return max(n, 1) if n else 1
 
 
 def resolve_replica_port() -> Optional[int]:

@@ -399,6 +399,43 @@ def read_data_state(ckpt_dir: str, step: int) -> Optional[dict]:
 
 
 
+def normalize_data_state(ds: dict) -> dict:
+    """A stored data_state of either version in the topology-independent
+    form an elastic resume reads (`xflow_tpu/train/checkpoint.py`):
+    `examples` the global total, `shard_batches` {shard index: batches
+    consumed in the epoch}, `num_shards` the shard set in play and
+    `world_size` the writer's. A version-1 record (one offset, the ranks
+    in lockstep, one shard each) folds exactly. Raises TypeError or
+    ValueError on a malformed record."""
+    out = {
+        "version": DATA_STATE_VERSION,
+        "epoch": max(int(ds.get("epoch", 0)), 0),
+        "batches": max(int(ds.get("batches", 0)), 0),
+        "completed": bool(ds.get("completed", False)),
+        "examples": max(int(ds.get("examples", 0)), 0),
+        "quarantined_rows": max(int(ds.get("quarantined_rows", 0)), 0),
+    }
+    sb = ds.get("shard_batches")
+    if isinstance(sb, dict):
+        out["shard_batches"] = {int(k): max(int(v), 0) for k, v in sb.items()}
+        out["num_shards"] = max(int(ds.get("num_shards", 0)),
+                                max(out["shard_batches"], default=-1) + 1, 1)
+        out["world_size"] = max(int(ds.get("world_size", 1)), 1)
+        return out
+    per_rank = ds.get("examples_per_rank")
+    n = len(per_rank) if isinstance(per_rank, list) and per_rank else 1
+    out["world_size"] = n
+    out["num_shards"] = n
+    out["shard_batches"] = {i: out["batches"] for i in range(n)}
+    if isinstance(per_rank, list) and per_rank:
+        out["examples"] = sum(max(int(x), 0) for x in per_rank)
+    if out["epoch"] or out["batches"]:
+        print(f"# checkpoint: v1 data_state (per-rank keyed, {n} rank(s)) folded into the "
+              f"topology-independent form: global examples {out['examples']}, per-shard "
+              f"offset {out['batches']}", file=sys.stderr)
+    return out
+
+
 def fsync_dir(path: str) -> None:
     """fsync a directory, so a rename that landed in it survives a power
     or kernel loss (a rename alone may be journaled out of order)."""

@@ -45,6 +45,21 @@ window and `final` records, `eval_auc`, `pipeline`, `ingest`, `ckpt`,
 `publish`, `span` (`checkpoint_save`, `publish`), `interrupted`,
 `nonfinite_skipped` and `nonfinite_halt`.
 
+Elastic resume: the checkpoint's data_state holds each shard's
+consumed batches and the shard set in play (`num_shards`), so a run
+that wrote it at N ranks resumes at M: the resume takes
+``max(saved, world, XFLOW_ORIG_WORLD)`` shards, round-robin over the
+data coordinates (`pipeline.assign_shards`), each from its own offset;
+one device trains every shard in order. The tables restore onto any
+world (rank 0 reads the single-device format and broadcasts it, each
+rank keeps its range).
+
+The multi-slice tier (`sync.mode`, `parallel/multislice.py`): every
+`sync.every_steps` steps a `SliceSyncer` round exchanges table deltas
+with the other slices (a kind="sync" record and a `slice_sync` span),
+and a final round runs at the end of the data; a relaunched slice first
+adopts the freshest snapshot. Off, the loop is what it was.
+
 `evaluate` is the JAX one on one process: exact, or bucketed
 (`train.eval_buckets`; a streaming pass takes 65,536 under auto) with
 the decayed window, either writing `pred_0_<block>.txt` rows.
@@ -61,14 +76,18 @@ fully-sharded engine's overflow fallback (and MVM's row side under
 `mvm_exclusive=auto`), so every rank runs the same step. Checkpoints
 gather the shards and rank 0 writes the single-device format; restore
 is rank 0's walk, broadcast. `evaluate` runs on every rank and rank 0
-reports and dumps; rank 0 alone writes the records and the heartbeat.
-The online loop, the signal-driven save (it needs the JAX package's
-`signal_sync_every`) and an elastic resume onto another world are not
-taken over on a mesh.
+reports and dumps; every rank writes its own records and heartbeat
+(the launchers give each rank its own files), stamped with its rank
+and world. A signal on any rank stops every rank at the same step: one
+all_reduce(MAX) of the pending signal every `train.signal_sync_every`
+steps (NCCL with a CUDA tensor, gloo with a CPU one), then a collective
+save. The online loop is not taken over on a mesh.
+
+The fit loop's drills (`testing/faults.py`): `XFLOW_FAULT_KILL_STEP`,
+the step delay and stall, read once when the run starts.
 
 Not taken over from the JAX trainer: compile accounting and its
-roofline gauges (the torch step has no compile step) and the fault
-injectors of the fit loop.
+roofline gauges (the torch step has no compile step).
 """
 
 from __future__ import annotations
@@ -340,13 +359,24 @@ class Trainer:
             self.train_step = make_train_step(self.model, self.optimizer, cfg)
         else:
             self._init_mesh(cfg, mesh)
-        # rank 0 alone writes the run's records and heartbeat on a mesh
-        lead = self.rank == 0
-        self.metrics = MetricsLogger(cfg.train.metrics_path if lead else "",
+        # every rank its own stream, stamped at the first record (by then
+        # the rank has joined its world: a flag-started rank stamps its
+        # rank and world from it; a slice, XFLOW_PROCESS_ID = its index)
+        self.metrics = MetricsLogger(cfg.train.metrics_path,
                                      max_bytes=cfg.train.metrics_max_bytes)
-        # liveness: {step} records, and start/checkpoint/eval/final events
-        self.heartbeat = JsonlAppender(cfg.train.heartbeat_path if lead else "",
-                                       stamp={"kind": "heartbeat"})
+        # liveness: {step} records, and start/checkpoint/eval/sync/final events
+        self.heartbeat = JsonlAppender(cfg.train.heartbeat_path, stamp={"kind": "heartbeat"})
+        # the multi-slice sync tier (None when off: the loop is unchanged)
+        self._syncer = None
+        if cfg.sync.mode != "off":
+            if mesh is not None:
+                raise ValueError("sync.mode: the multi-slice tier runs slices of one device "
+                                 "each; it is not taken over on a mesh")
+            from xflow_tpu_torch.parallel.multislice import SliceSyncer
+            from xflow_tpu_torch.telemetry import resolve_num_slices, resolve_slice
+
+            self._syncer = SliceSyncer(cfg.sync, slice_id=resolve_slice() or 0,
+                                       num_slices=resolve_num_slices())
         self._health = HealthMonitor(mode=health_mode(cfg),
                                      ema_decay=cfg.train.health_ema_decay,
                                      num_slots=cfg.num_slots)
@@ -354,17 +384,17 @@ class Trainer:
         self.pipeline_prof = PipelineProfiler() if cfg.train.pipeline_metrics else None
         self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = None  # started lazily
         # data-stream position pinned by the next checkpoint's data_state:
-        # (epoch, batches consumed within it) of the one shard (on a mesh,
-        # the pass's global step offset, with this coordinate's real
-        # batches in _local_pos)
+        # (epoch, the pass's step offset), each shard's batches consumed in
+        # the epoch, the shard set in play, and the shard of the batch
+        # being stepped (None: a padding batch)
         self._epoch_pos = (0, 0)
-        self._local_pos = 0
-        self._last_real = True
+        self._shard_pos: dict = {}
+        self._num_shards = 0
+        self._last_shard: Optional[int] = None
         self._fs_overflow_warned = False
         self._examples_seen = 0
         self._examples_base = 0
         self._resume_data_state: Optional[dict] = None
-        self._resume_offset = 0
         # the decayed eval window (BucketAUC, ll_sum, rows), from the
         # first pass under train.eval_window_decay
         self._eval_window: Optional[tuple] = None
@@ -507,10 +537,11 @@ class Trainer:
         any overflow sends every rank to the row-major step for this batch
         (a rank whose plan fit rebuilds its row share from the batch), and
         MVM's product row side runs only when no rank saw a duplicate
-        field."""
+        field. The batch's `_shard` marker (None: padding) goes to
+        `_last_shard`, for the per-shard position."""
+        self._last_shard = host.pop("_shard", None)
         if self.mesh is None:
             return host
-        self._last_real = host.pop("_shard", None) is not None
         over = bool(host.pop("_fs_overflow", False))
         dup = host.pop("_mvm_dup", None)
         if self._mesh_engine != "fullshard":
@@ -527,34 +558,31 @@ class Trainer:
             host.pop("fs_fields", None)
         return host
 
-    def _mesh_feed(self, shards: list, skip: int, quarantine: bool, profiler=None,
+    def _mesh_feed(self, shards: list, skips: dict, quarantine: bool, profiler=None,
                    train: bool = True):
         """The data coordinate's (batch, host arrays) for one pass over
-        `shards` ([(index, path)]) after `skip` batches, exactly the
-        pass's agreed step count long: one all_reduce(MAX) of the local
-        batch counts (here, on the main thread), then the real batches
-        (marked `_shard`) and empty padding batches. Raises when the
-        parser yields another count than the counter (a file that
+        `shards` ([(index, path)]), each shard after its `skips` batches,
+        exactly the pass's agreed step count long: one all_reduce(MAX) of
+        the local batch counts (here, on the main thread), then the real
+        batches (marked `_shard`) and empty padding batches. Raises when
+        the parser yields another count than the counter (a file that
         changed under the pass)."""
         from xflow_tpu_torch.parallel import collectives as C
 
         local = 0
-        for _, p in shards:
+        for idx, p in shards:
             if os.path.exists(p):
-                local += pipeline.count_batches(p, self.cfg.data)
-        local = max(local - skip, 0)
+                local += max(pipeline.count_batches(p, self.cfg.data)
+                             - max(int(skips.get(idx, 0)), 0), 0)
         (steps,) = C.reduce_host([local], "max", device=self.mesh.device)
         cfg = self.cfg
 
         def feed():
             produced = 0
-            left = skip
             for idx, p in shards:
                 if not os.path.exists(p):
                     continue
-                n = pipeline.count_batches(p, cfg.data)
-                s = min(left, n)
-                left -= s
+                s = max(int(skips.get(idx, 0)), 0)
                 for batch in pipeline.batch_iterator(
                         p, cfg.data, skip=s, quarantine=quarantine and train,
                         enforce_bad_rows=train, profiler=profiler):
@@ -579,21 +607,45 @@ class Trainer:
         return feed()
 
     def _shards(self, prefix: str) -> list:
-        from xflow_tpu_torch.data.pipeline import assign_shards
+        """This data coordinate's [(shard index, path)] of the shard set
+        in play (one device: coordinate 0 of 1)."""
+        d, D = (0, 1) if self.mesh is None else (self.mesh.d, self.mesh.data)
+        return pipeline.assign_shards(prefix, d, D, max(self._num_shards, D))
 
-        return assign_shards(prefix, self.mesh.d, self.mesh.data)
+    def _train_feed(self, shards: list, skips: dict, quarantine: bool, profiler=None):
+        """The training stream of one epoch: (batch, host arrays) over
+        `shards`, each after its `skips` batches, every real batch marked
+        with its shard (the fault injectors wrap this seam)."""
+        if self.mesh is not None:
+            return self._mesh_feed(shards, skips, quarantine, profiler)
+
+        def feed():
+            for idx, p in shards:
+                if os.path.exists(p):  # an elastic resume's missing shard idles
+                    yield from self._feed(p, max(int(skips.get(idx, 0)), 0), quarantine,
+                                          profiler, shard=idx)
+
+        return feed()
 
     # ------------------------------------------------------------------ train
     def _install_signal_checkpoint(self):
         """SIGTERM/SIGINT (train.ckpt_on_signal, with a checkpoint dir)
-        set a flag the fit loop reads after each step: it then commits the
-        step reached and returns. The handler only writes the flag and
-        puts the previous handlers back, so a second signal acts as it
-        would have. Main thread only. Returns (flag dict or None, restore)."""
+        set a flag the fit loop reads at its coordination points: it then
+        commits the step reached and returns. One device reads it after
+        every step; a mesh agrees on it every `train.signal_sync_every`
+        steps (`_coordinated_signal`), and with that cadence 0 installs
+        nothing (the config is the same on every rank, so every rank
+        skips the agreement). The handler only writes the flag and puts
+        the previous handlers back, so a second signal acts as it would
+        have. Off the main thread no handler is installed, but a mesh
+        rank still takes part in the agreement (an empty flag). Returns
+        (flag dict or None, restore)."""
         cfg = self.cfg
-        if not (cfg.train.ckpt_on_signal and cfg.train.checkpoint_dir) or self.mesh is not None or (
-                threading.current_thread() is not threading.main_thread()):
+        multiproc_ok = self.mesh is None or cfg.train.signal_sync_every > 0
+        if not (cfg.train.ckpt_on_signal and cfg.train.checkpoint_dir and multiproc_ok):
             return None, lambda: None
+        if threading.current_thread() is not threading.main_thread():
+            return {}, lambda: None
         flag: dict = {}
         prev: dict = {}
 
@@ -612,6 +664,24 @@ class Trainer:
 
         return flag, restore
 
+    def _coordinated_signal(self, sig_flag: Optional[dict]) -> int:
+        """The stop decision, the same on every rank: the local flag on
+        one device; on a mesh one all_reduce(MAX) of the pending signals
+        over the world (a CUDA tensor on NCCL, a CPU one on gloo), so a
+        signal on any rank stops every rank at the same step. A rank that
+        adopts a peer's signal reports it."""
+        if sig_flag is None:
+            return 0
+        mine = self._signalled(sig_flag)
+        if self.mesh is None:
+            return mine
+        from xflow_tpu_torch.parallel import collectives as C
+
+        (got,) = C.reduce_host([mine], "max", device=self.mesh.device)
+        if got and not mine:
+            sig_flag["sig"] = got
+        return got
+
     def fit(self, train_path: Optional[str] = None) -> TrainResult:
         try:
             return self._fit(train_path)
@@ -626,6 +696,56 @@ class Trainer:
             if self.pipeline_prof is not None:
                 self.pipeline_prof.close()
 
+    def _epoch_shards(self, train_path: Optional[str], resume_skips: dict) -> list:
+        """The shard set this rank trains, [(index, path)]: `train_path`
+        alone when given, else its data coordinate's round-robin share of
+        ``max(saved, data coordinates, XFLOW_ORIG_WORLD)`` shards (a fresh
+        run: one shard a coordinate). Warns for a resumed shard whose
+        file is missing: its remaining rows are lost."""
+        cfg = self.cfg
+        try:
+            orig_world = int(os.environ.get("XFLOW_ORIG_WORLD", 0) or 0)
+        except ValueError:
+            orig_world = 0
+        D = 1 if self.mesh is None else self.mesh.data
+        self._num_shards = max(self._num_shards, D, orig_world)
+        if train_path:
+            shards = [(0 if self.mesh is None else self.mesh.d, train_path)]
+        else:
+            shards = self._shards(cfg.data.train_path)
+        for idx, p in shards:
+            if resume_skips.get(idx, 0) > 0 and not os.path.exists(p):
+                print(f"xflow: warning: resumed shard {idx} ({p!r}) is missing from this "
+                      "host — its remaining records will NOT be trained (per-host shard "
+                      "files are not visible to the surviving ranks; keep shards on a "
+                      "shared filesystem for elastic shrink)", file=sys.stderr)
+        if self.mesh is None and not any(os.path.exists(p) for _, p in shards):
+            raise FileNotFoundError(shards[0][1])
+        return shards
+
+    def _sync_round(self, log: "_StepLog", hang: HangWatchdog) -> None:
+        """One multi-slice round at a sync boundary, bracketed as a
+        checkpoint is: the staged record lands first (a peer may kill us
+        believing the delta landed), beats around the bounded wait, the
+        kind="sync" record and a `slice_sync` span stamped with the global
+        step (its `split_ms` the round's parts, `SliceSyncer.last_split`),
+        a tick after."""
+        res = log.res
+        log.emit()
+        self.heartbeat.append({"step": res.steps, "event": "sync"})
+        t0_wall, t0 = time.time(), time.perf_counter()
+        self.state, rec = self._syncer.sync(self.state)
+        if self.metrics.enabled:
+            gstep = int(self.state.step)
+            self.metrics.log({"step": gstep, **rec})
+            emit_op_span(self.metrics, "slice_sync", t0_wall, time.perf_counter() - t0,
+                         step=gstep, round=rec["round"],
+                         bytes=rec["bytes_out"] + rec["bytes_in"],
+                         split_ms={k: round(v, 3) for k, v in self._syncer.last_split.items()})
+        self.heartbeat.append({"step": res.steps})
+        hang.tick()
+        log.mark = None
+
     def _fit(self, train_path: Optional[str] = None) -> TrainResult:
         cfg = self.cfg
         if cfg.data.stream not in ("off", "tail"):
@@ -635,12 +755,12 @@ class Trainer:
                 raise ValueError("data.stream=tail: the online loop runs on one device; "
                                  "it is not taken over on a mesh")
             return self._fit_tail(train_path)
-        if self.mesh is None:
-            path = train_path or shard_path(cfg.data.train_path, 0)
-            if not os.path.exists(path):
-                raise FileNotFoundError(path)
-        else:
-            shards = self._shards(train_path or cfg.data.train_path)
+        from xflow_tpu_torch.telemetry import resolve_restart_gen
+        from xflow_tpu_torch.testing.faults import fit_delays_from_env, hard_kill, \
+            kill_step_from_env
+
+        start_epoch, resume_skips = self._consume_resume_position()
+        shards = self._epoch_shards(train_path, resume_skips)
         res = TrainResult()
         start = time.perf_counter()
         trace = TraceWindow(cfg.train.profile_dir, cfg.train.trace_start_step,
@@ -652,36 +772,55 @@ class Trainer:
         log = _StepLog(self, res, start, prof)
         dump_restore = install_stack_dump_handler()
         hang = HangWatchdog(cfg.train.hang_timeout_s)
+        # the drills, read once (no cost a step when unset)
+        step_delay_s, stall_step, stall_s = fit_delays_from_env(self.rank)
+        kill_step = kill_step_from_env(self.rank)
         hb_every = cfg.train.heartbeat_every
         if cfg.train.eval_every and not cfg.data.test_path:
             print("xflow: warning: train.eval_every is set but data.test_path is empty — "
                   "no streaming eval will run", file=sys.stderr)
         self.heartbeat.append({"event": "start", "step": 0})
         sig_flag, sig_restore = self._install_signal_checkpoint()
-        start_epoch, skip_local = self._consume_resume_position()
-        skip = self._resume_offset
-        self._epoch_pos = (start_epoch, skip)
+        sync_every = cfg.train.signal_sync_every
+        self._epoch_pos = (start_epoch, max(resume_skips.values(), default=0))
+        if self._syncer is not None:
+            # a relaunched slice catches up from the freshest snapshot (its
+            # own checkpoint gave the step and the data position), then the
+            # delta base is fixed at the state entering the loop
+            if resolve_restart_gen() > 0:
+                t0_wall, t0 = time.time(), time.perf_counter()
+                self.state, adopted = self._syncer.adopt_latest_snapshot(self.state)
+                if adopted is not None:
+                    print(f"multislice: slice {self._syncer.slice_id} caught up from snapshot "
+                          f"round {adopted[0]} (published by slice {adopted[1]})",
+                          file=sys.stderr)
+                    self._ckpt_span("sync_catchup", t0_wall, t0, int(self.state.step))
+            self._syncer.attach(self.state)
         stop_sig = 0
         halted = False
         try:
             for epoch in range(start_epoch, cfg.train.epochs):
-                offset = skip if epoch == start_epoch else 0
-                self._local_pos = skip_local if epoch == start_epoch else 0
+                # the resume offsets apply to the first (partly consumed) epoch
+                skips = resume_skips if epoch == start_epoch else {}
+                self._shard_pos = {idx: max(int(skips.get(idx, 0)), 0) for idx, _ in shards}
+                offset = max(self._shard_pos.values(), default=0)
                 log.mark = None
-                if self.mesh is None:
-                    feed = self._feed(path, offset, quarantine=epoch == 0, profiler=prof)
-                else:
-                    feed = self._mesh_feed(shards, self._local_pos, epoch == 0, prof)
+                feed = self._train_feed(shards, skips, quarantine=epoch == 0, profiler=prof)
                 # closing: a halt or an error stops the reader thread at once
                 with contextlib.closing(pipeline.prefetch(feed, profiler=prof)) as stream:
                     for batch, host in log.timer.batches(stream):
                         offset += 1
                         trace.before_step(res.steps + 1)
+                        if step_delay_s:
+                            time.sleep(step_delay_s)
                         m = log.dispatch(batch, host)
                         hang.tick()
                         self._count_step(res, batch, (epoch, offset))
                         if hb_every and res.steps % hb_every == 0:
                             self.heartbeat.append({"step": res.steps})
+                        if stall_s and res.steps == stall_step:
+                            time.sleep(stall_s)  # the one-shot straggler stall
+                            stall_s = 0.0
                         if log.check_pending():
                             halted = True
                             break
@@ -689,13 +828,26 @@ class Trainer:
                         if (cfg.train.checkpoint_dir and cfg.train.checkpoint_every
                                 and res.steps % cfg.train.checkpoint_every == 0):
                             self._cadence_save(log, hang, self.save_checkpoint)
-                        stop_sig = self._signalled(sig_flag)
-                        if stop_sig:
-                            break
+                        if (self._syncer is not None and cfg.sync.every_steps
+                                and res.steps % cfg.sync.every_steps == 0):
+                            # after the checkpoint cadence: a kill in the round
+                            # leaves the boundary's checkpoint committed
+                            self._sync_round(log, hang)
+                        if kill_step and res.steps == kill_step:
+                            log.emit()
+                            print(f"xflow: fault injector: hard-killing rank {self.rank} at "
+                                  f"step {res.steps} (XFLOW_FAULT_KILL_STEP)",
+                                  file=sys.stderr, flush=True)
+                            hard_kill()
+                        if self.mesh is None or (sync_every and res.steps % sync_every == 0):
+                            stop_sig = self._coordinated_signal(sig_flag)
+                            if stop_sig:
+                                break
                 if halted:
                     break
                 if not stop_sig:  # an interrupted epoch keeps its mid-epoch position
                     self._epoch_pos = (epoch + 1, 0)
+                    self._shard_pos = {}
                 res.epochs = epoch + (0 if stop_sig else 1)
                 if not stop_sig:
                     if (epoch + 1) % 30 == 0:
@@ -703,7 +855,8 @@ class Trainer:
                     if (cfg.train.eval_every and cfg.data.test_path
                             and (epoch + 1) % cfg.train.eval_every == 0):
                         self._eval_pass(res.steps, epoch, hang, gauges=True)
-                    stop_sig = self._signalled(sig_flag)
+                    # the epoch's end is a coordination point too
+                    stop_sig = self._coordinated_signal(sig_flag)
                 if stop_sig:
                     self._interrupted(res, stop_sig)
                     break
@@ -723,6 +876,10 @@ class Trainer:
             trace.close()
         log.finish()
         res.seconds = time.perf_counter() - start
+        # the final round folds the tail block's delta and the peers' in
+        # (not on a signal: the grace period funds no staleness wait)
+        if self._syncer is not None and res.steps and not stop_sig:
+            self._sync_round(log, hang)
         if self.mesh is not None:
             # every data coordinate's rows (its T ranks count the same ones)
             from xflow_tpu_torch.parallel import collectives as C
@@ -736,15 +893,16 @@ class Trainer:
         return res
 
     def _count_step(self, res: TrainResult, batch, pos: tuple) -> None:
-        """A dispatched step's accounting and the stream position `pos`
-        (epoch, batches) it reaches."""
+        """A dispatched step's accounting, the stream position `pos`
+        (epoch, the pass's step offset) it reaches and its shard's."""
         rows = batch.num_rows
         res.steps += 1
         res.examples += rows
         self._examples_seen += rows
         self._epoch_pos = pos
-        if self._last_real:
-            self._local_pos += 1
+        if self._last_shard is not None:
+            idx = self._last_shard
+            self._shard_pos[idx] = self._shard_pos.get(idx, 0) + 1
 
     def _cadence_save(self, log: _StepLog, hang: HangWatchdog, save):
         """A checkpoint at its cadence, `save()`'s result returned: the
@@ -932,21 +1090,24 @@ class Trainer:
                              trace=trace, span=pub["span"], step=step, seq=int(seq))
         return True
 
-    def _feed(self, path: str, skip: int, quarantine: bool, profiler=None):
+    def _feed(self, path: str, skip: int, quarantine: bool, profiler=None,
+              shard: Optional[int] = None):
         """(batch, host arrays) of one pass over `path` after its first
         `skip` batches: run in the prefetch thread, so the read, the
         parse and the plan overlap the device's step. Each batch's slots
         mark the health monitor's bitmap before the plan reorders them;
-        `profiler` times the plan. A generator, so the consumer dropping
-        the stream closes the reader."""
+        `profiler` times the plan; `shard` marks the arrays. A generator,
+        so the consumer dropping the stream closes the reader."""
         for batch in pipeline.batch_iterator(path, self.cfg.data, skip=skip,
                                              quarantine=quarantine, profiler=profiler):
             self._health.observe_batch(batch.slots, batch.mask)
             if profiler is None:
-                yield batch, batch_arrays(batch, self.cfg, self.dedup)
-                continue
-            with profiler.stage("plan"):
                 arrays = batch_arrays(batch, self.cfg, self.dedup)
+            else:
+                with profiler.stage("plan"):
+                    arrays = batch_arrays(batch, self.cfg, self.dedup)
+            if shard is not None:
+                arrays["_shard"] = shard
             yield batch, arrays
 
     def _halt(self, res: TrainResult, bad_run: int) -> None:
@@ -1028,7 +1189,7 @@ class Trainer:
             shards = [(0, test_path)] if mesh.d == 0 else []
         else:
             shards = self._shards(self.cfg.data.test_path)
-        stream = pipeline.prefetch(self._mesh_feed(shards, 0, False, train=False))
+        stream = pipeline.prefetch(self._mesh_feed(shards, {}, False, train=False))
         try:
             for batch, host in stream:
                 arrays = to_device(self._prepare(batch, host), self.device)
@@ -1105,88 +1266,89 @@ class Trainer:
 
     # ------------------------------------------------------------- checkpoint
     def _data_state_record(self) -> dict:
-        """The data-stream position saved with every checkpoint, in the
-        JAX trainer's version-2 form. On a mesh (a collective: every rank
-        calls it at the same step) the shard offsets and examples of every
-        data coordinate, one shard each."""
+        """The data-stream position saved with every checkpoint, the JAX
+        trainer's topology-independent version-2 form: the epoch, the
+        pass's step offset (informational), each shard's batches consumed
+        in the epoch (`shard_batches`, what a resume at any world reads),
+        the shard set in play (`num_shards`), the global examples and the
+        quarantine count. On a mesh (a collective: every rank calls it at
+        the same step) one all_reduce(SUM) gathers the data coordinates'
+        shard positions and examples (the table axis's ranks count the
+        same rows, so only t = 0 contributes)."""
         epoch, batches = self._epoch_pos
         tail = self.cfg.data.stream == "tail"
+        D = 1 if self.mesh is None else self.mesh.data
+        num_shards = max(self._num_shards, D, 1)
+        local = [0] * num_shards
+        if not tail:  # a tail run's position is its segments, not a shard offset
+            for idx, n in self._shard_pos.items():
+                if 0 <= int(idx) < num_shards:
+                    local[int(idx)] = int(n)
         if self.mesh is None:
-            shard_batches = {"0": int(batches if not tail else 0)}
+            shard_batches = local
             per_rank = [int(self._examples_seen)]
-            examples = int(self._examples_base + self._examples_seen)
             world = 1
         else:
             from xflow_tpu_torch.parallel import collectives as C
 
-            D = self.mesh.data
-            vec = [0] * (2 * D)
+            vec = [0] * (num_shards + D)
             if self.mesh.t == 0:
-                vec[self.mesh.d] = self._local_pos
-                vec[D + self.mesh.d] = self._examples_seen
+                vec[:num_shards] = local
+                vec[num_shards + self.mesh.d] = self._examples_seen
             vec = C.reduce_host(vec, "sum", device=self.mesh.device)
-            shard_batches = {str(d): int(vec[d]) for d in range(D)}
-            per_rank = [int(v) for v in vec[D:]]
-            examples = int(self._examples_base + sum(per_rank))
+            shard_batches = vec[:num_shards]
+            per_rank = [int(v) for v in vec[num_shards:]]
             world = self.mesh.size
         return {
             "version": ckpt.DATA_STATE_VERSION,
             "epoch": int(epoch),
             "batches": int(batches),
             "completed": bool(epoch >= self.cfg.train.epochs),
-            "examples": examples,
+            "examples": int(self._examples_base + sum(per_rank)),
             "examples_per_rank": per_rank,
-            # a tail run's position is its segments, not a shard offset
-            "shard_batches": shard_batches,
-            "num_shards": len(shard_batches),
-            "world_size": world,
+            "shard_batches": {str(i): int(v) for i, v in enumerate(shard_batches)},
+            "num_shards": int(num_shards),
+            "world_size": int(world),
             "quarantined_rows": int(pipeline.COUNTERS["quarantined_rows"]),
         }
 
-    def _consume_resume_position(self) -> tuple[int, int]:
-        """(start_epoch, this data coordinate's batches of its shard to
-        skip) for this fit(), from the data_state maybe_restore read, and
-        the pass's step offset in `_resume_offset` (on one device the
-        same). Fresh runs, missing or malformed data_state and completed
-        checkpoints (continuation training) start at (0, 0). A mesh
-        resumes the stream only on the world that wrote it (one shard a
-        data coordinate); another world restarts the stream, warned."""
-        ds = self._resume_data_state
+    def _consume_resume_position(self) -> tuple[int, dict]:
+        """(start_epoch, {shard index: batches to skip}) for this fit(),
+        from the data_state maybe_restore read, whatever world wrote it
+        (`checkpoint.normalize_data_state`): the shard set it covered
+        joins `_num_shards`, and its examples become the base. Fresh
+        runs, a missing or malformed data_state and completed checkpoints
+        (continuation training, which keeps the shard set) start at
+        (0, {})."""
+        ds_raw = self._resume_data_state
         self._resume_data_state = None
-        self._resume_offset = 0
-        if not isinstance(ds, dict) or ds.get("completed"):
-            return 0, 0
-        key = "0" if self.mesh is None else str(self.mesh.d)
+        if not isinstance(ds_raw, dict) or ds_raw.get("completed"):
+            if isinstance(ds_raw, dict):
+                try:
+                    self._num_shards = max(self._num_shards,
+                                           ckpt.normalize_data_state(ds_raw)["num_shards"])
+                except (TypeError, ValueError):
+                    pass
+            return 0, {}
         try:
-            epoch = max(int(ds.get("epoch", 0)), 0)
-            shards = ds.get("shard_batches")
-            if isinstance(shards, dict):
-                skip_local = max(int(shards.get(key, 0)), 0)
-            else:  # version 1: the global batch offset
-                skip_local = max(int(ds.get("batches", 0)), 0)
-            skip = max(int(ds.get("batches", skip_local)), 0)
-            examples = max(int(ds.get("examples", 0)), 0)
-            if self.mesh is None:
-                skip = skip_local
-            elif (int(ds.get("world_size", 1)) != self.mesh.size
-                    or int(ds.get("num_shards", 1)) != self.mesh.data):
-                print("xflow: warning: checkpoint data_state was written by another world; "
-                      "the elastic resume is not taken over on a mesh: restarting the data "
-                      "stream", file=sys.stderr)
-                return 0, 0
+            ds = ckpt.normalize_data_state(ds_raw)
         except (TypeError, ValueError):
-            print(
-                "xflow: warning: checkpoint data_state is malformed; "
-                "resuming with a fresh data stream",
-                file=sys.stderr,
-            )
-            return 0, 0
-        self._examples_base, self._examples_seen = examples, 0
-        self._resume_offset = skip
-        if epoch or skip:
-            print(f"resuming data stream at epoch {epoch}, shard offset {skip_local}",
-                  file=sys.stderr)
-        return epoch, skip_local
+            print("xflow: warning: checkpoint data_state is malformed; "
+                  "resuming with a fresh data stream", file=sys.stderr)
+            return 0, {}
+        self._examples_base, self._examples_seen = ds["examples"], 0
+        self._num_shards = max(self._num_shards, ds["num_shards"])
+        epoch, skips = ds["epoch"], ds["shard_batches"]
+        world = 1 if self.mesh is None else self.mesh.size
+        if epoch or any(skips.values()):
+            from xflow_tpu_torch.telemetry import resolve_restart_gen
+
+            note = (f"; resharding {ds['num_shards']} shard(s) from {ds['world_size']} rank(s) "
+                    f"onto {world}" if ds["world_size"] != world else "")
+            print(f"resuming data stream at epoch {epoch}, shard offsets "
+                  f"{[skips.get(i, 0) for i in range(ds['num_shards'])]} "
+                  f"(restart generation {resolve_restart_gen()}){note}", file=sys.stderr)
+        return epoch, skips
 
     def _ckpt_async_on(self) -> bool:
         """train.ckpt_async (the port trains in one process, so the JAX
