@@ -185,7 +185,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    /healthz 3 healthy on step 3, circuit_open and circuit_close in the
    router stream, 256 rows through the router equal to the evaluate path
    on step 3 within PCTR_ATOL, and SIGTERM exits 0 after the router's
-   drain. Then the same closed loop for 10 s, no faults, against fleets
+   drain. Then the same closed loop for 6 s, no faults, against fleets
    of 1, 2 and 4 replicas and the bare `serve`: requests/s, rows/s,
    p50/p99, the windows' device and queue-wait p99, and the CPU seconds
    of the router, each replica and the client (/proc/<pid>/stat) over
@@ -283,18 +283,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4,096-row batches, two shards of 8 batches) resumed on the card in a
    world of one (the restore timed; #1-#3 once a step, counted in this
    process) trains the rest of both shards, within `ftrl_errs` of the
-   CPU's resume of the same checkpoint.
+   CPU's resume of the same checkpoint. The multi-step comparisons hold
+   each leaf's L2 error within 1e-3 and the lazy-init flips they leave
+   out of w to at most 32 (`trajectory_errs`);
+20. the port's last modules (`run_phase20`), each leg timed against its
+   budget: (a) `serve` as a world of one NCCL rank (`serve_main` with a
+   1 x 1 mesh, in process) over phase 14's FM states: 256 rows within
+   1e-5 of the solo `ServeRunner` on steps 1 and 2, serve_bench's closed
+   loop (6 s, a subprocess) with step 2 committed 2 s in, 0 failed, the
+   world on generation 2, no kernel launched; its requests/s and p50 /
+   p99 beside phase 15's bare server; (b) the C API: gcc builds the
+   port's shim and a C client against this Python, which trains FM at
+   full width on the card for 2 steps, reads the AUC, loads the
+   checkpoint and predicts 3 rows within 1e-5 of `ServeRunner`, its
+   trace window over step 2 naming #1-#3 in its own process; (c) the
+   syncer on a mesh: two slices, each a `Trainer` on a world of one
+   NCCL rank, 4 steps and one round at K = 1, their deltas holding the
+   members, dtypes and shapes of phase 19's single-device slices' files,
+   #2, #5, #6 once a step, and slice 1's z the two deltas' sum.
 
-The last three lines of standard output: the card line, the kernels
-JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
+Before them, the whole smoke's time beside its prediction. The last
+three lines of standard output: the card line, the kernels JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
 `widths` hold its entry at each of ch 24, 32, 104, 128 and 136; #1, #3
 and #4 carry their FFM figures and launches under `ffm`, #1-#3 their
 phase-17 trace time on Zipf batches and launches under `zipf`, #1, #2,
 #4, #5 and #6 their phase-18 launches under `mesh` (#2, #5, #6 the
 signal leg's under `mesh.signal`), with #5's and #6's times on the
 fully-sharded buffer, #1-#3 their phase-19 launches under `launch`: the
-elastic resume's counts and each slice's traced kernel events; the
-object's `launch` key holds what phase 19 proved), and
+elastic resume's counts and each slice's traced kernel events, #1-#3
+the C client's traced events under `c_api_traced`, #2, #5, #6 the mesh
+slices' launches under `mesh.sync`; the object's `launch` key holds
+what phase 19 proved, `phase20` what phase 20 measured), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -481,7 +500,8 @@ def trajectory_errs(got, want, prev, hp, what: str) -> dict:
     flips, entries where one side's n is 0 and the other's is not (a
     (slot, channel) gradient that cancelled to exactly 0 on one side
     only: that side keeps the init there, the other moves it by the
-    rule), counted in `lazy_flips`. The max normwise errors and
+    rule), counted in `lazy_flips` and held to TRAJ_MAX_FLIPS, so that a
+    run that lost updates cannot hide in w. The max normwise errors and
     `ftrl_errs` are reported beside, not gated: the card's row sums
     reorder each step's sums by atomics, and a flip's moved w feeds the
     next steps' gradients, so the runs drift apart by more than one
@@ -497,6 +517,8 @@ def trajectory_errs(got, want, prev, hp, what: str) -> dict:
         errs[f"max_{k}"] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
     if not all(errs[f"l2_{k}"] <= TRAJ_RTOL for k in "wnz"):
         fail(f"{what}: {errs}: an L2 error beyond {TRAJ_RTOL}")
+    if errs["lazy_flips"] > TRAJ_MAX_FLIPS:
+        fail(f"{what}: {errs['lazy_flips']} lazy-init flips, beyond {TRAJ_MAX_FLIPS}")
     errs["ftrl_errs"] = ftrl_errs(got, want, prev, hp, what, flips=True, gate=False)
     return errs
 
@@ -2425,7 +2447,7 @@ def run_serve(cfg, work: str, path: str, card: str) -> None:
     lap("the FFM load")
 
 
-FLEET_DRILL_SECONDS, FLEET_SECONDS = 15.0, 10.0
+FLEET_DRILL_SECONDS, FLEET_SECONDS = 15.0, 6.0  # the drill; each pace loop
 FLEET_CORRUPT_AT, FLEET_GOOD_AT = 4.0, 8.0  # seconds into the drill
 FLEET_KILL_BATCHES = 25
 FLEET_SIZES = (1, 2, 4)
@@ -2604,7 +2626,7 @@ def pace_line(what: str, rep: dict) -> str:
             + f"; busiest: {top}")
 
 
-def run_fleet(cfg, work: str, path: str, card: str) -> None:
+def run_fleet(cfg, work: str, path: str, card: str) -> dict:
     """Phase 15, the serving fleet on the card: `python -m xflow_tpu_torch
     serve-fleet --device cuda` over phase 14's FM states at full width.
 
@@ -2801,6 +2823,7 @@ def run_fleet(cfg, work: str, path: str, card: str) -> None:
     print(f"# fleet pace on {card}: " + pace_line("bare serve (phase 14's server)", rep),
           flush=True)
     lap(f"bare serve: start, {FLEET_SECONDS:.0f} s closed loop, SIGTERM")
+    return rep
 
 
 ONLINE_PIECES, ONLINE_GAP_S, ONLINE_CARRY = 6, 1.5, 40  # phase 16's appends
@@ -3897,6 +3920,9 @@ SYNC_SUM_RTOL = 1e-5  # normwise: float32 sums of the deltas in another order
 # L2, a leaf: two card runs of 8-12 steps apart (on the H100 the max normwise
 # error of z reached 6e-4, of w 0.11 at a lazy-init flip; PERF.md §6)
 TRAJ_RTOL = 1e-3
+# lazy-init flips a trajectory comparison may leave out of w (0-20 expected,
+# 0 read on the card; PERF.md §6); more means a run lost updates
+TRAJ_MAX_FLIPS = 32
 ELASTIC_LOG2_SLOTS, ELASTIC_BATCH, ELASTIC_BATCHES = 18, 4096, 8  # a shard: 8 batches
 
 
@@ -4155,6 +4181,8 @@ def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
           f"{solo_launches}", flush=True)
     if any(solo_launches[k] != steps for k in ("gather_sorted", "row_sums", "scatter_ftrl")):
         fail(f"multislice: the solo slice launched {solo_launches}, not {steps} of #1-#3")
+    # the single-device slices' delta members, for phase 20's mesh slices
+    out["multislice"]["delta_layout"] = npz_layout(os.path.join(ms, "sync", "delta_s0_r1.npz"))
     shutil.rmtree(ms)
 
     # (2) slice 1 killed entering round 2, relaunched at gen 1; a trace
@@ -4376,7 +4404,387 @@ def run_mesh_signal(ecfg, work: str, dev, mesh, card: str) -> dict:
     return {"steps": res.steps, "interrupted": res.interrupted, "launches": launches}
 
 
+# ------------------------------------------------------------ phase 20
+WORLD_SERVE_SECONDS, WORLD_SWAP_AT = 6.0, 2.0  # the serve world's closed loop
+WORLD_CHECK_ROWS = 256  # rows the serve world answers against the solo runner
+CAPI_TRACE_START = 2  # the C client's trace window: step 2 of 2
+CAPI_ROWS = ("0:f0x 1:f1y 2:f2z", "1\t3:abc 7:q 12:r", "4:s 5:t 6:u 17:v")
+MESH_SYNC_BATCHES = 4  # a mesh slice's shard: 4 steps, one round (the final)
+# the legs' budgets (s) and the whole smoke's prediction, written before the run
+PHASE20_BUDGET_S = {"serve_world": 45.0, "c_api": 60.0, "mesh_sync": 45.0}
+SMOKE_PREDICTED_S = (1000.0, 1080.0)
+
+
+def free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def npz_layout(path: str) -> dict:
+    """{member: (dtype, shape)} of an npz, read from the .npy headers."""
+    import zipfile
+
+    from numpy.lib import format as npf
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            with z.open(name) as f:
+                major, _ = npf.read_magic(f)
+                read = npf.read_array_header_1_0 if major == 1 else npf.read_array_header_2_0
+                shape, _, dtype = read(f)
+            out[name[:-len(".npy")]] = (dtype.str, list(shape))
+    return out
+
+
+def post_rows(port: int, rows: list, chunk: int) -> list:
+    """[(pctrs, generation, step)] of `rows` posted in requests of `chunk`."""
+    import http.client
+
+    out = []
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        for lo in range(0, len(rows), chunk):
+            conn.request("POST", "/predict", json.dumps({"rows": rows[lo:lo + chunk]}))
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            if resp.status != 200:
+                fail(f"serve world: status {resp.status}: {payload}")
+            out.append((payload["pctr"], payload["generation"], payload["step"]))
+    finally:
+        conn.close()
+    return out
+
+
+def run_serve_world(cfg, work: str, path: str, card: str, bare: dict) -> dict:
+    """Phase 20 (a): `serve` as a world of one NCCL rank (`serve_main`
+    with a 1 x 1 mesh, in process: the tables on the rank's block, every
+    batch through the control header and `make_sharded_eval_step`) over
+    phase 14's FM states. 256 rows against the solo `ServeRunner` on
+    steps 1 and 2 (within PCTR_ATOL), serve_bench's closed loop (a
+    subprocess) with step 2 committed 2 s in: 0 failed, the world swapped
+    to generation 2, and no kernel launched (row-major). SIGTERM to this
+    process drains the world (rc 0)."""
+    import signal
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.parallel.distributed import init_world, shutdown
+    from xflow_tpu_torch.parallel.mesh import make_mesh
+    from xflow_tpu_torch.serve.runner import ServeRunner
+    from xflow_tpu_torch.serve.server import serve_main
+
+    t_leg = time.perf_counter()
+    src, serving = os.path.join(work, "ck_serve_src"), os.path.join(work, "ck_world")
+    commit_step(stage_step(src, serving, 1, link=True), 1)
+    staged = stage_step(src, serving, 2, link=True)
+    with open(path) as f:
+        rows = [next(f).split("\t", 1)[1].strip() for _ in range(WORLD_CHECK_ROWS)]
+    scfg = override(cfg, **{"train.checkpoint_dir": serving, "serve.port": 0,
+                            "serve.max_batch": SERVE_MAX_BATCH, "serve.window_ms": 2.0,
+                            "serve.reload_poll_s": 0.5, "mesh.data": 1, "mesh.table": 1,
+                            "serve.metrics_path": os.path.join(work, "world.jsonl")})
+    want = {}
+    for step in (1, 2):
+        solo = ServeRunner(override(scfg, **{"train.checkpoint_dir": src}), device=DEVICE)
+        solo.load(step=step)
+        want[step] = solo.predict_rows(rows)[0]
+        del solo
+    dev = init_world(0, 1, DEVICE, coordinator=f"127.0.0.1:{free_port()}")
+    got: dict = {}
+    try:
+        if DEVICE == "cuda" and dist.get_backend() != "nccl":
+            fail(f"the serve world on the card runs {dist.get_backend()}, not NCCL")
+        mesh = make_mesh(scfg, device=dev)
+        rfd, wfd = os.pipe()
+
+        def drive():
+            try:
+                with os.fdopen(rfd) as r:
+                    got["ready"] = json.loads(r.readline())
+                port = got["ready"]["port"]
+                got["before"] = post_rows(port, rows, 64)
+                timer = threading.Timer(WORLD_SWAP_AT, commit_step, (staged, 2))
+                timer.start()
+                t0 = time.perf_counter()
+                b = subprocess.run(
+                    [sys.executable, "-m", "xflow_tpu_torch.tools.serve_bench", "--url",
+                     f"http://127.0.0.1:{port}", "--duration", str(WORLD_SERVE_SECONDS),
+                     "--concurrency", str(SERVE_CONNECTIONS), "--data", path,
+                     "--rows-per-request", "1-8"],
+                    cwd=HERE, capture_output=True, text=True, timeout=120,
+                    env={**os.environ, "PYTHONPATH": HERE})
+                timer.join()
+                got["loop_s"] = time.perf_counter() - t0
+                got["bench"] = json.loads(b.stdout.strip().splitlines()[-1])
+                got["after"] = post_rows(port, rows, 64)
+            except BaseException as e:  # noqa: BLE001 — reported after the drain
+                got["error"] = f"{type(e).__name__}: {e}"
+            finally:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        th = threading.Thread(target=drive, daemon=True)
+        st.reset_launches()
+        th.start()
+        with os.fdopen(wfd, "w") as ready_out:
+            rc = serve_main(scfg, device=dev, ready_out=ready_out, mesh=mesh)
+        th.join(timeout=60)
+        launches = dict(st.LAUNCHES)
+    finally:
+        shutdown()
+    if "error" in got:
+        fail(f"serve world: {got['error']}")
+    if rc != 0 or got["ready"].get("world") != 1:
+        fail(f"serve world: rc {rc}, ready {got.get('ready')}")
+    if any(launches.values()):
+        fail(f"serve world launched {launches}: serving is row-major")
+    rep = got["bench"]
+    if rep["errors"]:
+        fail(f"serve world: {rep['errors']} failed requests across the reload "
+             f"({rep.get('first_error')})")
+    errs = {}
+    for key, step, gen in (("before", 1, 1), ("after", 2, 2)):
+        answers = got[key]
+        if {(g, s) for _, g, s in answers} != {(gen, step)}:
+            fail(f"serve world {key} the reload: answers from {set((g, s) for _, g, s in answers)}"
+                 f", not generation {gen} at step {step}")
+        p = [x for a, _, _ in answers for x in a]
+        errs[key] = float(max(abs(a - b) for a, b in zip(p, want[step])))
+        if errs[key] > PCTR_ATOL:
+            fail(f"serve world {key} the reload: pCTRs {errs[key]} from the solo runner's")
+    leg_s = time.perf_counter() - t_leg
+    out = {"requests_per_s": rep["value"], "rows_per_s": rep["rows_per_s"],
+           "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"], "requests": rep["requests"],
+           "failed": rep["errors"], "max_abs_err": errs, "leg_s": leg_s,
+           "bare": {k: bare[k] for k in ("value", "rows_per_s", "p50_ms", "p99_ms")}}
+    print(f"# serve world on {card}: a world of 1 NCCL rank, 1 x 1 mesh, rung "
+          f"{SERVE_MAX_BATCH}: {rep['value']} requests/s, {rep['rows_per_s']} rows/s, p50 "
+          f"{rep['p50_ms']} / p99 {rep['p99_ms']} ms over {WORLD_SERVE_SECONDS:.0f} s, "
+          f"{rep['requests']} requests, 0 failed, step 2 swapped in {WORLD_SWAP_AT:.0f} s in; the "
+          f"bare server (phase 15, {FLEET_SECONDS:.0f} s): {bare['value']} requests/s, p50 "
+          f"{bare['p50_ms']} / p99 {bare['p99_ms']} ms; pCTRs vs the solo runner {errs}; "
+          f"launches 0; {leg_s:.1f} s (budget {PHASE20_BUDGET_S['serve_world']:.0f} s)",
+          flush=True)
+    return out
+
+
+CAPI_CLIENT = r"""
+#include <stdio.h>
+#include "xflow_c_api.h"
+
+/* argv: shard_prefix checkpoint_dir profile_dir device then key value pairs */
+int main(int argc, char** argv) {
+  void* h = 0;
+  if (XFCreate(&h, argv[1], argv[1]) != 0) return 2;
+  if (XFSetConfig(h, "device", argv[4]) != 0) return 3;
+  if (XFSetConfig(h, "train.checkpoint_dir", argv[2]) != 0) return 3;
+  if (XFSetConfig(h, "train.profile_dir", argv[3]) != 0) return 3;
+  for (int i = 5; i + 1 < argc; i += 2)
+    if (XFSetConfig(h, argv[i], argv[i + 1]) != 0) return 3;
+  double pre[1];
+  if (XFPredict(h, "0:a 1:b", pre, 1) != -1) return 6;
+  if (XFStartTrain(h) != 0) return 4;
+  printf("AUC=%.9f\n", XFGetAUC(h));
+  if (XFLoadCheckpoint(h, argv[2]) != 0) return 7;
+  double p[3];
+  int n = XFPredict(h, "0:f0x 1:f1y 2:f2z\n1\t3:abc 7:q 12:r\n4:s 5:t 6:u 17:v", p, 3);
+  if (n != 3) return 8;
+  for (int i = 0; i < n; ++i) printf("PCTR=%.9f\n", p[i]);
+  if (XFPredict(h, "no-colon-tokens", p, 3) != -1) return 10;
+  XFDestroy(h);
+  return 0;
+}
+"""
+
+
+def run_c_api(cfg, work: str, path: str, card: str) -> dict:
+    """Phase 20 (b): gcc builds the port's shim (`xflow_tpu_torch/c_api/`)
+    and a C client against this Python (`sysconfig`); the client trains
+    FM at full width on the card for 2 steps over phase 3's shard (the
+    trace window over step 2), reads the AUC, loads the checkpoint and
+    predicts 3 rows, within PCTR_ATOL of `ServeRunner(cfg, "cuda")
+    .predict_rows` here; the trace names #1-#3, launched in the client's
+    own process."""
+    import sysconfig
+
+    import numpy as np
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.serve.runner import ServeRunner
+
+    t_leg = time.perf_counter()
+    root = os.path.join(work, "c_api")
+    os.makedirs(root)
+    capi = os.path.join(HERE, "xflow_tpu_torch", "c_api")
+    src, exe = os.path.join(root, "client.c"), os.path.join(root, "client")
+    with open(src, "w") as f:
+        f.write(CAPI_CLIENT)
+    libdir = sysconfig.get_config_var("LIBDIR")
+    ver = sysconfig.get_config_var("LDVERSION") or sysconfig.get_config_var("VERSION")
+    link = [f"-L{libdir}", f"-L{sysconfig.get_config_var('LIBPL')}", f"-lpython{ver}",
+            *(sysconfig.get_config_var("LIBS") or "").split(),
+            *(sysconfig.get_config_var("SYSLIBS") or "").split(), f"-Wl,-rpath,{libdir}"]
+    if not sysconfig.get_config_var("Py_ENABLE_SHARED"):  # a static libpython
+        link += (sysconfig.get_config_var("LINKFORSHARED") or "").split()
+    cmd = ["gcc", src, os.path.join(capi, "xflow_c_api.c"), f"-I{capi}",
+           f"-I{sysconfig.get_path('include')}", *link, "-o", exe]
+    b = subprocess.run(cmd, capture_output=True, text=True)
+    if b.returncode != 0:
+        fail(f"gcc could not build the C client on the port's shim: {b.stderr[-3000:]}")
+    t_built = time.perf_counter()
+    ck, prof = os.path.join(root, "ck"), os.path.join(root, "prof")
+    pairs = {"model.name": "fm", "model.v_dim": V_DIM, "model.num_fields": NUM_FIELDS,
+             "data.log2_slots": LOG2_SLOTS, "data.max_nnz": NUM_FIELDS,
+             "data.batch_size": BATCH, "train.epochs": 1, "train.pred_dump": "false",
+             "data.cache": "off", "train.trace_start_step": CAPI_TRACE_START,
+             "train.trace_num_steps": 1}
+    argv = [exe, path[: -len("-00000")], ck, prof, DEVICE]
+    for k, v in pairs.items():
+        argv += [k, str(v)]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": HERE})
+    run_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the C client exited {r.returncode}: {r.stdout[-1500:]} {r.stderr[-3000:]}")
+    auc = float(r.stdout.split("AUC=")[1].split()[0])
+    pctr = [float(ln[len("PCTR="):]) for ln in r.stdout.splitlines() if ln.startswith("PCTR=")]
+    runner = ServeRunner(override(cfg, **{"train.checkpoint_dir": ck}), device=DEVICE)
+    gen = runner.load()
+    want = runner.predict_rows(list(CAPI_ROWS))[0]
+    err = float(np.max(np.abs(np.asarray(pctr) - want)))
+    if gen.step != 2 or len(pctr) != 3 or err > PCTR_ATOL or not 0.0 < auc < 1.0:
+        fail(f"the C client: step {gen.step}, AUC {auc}, pCTRs {pctr} against {want.tolist()} "
+             f"({err} apart)")
+    traced = trace_kernels(prof)
+    counts = {k: len(v) for k, v in traced.items()}
+    if any(n < 1 for n in counts.values()):
+        fail(f"the C client's trace window over step {CAPI_TRACE_START} shows {counts}: #1-#3 "
+             "did not launch in the embedded process")
+    leg_s = time.perf_counter() - t_leg
+    print(f"# C API on {card}: gcc {t_built - t_leg:.1f} s; the client (embedded CPython, FM "
+          f"wv [2^{LOG2_SLOTS}, {1 + V_DIM}], 2 steps, evaluate, load, 3 predicts) {run_s:.1f} s; "
+          f"AUC {auc:.6f}; pCTRs {pctr} vs ServeRunner {want.tolist()} ({err:.3g} apart); its "
+          f"trace of step {CAPI_TRACE_START} names {counts} (#1-#3 in its own process); "
+          f"{leg_s:.1f} s (budget {PHASE20_BUDGET_S['c_api']:.0f} s)", flush=True)
+    return {"auc": auc, "max_abs_err": err, "traced": counts, "client_s": run_s,
+            "leg_s": leg_s}
+
+
+def run_mesh_sync(cfg, work: str, rate_path: str, card: str, solo_layout: dict) -> dict:
+    """Phase 20 (c): the multi-slice syncer on an in-slice mesh. Two
+    slices, each `Trainer(cfg, mesh)` on a world of one NCCL rank (a 1 x 1
+    mesh, the fully-sharded engine), run one after the other in this
+    process over two 4-batch shards, with one round each at K = 1 (the
+    final): slice 1 applies slice 0's delta. Each delta holds the members,
+    dtypes and shapes of phase 19's single-device slices' files
+    (`solo_layout`), each fit launches #2, #5 and #6 once a step, and
+    slice 1 ends at slice 0's delta plus its own (normwise within
+    SYNC_SUM_RTOL)."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.jsonl import read_jsonl
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.parallel.distributed import init_world, shutdown
+    from xflow_tpu_torch.parallel.mesh import make_mesh
+    from xflow_tpu_torch.train import checkpoint as ckpt
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    t_leg = time.perf_counter()
+    root = os.path.join(work, "mesh_sync")
+    os.makedirs(root)
+    shards = split_rows(rate_path, [
+        (os.path.join(root, f"slice{j}-00000"), j * MESH_SYNC_BATCHES * BATCH,
+         MESH_SYNC_BATCHES * BATCH) for j in range(2)])
+    sync_dir = os.path.join(root, "sync")
+    dev = init_world(0, 1, DEVICE, coordinator=f"127.0.0.1:{free_port()}")
+    out = {"launches": {}, "fit_s": {}}
+    keys = ("row_sums", "gather_sorted_multi", "scatter_sorted_multi")
+    try:
+        for j in range(2):
+            os.environ["XFLOW_SLICE"], os.environ["XFLOW_NUM_SLICES"] = str(j), "2"
+            jcfg = override(cfg, **{
+                "data.train_path": shards[j][: -len("-00000")], "train.epochs": 1,
+                "train.checkpoint_dir": os.path.join(root, f"ck{j}"), "mesh.data": 1,
+                "mesh.table": 1, "optim.fused_scatter": "off", "sync.mode": "bounded",
+                "sync.staleness_k": 1, "sync.every_steps": 0, "sync.dir": sync_dir,
+                "sync.timeout_s": 30.0, "sync.retries": 0, "train.pred_dump": False,
+                "train.metrics_path": os.path.join(root, f"metrics{j}.jsonl")})
+            mesh = make_mesh(jcfg, device=dev)
+            trainer = Trainer(jcfg, device=dev, mesh=mesh)
+            torch.cuda.synchronize() if DEVICE == "cuda" else None
+            st.reset_launches()
+            t0 = time.perf_counter()
+            res = trainer.fit()
+            torch.cuda.synchronize() if DEVICE == "cuda" else None
+            out["fit_s"][j] = time.perf_counter() - t0
+            out["launches"][j] = {k: st.LAUNCHES[k] for k in keys}
+            if res.steps != MESH_SYNC_BATCHES or any(
+                    v != MESH_SYNC_BATCHES for v in out["launches"][j].values()):
+                fail(f"mesh slice {j}: {res.steps} steps, launches {out['launches'][j]}")
+            rounds = [x for x in read_jsonl(jcfg.train.metrics_path) if x.get("kind") == "sync"]
+            if [(x["round"], x["applied"]) for x in rounds] != [(1, j)]:
+                fail(f"mesh slice {j}: sync records {rounds}")
+            out[f"round_ms_{j}"] = rounds[0]["dur_ms"]
+            del trainer
+    finally:
+        for k in ("XFLOW_SLICE", "XFLOW_NUM_SLICES"):
+            os.environ.pop(k, None)
+        shutdown()
+    layouts = {j: npz_layout(os.path.join(sync_dir, f"delta_s{j}_r1.npz")) for j in range(2)}
+    for j, lay in layouts.items():
+        if lay != solo_layout:
+            fail(f"mesh slice {j}'s delta {lay} is not the single-device slices' {solo_layout}")
+    # slice 1's final z: its own delta and slice 0's over the zero init
+    got = np.load(os.path.join(root, "ck1", f"step_{MESH_SYNC_BATCHES}", "state.npz"))
+    with np.load(os.path.join(sync_dir, "delta_s0_r1.npz")) as d0, \
+            np.load(os.path.join(sync_dir, "delta_s1_r1.npz")) as d1:
+        z = "opt/wv/z"
+        want = d0[z].astype(np.float64) + d1[z]
+        # both slices start from the same seeded state: slice 1's z is
+        # init z (zeros) + both deltas
+        sum_err = float(np.linalg.norm(got[z] - want) / max(np.linalg.norm(want), 1e-30))
+    got.close()
+    if sum_err > SYNC_SUM_RTOL:
+        fail(f"mesh slice 1's z is {sum_err} from the two deltas' sum")
+    leg_s = time.perf_counter() - t_leg
+    out.update(delta_layout=layouts[0], sum_err=sum_err, leg_s=leg_s)
+    print(f"# mesh sync on {card}: 2 slices, each a world of 1 NCCL rank (1 x 1, fully "
+          f"sharded), {MESH_SYNC_BATCHES} steps and one round at K = 1: fits "
+          f"{out['fit_s'][0]:.1f} / {out['fit_s'][1]:.1f} s, rounds {out['round_ms_0']:.0f} / "
+          f"{out['round_ms_1']:.0f} ms, launches {out['launches']}; the deltas hold "
+          f"{sorted(layouts[0])} as the single-device slices' do; slice 1's z vs the deltas' "
+          f"sum {sum_err:.3g}; {leg_s:.1f} s (budget {PHASE20_BUDGET_S['mesh_sync']:.0f} s)",
+          flush=True)
+    return out
+
+
+def run_phase20(cfg, work: str, path: str, rate_path: str, card: str, bare: dict,
+                solo_layout: dict) -> dict:
+    """Phase 20: the serve world, the C API and the syncer on a mesh."""
+    t_phase = time.perf_counter()
+    out = {"serve_world": run_serve_world(cfg, work, path, card, bare),
+           "c_api": run_c_api(cfg, work, path, card),
+           "mesh_sync": run_mesh_sync(cfg, work, rate_path, card, solo_layout)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"# phase 20 took {out['phase_s']:.1f} s (budget "
+          f"{sum(PHASE20_BUDGET_S.values()):.0f} s)", flush=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "xflow_tpu_torch")):
         fail(f"{HERE} holds no xflow_tpu_torch package: run from a checkout of the repository")
     sys.path.insert(0, HERE)
@@ -4431,11 +4839,13 @@ def main() -> int:
         wide = check_wide_row_sums(cfg, path)
         lab_kern = run_lab(work)
         run_serve(cfg, work, path, card)
-        run_fleet(cfg, work, path, card)
+        bare = run_fleet(cfg, work, path, card)
         run_online(cfg, work, path, rate_path, card)
         zipf = run_observe(work, rate_path, card)
         mesh = run_mesh(cfg, work, path, rate_path, card)
         launch = run_launch(cfg, work, rate_path, card)
+        p20 = run_phase20(cfg, work, path, rate_path, card, bare,
+                          launch["multislice"]["delta_layout"])
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")
@@ -4466,11 +4876,19 @@ def main() -> int:
                            "solo_slice": launch["multislice"]["solo_launches"][k["name"]],
                            "slices_traced": {j: v[k["name"]] for j, v in
                                              launch["multislice"]["trace_launches"].items()}}
+        if k["name"] in p20["c_api"]["traced"]:
+            k["c_api_traced"] = p20["c_api"]["traced"][k["name"]]
+        if k["name"] in p20["mesh_sync"]["launches"][0]:
+            k.setdefault("mesh", {})["sync"] = {j: v[k["name"]]
+                                 for j, v in p20["mesh_sync"]["launches"].items()}
     kern += lab_kern
     for k in kern:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    total = time.perf_counter() - t_start
+    print(f"# the smoke took {total:.1f} s (predicted {SMOKE_PREDICTED_S[0]:.0f}-"
+          f"{SMOKE_PREDICTED_S[1]:.0f} s; limit 1200 s)", flush=True)
     print(card)
-    print(json.dumps({"kernels": kern, "launch": launch}))
+    print(json.dumps({"kernels": kern, "launch": launch, "phase20": p20}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

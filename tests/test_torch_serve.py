@@ -28,7 +28,6 @@ from xflow_tpu.serve.metrics import ServeMetrics as JServeMetrics
 from xflow_tpu.serve.runner import BadRequest as JBadRequest
 from xflow_tpu.serve.runner import parse_rows as jparse_rows
 from xflow_tpu.telemetry import Registry as JRegistry
-from xflow_tpu.testing.faults import bitflip_npz_array
 from xflow_tpu.train import checkpoint as jckpt
 from xflow_tpu.train.state import TrainState
 from xflow_tpu_torch import jsonl, tracing
@@ -37,6 +36,7 @@ from xflow_tpu_torch.serve import autotune, coalescer as co
 from xflow_tpu_torch.serve.metrics import SERVE_WINDOW_KEYS, ServeMetrics
 from xflow_tpu_torch.serve.runner import BadRequest, ServeRunner, parse_rows
 from xflow_tpu_torch.telemetry import Registry
+from xflow_tpu_torch.testing.faults import bitflip_npz_array
 from xflow_tpu_torch.train import checkpoint as tckpt
 
 LOG2_S, V = 12, 4

@@ -200,4 +200,7 @@ def test_criteo_convert_cache_subcommand(tmp_path, capsys):
     assert criteo_convert.main(args) == 0
     assert json.loads(capsys.readouterr().out.strip())["skipped"] == 2
     assert os.path.exists(path + ".xfc")
-    assert criteo_convert.main([prefix]) == 2
+    # without `cache` the argv is the raw converter's, which needs OUT_PREFIX
+    with pytest.raises(SystemExit) as e:
+        criteo_convert.main([prefix])
+    assert e.value.code == 2

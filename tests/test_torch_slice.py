@@ -30,7 +30,6 @@ from xflow_tpu.config import Config as JConfig
 from xflow_tpu.config import override as joverride
 from xflow_tpu.data.synth import generate_shards as jgenerate_shards
 from xflow_tpu.serve.runner import parse_rows as jparse_rows
-from xflow_tpu.testing.faults import bitflip_npz_array
 from xflow_tpu.train import checkpoint as jckpt
 from xflow_tpu.train.state import TrainState
 from xflow_tpu.train.trainer import Trainer
@@ -38,6 +37,7 @@ from xflow_tpu_torch.config import Config, override
 from xflow_tpu_torch.data.synth import generate_shards
 from xflow_tpu_torch.evaluate import evaluate, predict_batches
 from xflow_tpu_torch.serve.runner import BadRequest, ServeRunner, parse_rows
+from xflow_tpu_torch.testing.faults import bitflip_npz_array
 from xflow_tpu_torch.train import checkpoint as tckpt
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,10 +213,26 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.tools.fullshard_overflow_sim\n"
         "import xflow_tpu_torch.launch.watchdog, xflow_tpu_torch.launch.dist\n"
         "import xflow_tpu_torch.parallel.multislice\n"
+        "import xflow_tpu_torch.c_api, xflow_tpu_torch.c_api.embed\n"
+        "from xflow_tpu_torch.tools.criteo_convert import convert, criteo_line_to_libffm\n"
+        "from xflow_tpu_torch.testing.faults import (bitflip_file, bitflip_npz_array,\n"
+        "    corrupt_npz_checkpoint, poison_nan_batches, truncate_file,\n"
+        "    write_malformed_libffm)\n"
+        "from xflow_tpu_torch.serve.server import MeshLink, follow_main\n"
         "print('ok')\n"
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_cli_serve_world_flags_without_jax():
+    """`serve --help` with jax and xflow_tpu blocked names the serve
+    world's flags."""
+    r = _run_without_jax("from xflow_tpu_torch.__main__ import main\n"
+                         "sys.exit(main(sys.argv[1:]))\n", "serve", "--help")
+    assert r.returncode == 0, r.stderr
+    for flag in ("--coordinator", "--num-processes", "--process-id", "--no-mesh"):
+        assert flag in r.stdout, flag
 
 
 def test_cli_launchers_without_jax(tmp_path):

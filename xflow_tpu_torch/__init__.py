@@ -24,5 +24,11 @@ and the segment row side over plans stacked into sub-batches through the
 multi-buffer gather and scatter); LR, the default model (row-major, no
 kernel); single-device FFM training, evaluation and serving
 (`models/ffm.py`: the aligned hybrid over the windowed gather and the
-scatters, and the row-major route for batches that repeat a field).
+scatters, and the row-major route for batches that repeat a field);
+and since then the rest of the JAX package: the host input plane,
+serving and its fleet, online training, the trainer's records, the
+multi-device engines, the launchers and the multi-slice tier, serving
+from a mesh (`serve` over a world of ranks), the C API (`c_api/`), the
+raw Criteo / Avazu converter, the native plane's sanitizer builds and
+the corruption helpers (`testing/faults.py`).
 """

@@ -36,7 +36,13 @@ Serves pCTRs over HTTP (`POST /predict` {"rows": [...]}, `GET /healthz`,
 microbatched, and hot-reloads newer committed steps; prints one JSON
 ready line {"serving", "step", "generation", "pid", "host", "port"[,
 "unix_socket"], "device"} once listening, and exits 0 on SIGTERM. With
-`--device cuda` and no CUDA device it exits 2 without serving.
+`--device cuda` and no CUDA device it exits 2 without serving. With
+`--coordinator HOST:PORT --num-processes N --process-id K` (or the
+`XFLOW_*` environment) and N above 1 the ranks form a serve world: each
+holds its block of the tables on a ('data', 'table') mesh, rank 0 binds
+the sockets and drives the world (its ready line adds "world"), the
+others bind nothing and exit 0 after rank 0's drain. serve.max_batch
+must divide by the data axis, and `--no-mesh` is refused there (rc 2).
 
     python -m xflow_tpu_torch serve-fleet --checkpoint-dir D [--replicas N] [--port P] \
         [--run-dir R] [--max-restarts K] [--retries N] [--deadline-ms MS] [--hedge-ms MS] \
@@ -167,15 +173,48 @@ def cmd_evaluate(args) -> int:
 def cmd_serve(args) -> int:
     import torch
 
-    from xflow_tpu_torch.serve.server import serve_main
+    from xflow_tpu_torch.parallel.distributed import maybe_initialize, shutdown
 
-    cfg = build_config(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print(f"serve: --device {args.device}: no CUDA device (torch.cuda.is_available() is "
               "false); pass --device cpu to serve from the CPU", file=sys.stderr)
         return 2
+    rank = maybe_initialize(args.coordinator, args.num_processes, args.process_id,
+                            device=args.device)
     try:
-        return serve_main(cfg, device=args.device)
+        return _serve(args, rank)
+    finally:
+        shutdown()
+
+
+def _serve(args, rank: int) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from xflow_tpu_torch.serve.server import serve_main
+
+    cfg = build_config(args)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh, device = None, args.device
+    if world > 1:
+        if args.no_mesh:
+            print("serve: --no-mesh with a world of several processes would serve from each "
+                  "rank alone; drop --no-mesh, or run one process", file=sys.stderr)
+            return 2
+        from xflow_tpu_torch.parallel.distributed import local_device
+        from xflow_tpu_torch.parallel.mesh import make_mesh
+        from xflow_tpu_torch.serve.runner import max_batch_error
+
+        device = local_device(args.device, rank, world)
+        mesh = make_mesh(cfg, device=device)
+        if torch.device(device).type == "cpu":
+            device = "cpu"
+        err = max_batch_error(cfg.serve.max_batch, mesh.data)
+        if err:
+            print(err, file=sys.stderr)
+            return 2
+    try:
+        return serve_main(cfg, device=device, mesh=mesh)
     except (FileNotFoundError, RuntimeError) as e:
         print(f"serve: cannot load a checkpoint: {e}", file=sys.stderr)
         return 1
@@ -466,7 +505,14 @@ def main(argv=None) -> int:
     sv.add_argument("--metrics-path", default=None,
                     help="kind=serve telemetry JSONL (windows, reload events)")
     sv.add_argument("--no-mesh", action="store_true",
-                    help="accepted for flag parity: the port serves from one device")
+                    help="one process, one device (a world of several refuses it)")
+    sv.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's store (else XFLOW_COORDINATOR)")
+    sv.add_argument("--num-processes", type=int, default=None,
+                    help="world size (else XFLOW_NUM_PROCESSES); above 1 serves from a mesh "
+                         "behind rank 0")
+    sv.add_argument("--process-id", type=int, default=None,
+                    help="this rank (else XFLOW_PROCESS_ID)")
     sv.add_argument("--device", default="cuda")
     sv.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="dotted config override, e.g. --set serve.ladder=32,64,256")

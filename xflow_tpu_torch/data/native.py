@@ -10,6 +10,13 @@ so processes racing to build it do no harm. There is no fall back: a
 failed build raises with g++'s message. The parsers read `BLOCK_BYTES`
 of the file at a time.
 
+`XFLOW_NATIVE_SANITIZE=thread` (or `address,undefined`, any list g++'s
+`-fsanitize=` takes) builds it under those sanitizers, with `-g
+-fno-omit-frame-pointer`; the value joins the digest, so sanitized and
+plain builds never collide. The MT parser's pool is the one concurrent
+C++ component. A Python process loads a sanitized library only with the
+matching runtime preloaded (`LD_PRELOAD`).
+
 `CALLS` counts the batches the native stream yields and the native
 planner's calls, so a run can show that it went through them.
 """
@@ -54,11 +61,20 @@ def reset_calls() -> None:
             CALLS[k] = 0
 
 
+def build_flags() -> list:
+    """g++'s flags: `_FLAGS`, after the sanitizers XFLOW_NATIVE_SANITIZE
+    names (with debug info and frame pointers) when it is set."""
+    sanitize = os.environ.get("XFLOW_NATIVE_SANITIZE", "")
+    extra = [f"-fsanitize={sanitize}", "-g", "-fno-omit-frame-pointer"] if sanitize else []
+    return extra + _FLAGS
+
+
 def _build_lib() -> str:
     """Path of the built library, building it when its digest is new.
     Raises RuntimeError with g++'s output when the build fails."""
+    flags = build_flags()
     with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
     so_path = os.path.join(_BUILD_DIR, f"libxfparser_{digest}.so")
     if os.path.exists(so_path):
@@ -67,7 +83,7 @@ def _build_lib() -> str:
     os.close(fd)
     try:
         try:
-            r = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+            r = subprocess.run(["g++", *flags, "-o", tmp, _SRC],
                                capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(f"building {_SRC} needs g++: {e}") from e

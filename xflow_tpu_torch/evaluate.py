@@ -12,7 +12,8 @@ rank-sum AUC and the mean log-likelihood.
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import os
+from typing import Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -169,19 +170,35 @@ def to_device(arrays: dict, device) -> dict:
     return {k: torch.from_numpy(_host_array(v)).to(device) for k, v in arrays.items()}
 
 
-def predict_batches(cfg: Config, tables: dict, path: str,
+Paths = Union[str, Sequence]
+
+
+def shard_files(path: Paths) -> list[str]:
+    """The files an eval pass reads, in order: `path` itself when it is
+    one file; of a list of paths or of (shard index, path) pairs (an
+    `assign_shards` list), the ones that exist, as a missing shard counts
+    no batches (the JAX trainer's `_coordinated_batches`)."""
+    if isinstance(path, str):
+        return [path]
+    files = [p if isinstance(p, str) else p[1] for p in path]
+    return [p for p in files if os.path.exists(p)]
+
+
+def predict_batches(cfg: Config, tables: dict, path: Paths,
                     device="cuda") -> Iterator[tuple[SparseBatch, np.ndarray]]:
-    """(batch, pctr [B] on the host) for every batch of libffm file `path`,
-    predicted on `device` with `tables` (already on that device). Batches
-    are read and planned in a prefetch thread, counting bad rows without
-    raising or quarantining them (an eval pass, as in the JAX trainer)."""
+    """(batch, pctr [B] on the host) for every batch of libffm file `path`
+    (or of each shard of a list, in order: `shard_files`), predicted on
+    `device` with `tables` (already on that device). Batches are read and
+    planned in a prefetch thread, counting bad rows without raising or
+    quarantining them (an eval pass, as in the JAX trainer)."""
     step = make_predict_fn(get_model(cfg.model.name)(cfg))
     dedup = HostDedup(cfg)
 
     def feed():
-        for batch in batch_iterator(path, cfg.data, enforce_bad_rows=False,
-                                    quarantine=False):
-            yield batch, batch_arrays(batch, cfg, dedup)
+        for f in shard_files(path):
+            for batch in batch_iterator(f, cfg.data, enforce_bad_rows=False,
+                                        quarantine=False):
+                yield batch, batch_arrays(batch, cfg, dedup)
 
     stream = prefetch(feed())
     try:
@@ -199,9 +216,10 @@ def dump_rows(fout, p, y) -> None:
         fout.writelines(f"{pi:.6f}\t{int(1 - yi)}\t{int(yi)}\n" for pi, yi in zip(p, y))
 
 
-def evaluate(cfg: Config, tables: dict, path: str, device="cuda",
+def evaluate(cfg: Config, tables: dict, path: Paths, device="cuda",
              fout=None) -> tuple[float, float]:
-    """(auc, logloss) of `tables` on libffm file `path`; logloss keeps the
+    """(auc, logloss) of `tables` on libffm file `path` (or on a list of
+    shards, as `predict_batches` reads them); logloss keeps the
     reference's sign (a mean log-likelihood). With `fout`, each real
     row's prediction goes there too (`dump_rows`), in file order."""
     pctrs, labels = [], []

@@ -37,6 +37,16 @@ through pinned buffers reused across rounds (the checkpoint's
 `PinnedStaging`, on a side stream after the step's work), then into
 private host arrays, since the next round reuses the buffers.
 
+A slice may be a world of ranks (an in-slice mesh, `mesh` and its table
+`layout`; the JAX syncer flattens a sharded state to the host and puts
+each merged leaf back on its sharding). The slice's rank 0 alone touches
+the sync dir: every rank takes part in gathering the whole state
+(`parallel/train_step.gather_state`), rank 0 writes and reads the same
+npz members, and the merged leaves go back to each rank's block by a
+broadcast from rank 0. Every decision of a round (the peers applied, the
+wait's outcome, a snapshot adopted) is made on rank 0 and broadcast with
+its record, so the ranks of a slice cannot diverge.
+
 `launch_multislice` runs the slices: each under its own supervision
 loop (a dead slice relaunches alone with `train.resume=true`, no
 fail-fast: slices share no collective), the watchdog's dead verdict
@@ -102,7 +112,7 @@ class SliceSyncer:
     the waits' (a test injects both)."""
 
     def __init__(self, sync_cfg, slice_id: int, num_slices: int, clock=time.monotonic,
-                 sleep=time.sleep):
+                 sleep=time.sleep, mesh=None, layout: str = "full"):
         mode = str(sync_cfg.mode)
         if mode not in ("sync", "bounded", "async"):
             raise ValueError(f"sync.mode={mode!r}: expected sync|bounded|async "
@@ -128,31 +138,76 @@ class SliceSyncer:
         self._staging = None  # pinned buffers of the copy off the card
         self._kill_round, self._delay_s = sync_faults_from_env()
         self.last_split: dict = {}  # the last round's parts, ms
+        self.mesh, self.layout = mesh, layout  # an in-slice mesh (None: one device)
+        self._lead = mesh is None or mesh.rank == 0  # the rank that touches the dir
         os.makedirs(self.dir, exist_ok=True)
 
     # ------------------------------------------------- state <-> host
     def _flatten(self, state) -> dict:
         """Private host copies of the syncable leaves, tables and
-        optimizer state, never the step."""
+        optimizer state, never the step. On a mesh every rank gathers the
+        whole leaves (a collective) and rank 0 alone keeps them ({} on
+        the others)."""
+        if self.mesh is not None:
+            from xflow_tpu_torch.parallel.train_step import gather_state
+
+            state = gather_state(state, self.mesh, self.layout)
+            if not self._lead:
+                return {}
         if self._staging is None:
             self._staging = PinnedStaging()
         flat = SaveSnapshot(state.tables, state.opt_state, 0, self._staging).materialize()
         flat.pop("step", None)
         return {k: np.array(v) for k, v in flat.items()}
 
-    def _rebuild(self, state, flat: dict):
+    def _rebuild(self, state, flat: Optional[dict]):
         """The state with the merged host arrays placed on each leaf's
-        device and dtype (the step untouched)."""
+        device and dtype (the step untouched). On a mesh rank 0's arrays
+        (`flat`; None on the others) are broadcast and each rank keeps its
+        block."""
         import torch
 
         def put(arr, like):
             return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
                 device=like.device, dtype=like.dtype)
 
-        tables = {n: put(flat[f"tables/{n}"], t) for n, t in state.tables.items()}
-        opt = {n: {k: put(flat[f"opt/{n}/{k}"], v) for k, v in st.items()}
+        def place(key, like):
+            if self.mesh is None:
+                return put(flat[key], like)
+            return self._broadcast_leaf(flat[key] if self._lead else None, like)
+
+        tables = {n: place(f"tables/{n}", t) for n, t in state.tables.items()}
+        opt = {n: {k: place(f"opt/{n}/{k}", v) for k, v in st.items()}
                for n, st in state.opt_state.items()}
         return state._replace(tables=tables, opt_state=opt)
+
+    def _broadcast_leaf(self, arr: Optional[np.ndarray], like):
+        """Rank 0's whole leaf `arr`, broadcast over the slice, as this
+        rank's block in the layout of `like` (its live block)."""
+        import torch
+        import torch.distributed as dist
+
+        from xflow_tpu_torch.parallel.mesh import shard_tensor
+
+        shape = tuple(like.shape)
+        if like.ndim:
+            shape = (shape[0] * self.mesh.owners(self.layout),) + shape[1:]
+        whole = (torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(self.mesh.device)
+                 if self._lead else torch.empty(shape, dtype=torch.float32,
+                                                device=self.mesh.device))
+        dist.broadcast(whole, src=0)
+        return shard_tensor(whole, self.mesh, self.layout).to(device=like.device,
+                                                               dtype=like.dtype)
+
+    def _agree(self, obj):
+        """Rank 0's `obj`, on every rank of the slice (as is without a mesh)."""
+        if self.mesh is None:
+            return obj
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, device=self.mesh.device)
+        return box[0]
 
     def attach(self, state) -> None:
         """Fix the delta base at the state entering the fit loop (after
@@ -164,8 +219,8 @@ class SliceSyncer:
         from xflow_tpu_torch.telemetry import resolve_restart_gen
 
         self._base = self._flatten(state)
-        latest = self._scan(_DELTA_RE)
-        self.round = max(self.round, latest.get(self.slice_id, 0))
+        latest = self._scan(_DELTA_RE) if self._lead else {}
+        self.round = self._agree(max(self.round, latest.get(self.slice_id, 0)))
         if resolve_restart_gen() > 0 and not self._adopted:
             for p in self._applied:
                 self._applied[p] = max(self._applied[p], latest.get(p, 0))
@@ -222,19 +277,15 @@ class SliceSyncer:
         freshest snapshot's (the highest round, ties to the lowest
         slice), the step and the data position stay the slice's own.
         Returns (state, (round, source slice) or None). Peer rounds the
-        snapshot folded in are skipped from then on."""
-        snaps = self._scan(_SNAP_RE)
-        if not snaps:
+        snapshot folded in are skipped from then on. On a mesh rank 0
+        reads it and the ranks adopt it together."""
+        flat, got = None, None
+        if self._lead:
+            flat, got = self._read_latest_snapshot()
+        got = self._agree(got)
+        if got is None:
             return state, None
-        r = max(snaps.values())
-        src = min(s for s, rr in snaps.items() if rr == r)
-        try:
-            with np.load(self._snap_path(src, r)) as z:
-                flat = {k: z[k] for k in z.files if k != "step"}
-        except (OSError, ValueError) as e:
-            print(f"# multislice: snapshot s{src} r{r} unreadable ({type(e).__name__}: {e}); "
-                  "rejoining without catch-up", file=sys.stderr)
-            return state, None
+        r, src = got
         state = self._rebuild(state, flat)
         self._base = flat
         for p in self._applied:
@@ -242,6 +293,22 @@ class SliceSyncer:
         self.round = max(self.round, r)
         self._adopted = True
         return state, (r, src)
+
+    def _read_latest_snapshot(self) -> tuple:
+        """(leaves, (round, source slice)) of the freshest snapshot, or
+        (None, None) when there is none or it does not read."""
+        snaps = self._scan(_SNAP_RE)
+        if not snaps:
+            return None, None
+        r = max(snaps.values())
+        src = min(s for s, rr in snaps.items() if rr == r)
+        try:
+            with np.load(self._snap_path(src, r)) as z:
+                return {k: z[k] for k in z.files if k != "step"}, (r, src)
+        except (OSError, ValueError) as e:
+            print(f"# multislice: snapshot s{src} r{r} unreadable ({type(e).__name__}: {e}); "
+                  "rejoining without catch-up", file=sys.stderr)
+            return None, None
 
     # ------------------------------------------------------- the round
     def _wait_for_bound(self, want: int, peers_of) -> tuple:
@@ -275,9 +342,9 @@ class SliceSyncer:
         `last_split` holds the round's parts in ms: `copy_off` (the
         state to the host), `write` (the delta's npz), `wait`, `apply`
         (the peers' npz read and added), `copy_back` (the merged state
-        to the device) and `snapshot`."""
-        pc = time.perf_counter
-        t0 = pc()
+        to the device) and `snapshot`. On a mesh every rank calls it;
+        rank 0 runs the round and broadcasts its outcome and record."""
+        t0 = time.perf_counter()
         self.round += 1
         r = self.round
         if self._kill_round and r == self._kill_round:
@@ -289,8 +356,25 @@ class SliceSyncer:
             self._sleep(self._delay_s)  # the straggler drill
         if self._base is None:
             raise RuntimeError("SliceSyncer.sync before attach()")
-        t_copy = pc()
+        t_copy = time.perf_counter()
         local = self._flatten(state)
+        t_files = time.perf_counter()
+        merged, record = self._round_files(state, r, local) if self._lead else (None, None)
+        changed, record = self._agree((merged is not None, record))
+        t_back = time.perf_counter()
+        if changed:
+            state = self._rebuild(state, merged)
+        t_end = time.perf_counter()
+        self.last_split.update(copy_off=(t_files - t_copy) * 1e3,
+                               copy_back=(t_end - t_back) * 1e3)
+        return state, dict(record, dur_ms=round((t_end - t0) * 1e3, 3))
+
+    def _round_files(self, state, r: int, local: dict) -> tuple:
+        """The dir's side of round `r` from the host leaves `local`:
+        publish the delta, wait, apply the peers' rounds, rebase, and
+        publish a snapshot on its cadence. Returns (the merged leaves, or
+        None when no peer delta applied, the kind="sync" record body)."""
+        pc = time.perf_counter
         t_write = pc()
         delta = {k: local[k] - self._base[k] for k in local}
         bytes_out = self._publish("delta", self._delta_path(self.slice_id, r),
@@ -336,12 +420,9 @@ class SliceSyncer:
                 bytes_in += os.path.getsize(path)
                 applied += 1
             self._applied[p] = max(self._applied[p], top)
-        t_back = pc()
-        if merged is not None:
-            state = self._rebuild(state, merged)
-            self._base = merged
-        else:
-            self._base = local  # the passthrough: the same tensors
+        # the passthrough keeps the same tensors (the caller rebuilds only
+        # from a merge)
+        self._base = local if merged is None else merged
         t_snap = pc()
         live = self._live()
         lags = {str(p): r - self._applied[p] for p in peers_of(live)}
@@ -358,18 +439,16 @@ class SliceSyncer:
                           extra={"round": r, "step": int(state.step)})
         t_end = pc()
         self.last_split = {
-            "copy_off": (t_write - t_copy) * 1e3, "write": (t_wait - t_write) * 1e3,
-            "wait": (t_apply - t_wait) * 1e3, "apply": (t_back - t_apply) * 1e3,
-            "copy_back": (t_snap - t_back) * 1e3, "snapshot": (t_end - t_snap) * 1e3,
+            "write": (t_wait - t_write) * 1e3, "wait": (t_apply - t_wait) * 1e3,
+            "apply": (t_snap - t_apply) * 1e3, "snapshot": (t_end - t_snap) * 1e3,
         }
         record = {
             "kind": "sync", "round": r, "k": self.k, "mode": self.mode, "live": sorted(live),
             "joined": joined, "left": left, "bytes_out": int(bytes_out),
             "bytes_in": int(bytes_in), "applied": int(applied), "stale": int(stale),
             "timeouts": int(timeouts), "lag_max": int(lag_max), "lags": lags,
-            "dur_ms": round((t_end - t0) * 1e3, 3),
         }
-        return state, record
+        return merged, record
 
 
 # ----------------------------------------------------------- the launcher

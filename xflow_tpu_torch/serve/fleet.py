@@ -57,8 +57,10 @@ def replica_env(base: dict, idx: int, port: int, run_id: str, gen: int, stagger_
                 world: int = 1) -> dict:
     """The environment one replica attempt launches with: the fleet's
     identity and stagger contract. The device is the replica's
-    `--device` flag, not the environment."""
+    `--device` flag, not the environment. A replica is a solo server, so
+    no coordinator it might inherit forms a serve world."""
     env = dict(base)
+    env.pop("XFLOW_COORDINATOR", None)
     env.update(
         XFLOW_RUN_ID=run_id,
         XFLOW_PROCESS_ID=str(idx),  # the rank stamp: a replica's stream keys apart

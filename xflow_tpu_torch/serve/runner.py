@@ -24,6 +24,17 @@ and a host plan would sit on the latency path.
 - **A bad checkpoint is not an outage.** A reload that fails is logged
   and the current generation keeps serving; the watcher never retries a
   step that failed.
+- **On a mesh** (`mesh`, a serve world: `serve/server.py`) every rank
+  holds its own block of each table (`parallel/mesh.slot_range`, the
+  fully-sharded layout of the JAX package's `state_shardings`), restored
+  from the whole checkpoint whatever world wrote it. A batch of
+  serve.max_batch rows (the ladder collapses to that one rung, as in the
+  JAX package) splits over the data axis; each data coordinate's rows go
+  through `parallel/train_step.make_sharded_eval_step` and the pCTRs are
+  gathered over `data`. A reload is two halves: `stage` restores a step
+  into a spare generation off the request loop, and `swap` installs it
+  when the serve world's control header says so, on every rank at the
+  same batch boundary.
 """
 
 from __future__ import annotations
@@ -95,11 +106,26 @@ class Generation:
         return max(time.time() - float(ts), 0.0)
 
 
+# the table layout of a serve world: every rank owns S / world slots
+SERVE_LAYOUT = "full"
+
+
+def max_batch_error(max_batch: int, data: int) -> Optional[str]:
+    """The JAX `serve`'s refusal of a batch that does not split over the
+    mesh's data axis, or None."""
+    if max_batch % data:
+        return (f"serve: serve.max_batch={max_batch} must divide by the mesh data axis "
+                f"({data})")
+    return None
+
+
 class ServeRunner:
     """pCTR prediction from the newest loadable checkpoint under
-    `cfg.train.checkpoint_dir` (and its replica dir), on `device`."""
+    `cfg.train.checkpoint_dir` (and its replica dir), on `device`; with
+    `mesh`, this rank's part of a serve world (`predict` is then a
+    collective every rank calls with the same batch)."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", mesh=None):
         if cfg.train.checkpoint_format != "npz":
             raise ValueError(
                 f"train.checkpoint_format={cfg.train.checkpoint_format!r}: "
@@ -107,12 +133,26 @@ class ServeRunner:
             )
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.model = get_model(cfg.model.name)(cfg)
-        self._predict = make_predict_fn(self.model)
-        # the batch-shape ladder: every batch is padded to one of these
-        # row counts (`warmup` runs each before traffic arrives)
-        self.rungs = parse_ladder(cfg.serve)
+        if mesh is None:
+            self._predict = make_predict_fn(self.model)
+            # the batch-shape ladder: every batch is padded to one of these
+            # row counts (`warmup` runs each before traffic arrives)
+            self.rungs = parse_ladder(cfg.serve)
+        else:
+            from xflow_tpu_torch.parallel.mesh import check_divisible
+            from xflow_tpu_torch.parallel.train_step import make_sharded_eval_step
+
+            err = max_batch_error(cfg.serve.max_batch, mesh.data)
+            if err:
+                raise ValueError(err)
+            check_divisible(cfg.num_slots, mesh)
+            self._predict = make_sharded_eval_step(self.model, cfg, mesh, SERVE_LAYOUT)
+            self.rungs = (int(cfg.serve.max_batch),)
         self._gen: Optional[Generation] = None
+        self._staged: Optional[Generation] = None  # a mesh rank's restored next step
+        self._stage_t0 = (0.0, 0.0)  # when the staged restore began (wall, perf)
         self._gen_counter = 0
         self._reload_lock = threading.Lock()  # one loader at a time
         self._copy_stream = None  # the loader's CUDA stream, made at the first load
@@ -128,6 +168,12 @@ class ServeRunner:
     def step(self) -> int:
         return self._gen.step if self._gen else -1
 
+    @property
+    def staged_step(self) -> int:
+        """The step `stage` restored and no swap has served yet, else -1."""
+        staged = self._staged
+        return staged.step if staged is not None else -1
+
     def latest_committed_step(self) -> Optional[int]:
         """The newest committed step across both checkpoint tiers."""
         t = self.cfg.train
@@ -138,6 +184,10 @@ class ServeRunner:
         """Host tables -> logical tensors on the serving device; on a card
         by the copy design of the module docstring."""
         tables = tables_from_jax(host, self.cfg, "cpu")  # views of `host`, checked
+        if self.mesh is not None:
+            from xflow_tpu_torch.parallel.mesh import shard_tensor
+
+            tables = {k: shard_tensor(t, self.mesh, SERVE_LAYOUT) for k, t in tables.items()}
         if self.device.type != "cuda":
             return {k: t.to(self.device) for k, t in tables.items()}
         if self._copy_stream is None:
@@ -152,45 +202,78 @@ class ServeRunner:
         side.synchronize()
         return out
 
-    def load(self) -> Generation:
-        """Load the newest loadable committed checkpoint of either tier and
-        swap it in. Raises when none loads (fatal at startup; the watcher
-        catches it on a reload) and when the walk-back lands on a step no
-        newer than the one served (swapping would regress)."""
+    def load(self, step: Optional[int] = None) -> Generation:
+        """Load the newest loadable committed checkpoint of either tier (or
+        committed `step`) and swap it in. Raises when none loads (fatal at
+        startup; the watcher catches it on a reload) and when the
+        walk-back lands on a step no newer than the one served (swapping
+        would regress)."""
         with self._reload_lock:
-            is_reload = self._gen is not None
             t0_wall, t0 = time.time(), time.perf_counter()
-            t = self.cfg.train
-            host, step, src = ckpt.restore_tiered(
-                t.checkpoint_dir, table_shapes(self.cfg), verify=t.checkpoint_verify,
-                replica_dir=t.ckpt_replica_dir,
+            gen = self._restore(step)
+            self._install(gen, t0_wall, t0)
+            return gen
+
+    def _restore(self, step: Optional[int]) -> Generation:
+        """The tables of the newest loadable step (or of `step`) on the
+        device, as a generation not yet numbered or served."""
+        t = self.cfg.train
+        host, got, src = ckpt.restore_tiered(
+            t.checkpoint_dir, table_shapes(self.cfg), verify=t.checkpoint_verify,
+            replica_dir=t.ckpt_replica_dir, step=step,
+        )
+        if self._gen is not None and got <= self._gen.step:
+            raise RuntimeError(
+                f"newest loadable checkpoint is step {got}, already serving step "
+                f"{self._gen.step}; keeping the current generation"
             )
-            if self._gen is not None and step <= self._gen.step:
-                raise RuntimeError(
-                    f"newest loadable checkpoint is step {step}, already serving step "
-                    f"{self._gen.step}; keeping the current generation"
-                )
-            tables = self._to_device(host)
-            del host
-            pub = ckpt.read_publication(src, int(step))
-            self._gen_counter += 1
-            gen = Generation(tables=tables, step=int(step), gen=self._gen_counter,
-                             publication=pub)
-            self._gen = gen  # the swap
-            if self.span_sink is not None:
-                nbytes = int(sum(t.numel() * t.element_size() for t in tables.values()))
-                name = "reload" if is_reload else "serve_load"
-                attrs = dict(step=gen.step, generation=gen.gen, bytes=nbytes)
-                trace = pub.get("trace") if pub else None
-                if isinstance(trace, str) and trace:
-                    # a published step's swap continues the ingest trace
-                    rec = emit_linked_span(self.span_sink, name, t0_wall,
-                                           time.perf_counter() - t0, trace=trace,
-                                           parent=pub.get("span") or None, **attrs)
-                    gen.reload_span = rec["span"]
-                else:
-                    emit_op_span(self.span_sink, name, t0_wall, time.perf_counter() - t0,
-                                 **attrs)
+        tables = self._to_device(host)
+        del host
+        return Generation(tables=tables, step=int(got), gen=0,
+                          publication=ckpt.read_publication(src, int(got)))
+
+    def _install(self, gen: Generation, t0_wall: float, t0: float) -> None:
+        """Number `gen` and swap it in; one span when a sink is bound."""
+        is_reload = self._gen is not None
+        self._gen_counter += 1
+        gen.gen = self._gen_counter
+        self._gen = gen  # the swap
+        if self.span_sink is not None:
+            nbytes = int(sum(t.numel() * t.element_size() for t in gen.tables.values()))
+            name = "reload" if is_reload else "serve_load"
+            attrs = dict(step=gen.step, generation=gen.gen, bytes=nbytes)
+            pub = gen.publication
+            trace = pub.get("trace") if pub else None
+            if isinstance(trace, str) and trace:
+                # a published step's swap continues the ingest trace
+                rec = emit_linked_span(self.span_sink, name, t0_wall,
+                                       time.perf_counter() - t0, trace=trace,
+                                       parent=pub.get("span") or None, **attrs)
+                gen.reload_span = rec["span"]
+            else:
+                emit_op_span(self.span_sink, name, t0_wall, time.perf_counter() - t0,
+                             **attrs)
+
+    def stage(self, step: int) -> Generation:
+        """Restore committed `step` into the spare generation, not served
+        until `swap(step)` (a serve world's reload, off the request
+        loop). Raises as `load` does."""
+        with self._reload_lock:
+            self._staged = None  # an older spare's memory goes first
+            t0 = (time.time(), time.perf_counter())
+            self._staged = self._restore(step)
+            self._stage_t0 = t0
+            return self._staged
+
+    def swap(self, step: int) -> Generation:
+        """Serve the staged generation of `step`."""
+        with self._reload_lock:
+            gen = self._staged
+            if gen is None or gen.step != step:
+                raise RuntimeError(f"swap to step {step}: staged "
+                                   f"{gen.step if gen else 'nothing'}")
+            self._staged = None
+            self._install(gen, *self._stage_t0)
             return gen
 
     def maybe_reload(self) -> Optional[Generation]:
@@ -219,16 +302,35 @@ class ServeRunner:
         gen = self._gen
         if gen is None:
             raise RuntimeError("no checkpoint loaded; call load() first")
+        if self.mesh is not None:
+            return self._predict_mesh(gen, arrays), gen
         p = self._predict(gen.tables, to_device(arrays, self.device))
         return p.cpu().numpy(), gen
 
-    def warmup(self) -> int:
-        """One all-padding batch through `predict` at every rung, so the
+    def _predict_mesh(self, gen: Generation, arrays: dict) -> np.ndarray:
+        """The batch's pCTRs on a mesh: data coordinate d predicts rows
+        [d*b, (d+1)*b), b = B / D, split over its table ranks (`row_share`)
+        and pulled from the owners of their slots; the rows are gathered
+        over `data`, so every rank returns all B."""
+        from xflow_tpu_torch.parallel import collectives as C
+        from xflow_tpu_torch.parallel.train_step import row_share
+
+        mesh = self.mesh
+        b = int(np.asarray(arrays["row_mask"]).shape[0]) // mesh.data
+        part = {k: np.asarray(v)[mesh.d * b:(mesh.d + 1) * b] for k, v in arrays.items()}
+        part.setdefault("labels", np.zeros((b,), np.float32))
+        host = row_share(part, mesh)
+        p = self._predict(gen.tables, to_device(host, self.device))[:b].float()
+        return C.all_gather(p.contiguous(), mesh.data_group).cpu().numpy()
+
+    def warmup(self, predict=None) -> int:
+        """One all-padding batch through `predict` (default this runner's;
+        a serve world's rank 0 passes its link's) at every rung, so the
         first request at a rung pays no first-launch cost. Returns the
         number of rungs."""
         for r in self.rungs:
             arrays, _ = assemble_batch([], r, self.cfg.data.max_nnz)
-            self.predict(arrays)
+            (predict or self.predict)(arrays)
         return len(self.rungs)
 
     def predict_rows(self, rows: list) -> tuple[np.ndarray, Generation]:
@@ -254,10 +356,12 @@ class CheckpointWatcher(threading.Thread):
 
     `stagger_s` delays acting on a newly noticed step: a fleet gives
     replica k k * serve.reload_stagger_s, so its replicas swap one at a
-    time and never all pause on the same restore."""
+    time and never all pause on the same restore. With `notice` (a serve
+    world's rank 0) the watcher only passes each newer committed step to
+    it: the world stages and swaps it (`serve/server.MeshLink`)."""
 
     def __init__(self, runner: ServeRunner, poll_s: float = 2.0, on_reload=None,
-                 on_failed=None, stagger_s: float = 0.0):
+                 on_failed=None, stagger_s: float = 0.0, notice=None):
         super().__init__(daemon=True, name="xflow-serve-watcher")
         self._runner = runner
         self._poll = max(float(poll_s), 0.05)
@@ -265,6 +369,7 @@ class CheckpointWatcher(threading.Thread):
         self._stop_evt = threading.Event()
         self._on_reload = on_reload
         self._on_failed = on_failed
+        self._notice = notice
         self._failed_step = None
         self.reloads = 0
         self.failures = 0
@@ -276,6 +381,9 @@ class CheckpointWatcher(threading.Thread):
             except OSError:
                 continue
             if latest is None or latest <= self._runner.step or latest == self._failed_step:
+                continue
+            if self._notice is not None:
+                self._notice(latest)
                 continue
             if self._stagger_s > 0 and self._stop_evt.wait(self._stagger_s):
                 return  # closed during the stagger: no reload

@@ -26,6 +26,26 @@ Chaos drills (`testing/faults.serve_faults_from_env`, read once at
 construction): a delay before every batch, and a SIGKILL after the Nth
 answered batch, restricted by fleet replica and restart generation.
 
+A serve world (`serve --coordinator H:P --num-processes N --process-id
+K`, N above 1; `MeshLink`): rank 0 runs all of the above, and its device
+worker drives the world; the other ranks bind nothing and run
+`MeshLink.follow`. Collectives are issued by one thread a rank, in one
+order: rank 0's worker and each follower's loop (HTTP handler threads
+never touch one). Each round is one all_reduce(MAX) of a small header,
+rank 0's fields against the others' -1: the op (idle tick / predict /
+stop), a swap to step s, the step every rank should stage, and what each
+rank reports back (its staged step, as -step so the MAX reads the
+smallest, and a step it failed to stage). A predict round broadcasts the
+[max_batch] batch as bytes. A reload: rank 0's watcher notices a newer
+committed step; the header names it; every rank restores its own block
+of it in a loader thread (`ServeRunner.stage`, on its loader stream);
+once every rank reports it staged, the next header announces the swap,
+which every rank applies before that round's batch, so no batch spans
+two generations. A step some rank fails to stage is dropped and the
+served one stays. SIGTERM on rank 0 drains, then broadcasts stop, and
+the followers exit 0 (a follower ignores SIGTERM and waits for rank 0's
+stop); a collective that fails (a rank died) ends rank 0 with rc 1.
+
 In a serving fleet (`serve/fleet.py`) each replica is one such server;
 `serve_main` reads its reload stagger from `XFLOW_RELOAD_STAGGER_S`.
 The ready line stays the first JSON line on stdout (the fleet reads it);
@@ -46,9 +66,12 @@ import threading
 import time
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+import signal
+from typing import Callable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.serve.autotune import AutotuneController, pick_rung
@@ -60,7 +83,13 @@ from xflow_tpu_torch.serve.coalescer import (
 )
 from xflow_tpu_torch.serve.metrics import ServeMetrics
 from xflow_tpu_torch.serve.lifecycle import QuietDisconnects, wait_for_signal
-from xflow_tpu_torch.serve.runner import BadRequest, CheckpointWatcher, ServeRunner, parse_rows
+from xflow_tpu_torch.serve.runner import (
+    BadRequest,
+    CheckpointWatcher,
+    Generation,
+    ServeRunner,
+    parse_rows,
+)
 from xflow_tpu_torch.telemetry import default_registry
 from xflow_tpu_torch.testing.faults import hard_kill, serve_faults_from_env
 from xflow_tpu_torch.tracing import (
@@ -84,14 +113,155 @@ def parse_priority(value: Optional[str]) -> int:
     return -1 if value is not None and value.strip().lower() == "low" else 0
 
 
+OP_IDLE, OP_PREDICT, OP_STOP = 0, 1, 2
+NO_STEP = -1
+
+
+class MeshLink:
+    """The control channel of a serve world, seen from one rank (the
+    module docstring's protocol). Only the thread that drives this rank's
+    collectives calls `round`, `predict`, `follow` and `stop`; `want` is
+    rank 0's watcher's, and takes no collective."""
+
+    def __init__(self, runner: ServeRunner, on_reload: Optional[Callable] = None,
+                 on_failed: Optional[Callable] = None):
+        self.runner = runner
+        self.rank = dist.get_rank()
+        self.device = runner.mesh.device
+        tmpl, _ = assemble_batch([], runner.rungs[0], runner.cfg.data.max_nnz)
+        self._spec = [(k, tmpl[k].dtype, tmpl[k].shape) for k in sorted(tmpl)]
+        self._nbytes = sum(tmpl[k].nbytes for k in tmpl)
+        self.on_reload, self.on_failed = on_reload, on_failed
+        # rank 0's decisions
+        self._want = NO_STEP  # the newest committed step its watcher saw
+        self._target = NO_STEP  # the step the world stages
+        self._swap_next = NO_STEP  # the swap the next header announces
+        self._bad: set = set()  # steps some rank failed to stage
+        # this rank's loader
+        self._loader: Optional[threading.Thread] = None
+        self._failed = NO_STEP  # the last step it failed to stage
+
+    # ------------------------------------------------------------ start-up
+    def load_agreed(self) -> Generation:
+        """Every rank serves one step from the start: rank 0 loads the
+        newest loadable one and broadcasts it, the others load it."""
+        step = torch.tensor([NO_STEP], dtype=torch.int64, device=self.device)
+        if self.rank == 0:
+            try:
+                gen = self.runner.load()
+                step.fill_(gen.step)
+            finally:  # a failed load still releases the followers
+                dist.broadcast(step, src=0)
+            return gen
+        dist.broadcast(step, src=0)
+        got = int(step.item())
+        if got < 0:
+            raise RuntimeError("rank 0 loaded no checkpoint")
+        return self.runner.load(step=got)
+
+    # -------------------------------------------------------------- rounds
+    def want(self, step: int) -> None:
+        """Rank 0's watcher: `step` is committed."""
+        self._want = max(self._want, int(step))
+
+    def round(self, op: int = OP_IDLE) -> int:
+        """One header exchange; applies an announced swap and starts a
+        staging the header asks for. Returns the op rank 0 sent."""
+        runner, rank0 = self.runner, self.rank == 0
+        ready = runner.staged_step
+        vec = [op, self._swap_next, self._target] if rank0 else [NO_STEP] * 3
+        h = torch.tensor(vec + [-ready, self._failed], dtype=torch.int64, device=self.device)
+        dist.all_reduce(h, op=dist.ReduceOp.MAX)
+        op, swap, target, neg_ready, failed = (int(v) for v in h.cpu().tolist())
+        if swap != NO_STEP:
+            gen = runner.swap(swap)
+            if rank0 and self.on_reload is not None:
+                self.on_reload(gen)
+        if target != NO_STEP:
+            self._start_stage(target)
+        if rank0:
+            self._decide(swap, target, -neg_ready, failed)
+        return op
+
+    def _start_stage(self, step: int) -> None:
+        runner = self.runner
+        if (step <= runner.step or step == self._failed or runner.staged_step == step
+                or (self._loader is not None and self._loader.is_alive())):
+            return
+
+        def work():
+            try:
+                runner.stage(step)
+            except Exception as e:  # noqa: BLE001 — reported in the header
+                print(f"serve: rank {self.rank}: staging step {step} failed "
+                      f"({type(e).__name__}: {e})", file=sys.stderr)
+                self._failed = step
+
+        self._loader = threading.Thread(target=work, daemon=True, name="xflow-serve-stage")
+        self._loader.start()
+
+    def _decide(self, swapped: int, target: int, min_ready: int, failed: int) -> None:
+        """Rank 0, after a round: the next header's swap and target."""
+        self._swap_next = NO_STEP
+        if swapped != NO_STEP:
+            self._target = NO_STEP
+        elif target != NO_STEP and failed == target:
+            print(f"serve: reload of step {target} failed on a rank; keeping step "
+                  f"{self.runner.step}", file=sys.stderr)
+            self._bad.add(target)
+            self._target = NO_STEP
+            if self.on_failed is not None:
+                self.on_failed()
+        elif target != NO_STEP and min_ready == target:
+            self._swap_next = target
+        if (self._target == NO_STEP and self._want > self.runner.step
+                and self._want not in self._bad):
+            self._target = self._want
+
+    # ------------------------------------------------------------ batches
+    def predict(self, arrays: dict) -> tuple:
+        """Rank 0: one batch through the world -> (pctr [B], generation)."""
+        self.round(OP_PREDICT)
+        raw = np.concatenate([np.ascontiguousarray(arrays[k], dtype).reshape(-1).view(np.uint8)
+                              for k, dtype, _ in self._spec])
+        dist.broadcast(torch.from_numpy(raw).to(self.device), src=0)
+        return self.runner.predict(arrays)
+
+    def follow(self) -> int:
+        """A follower's loop: rounds until rank 0's stop. Returns 0."""
+        while True:
+            op = self.round()
+            if op == OP_STOP:
+                return 0
+            if op == OP_PREDICT:
+                buf = torch.empty(self._nbytes, dtype=torch.uint8, device=self.device)
+                dist.broadcast(buf, src=0)
+                self.runner.predict(self._unpack(buf.cpu().numpy()))
+
+    def _unpack(self, raw: np.ndarray) -> dict:
+        out, off = {}, 0
+        for k, dtype, shape in self._spec:
+            n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            out[k] = raw[off:off + n].view(dtype).reshape(shape)
+            off += n
+        return out
+
+    def stop(self) -> None:
+        """Rank 0: release the followers."""
+        self.round(OP_STOP)
+
+
 class ServeApp:
     """Runner, batcher, metrics and the device worker thread. Socket-free
-    (tests drive `handle_predict` directly); the HTTP servers call it."""
+    (tests drive `handle_predict` directly); the HTTP servers call it.
+    With `link` (rank 0 of a serve world) the worker drives the world."""
 
     def __init__(self, cfg: Config, runner: ServeRunner,
-                 metrics: Optional[ServeMetrics] = None):
+                 metrics: Optional[ServeMetrics] = None, link: Optional[MeshLink] = None):
         self.cfg = cfg
         self.runner = runner
+        self.link = link
+        self.fatal: Optional[BaseException] = None  # a serve world's failed collective
         scfg = cfg.serve
         self.metrics = metrics or ServeMetrics(
             scfg.metrics_path, every_s=scfg.metrics_every_s, batch_size=scfg.max_batch,
@@ -132,12 +302,26 @@ class ServeApp:
 
     # ------------------------------------------------------- device worker
     def _worker_loop(self) -> None:
+        try:
+            self._serve_batches()
+        except Exception as e:  # noqa: BLE001 — a serve world's collective failed
+            if self.link is None:
+                raise
+            self.fatal = e
+            print(f"serve: the serve world failed ({type(e).__name__}: {e})", file=sys.stderr)
+
+    def _serve_batches(self) -> None:
         max_nnz = self.cfg.data.max_nnz
+        link = self.link
         while True:
             group = self.batcher.take(timeout=0.1)
             if group is None:
                 if self._stop.is_set():
+                    if link is not None:
+                        link.stop()
                     return
+                if link is not None:
+                    link.round()  # idle tick: reload readiness and swaps
                 # idle tick: windows still flush on schedule
                 gen = self.runner.generation
                 if gen is not None:
@@ -150,12 +334,16 @@ class ServeApp:
             rung = pick_rung(sum(r.num_rows for r in group), self._rungs)
             try:
                 arrays, spans = assemble_batch(group, rung, max_nnz)
-                p, gen = self.runner.predict(arrays)
+                p, gen = (self.runner.predict(arrays) if link is None
+                          else link.predict(arrays))
             except Exception as e:  # noqa: BLE001 — fail this batch's futures,
-                # keep the worker for the next window
+                # keep the worker for the next window (in a serve world the
+                # ranks may be out of step: the worker ends)
                 for req in group:
                     if not req.future.done():
                         req.future.set_exception(e)
+                if link is not None:
+                    raise
                 continue
             t_done = time.perf_counter()
             if gen.gen != self._first_served_gen:
@@ -466,18 +654,50 @@ def make_unix_server(app: ServeApp, path: str) -> _UnixHTTPServer:
     return _UnixHTTPServer(path, _make_handler(app))
 
 
-def serve_main(cfg: Config, device="cuda", ready_out=None) -> int:
+def follow_main(cfg: Config, device, mesh) -> int:
+    """A serve world's rank above 0: load the step rank 0 serves, then
+    follow its headers until its stop (returns 0). SIGTERM and SIGINT are
+    ignored: rank 0's stop ends the loop after its drain."""
+    runner = ServeRunner(cfg, device=device, mesh=mesh)
+    link = MeshLink(runner)
+    gen = link.load_agreed()
+    print(f"serve: rank {link.rank} follows rank 0 (step {gen.step}) on {runner.device}",
+          file=sys.stderr)
+    prev = {s: signal.signal(s, lambda signum, frame: None)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        return link.follow()
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+
+
+def serve_main(cfg: Config, device="cuda", ready_out=None, mesh=None) -> int:
     """`python -m xflow_tpu_torch serve`: load -> warm up -> watch ->
     serve until SIGTERM/SIGINT, then drain and return 0. Once the
     sockets listen, one JSON line goes to `ready_out` (default stdout):
-    {serving, step, generation, pid, host, port[, unix_socket], device}.
-    Raises when no checkpoint loads."""
-    runner = ServeRunner(cfg, device=device)
-    gen = runner.load()
-    app = ServeApp(cfg, runner)
+    {serving, step, generation, pid, host, port[, unix_socket], device[,
+    world]}. Raises when no checkpoint loads. With `mesh` (a joined
+    world) rank 0 serves through the world and the other ranks follow
+    (`follow_main`); rank 0 returns 1 if the world fails."""
+    if cfg.serve.port < 0 and not cfg.serve.unix_socket:
+        # a world's ranks all see it, before any of them loads
+        print("serve: nothing to listen on (serve.port=-1 and no serve.unix_socket)",
+              file=sys.stderr)
+        return 2
+    if mesh is not None and dist.get_rank() != 0:
+        return follow_main(cfg, device, mesh)
+    runner = ServeRunner(cfg, device=device, mesh=mesh)
+    link = None
+    if mesh is None:
+        gen = runner.load()
+    else:
+        link = MeshLink(runner)
+        gen = link.load_agreed()
+    app = ServeApp(cfg, runner, link=link)
     if app.tracer.enabled:
         runner.span_sink = app.metrics.appender
-    n = runner.warmup()
+    n = runner.warmup(link.predict if link is not None else None)
     print(f"serve: warmed up {n} ladder rung(s) on {runner.device}", file=sys.stderr)
     app.metrics.event("start", generation=gen.gen, step=gen.step)
     try:
@@ -485,22 +705,23 @@ def serve_main(cfg: Config, device="cuda", ready_out=None) -> int:
         stagger_s = float(os.environ.get("XFLOW_RELOAD_STAGGER_S", 0) or 0)
     except ValueError:
         stagger_s = 0.0
+    on_reload = lambda g: app.metrics.event("reload", generation=g.gen, step=g.step)  # noqa: E731
+    on_failed = lambda: app.metrics.event("reload_failed")  # noqa: E731
+    if link is not None:
+        link.on_reload, link.on_failed = on_reload, on_failed
     watcher = CheckpointWatcher(
         runner,
         poll_s=cfg.serve.reload_poll_s,
-        on_reload=lambda g: app.metrics.event("reload", generation=g.gen, step=g.step),
-        on_failed=lambda: app.metrics.event("reload_failed"),
+        on_reload=on_reload,
+        on_failed=on_failed,
         stagger_s=stagger_s,
+        notice=link.want if link is not None else None,
     )
     servers = []
     if cfg.serve.port >= 0:
         servers.append(make_http_server(app, cfg.serve.host, cfg.serve.port))
     if cfg.serve.unix_socket:
         servers.append(make_unix_server(app, cfg.serve.unix_socket))
-    if not servers:
-        print("serve: nothing to listen on (serve.port=-1 and no serve.unix_socket)",
-              file=sys.stderr)
-        return 2
     app.start()
     watcher.start()
     for srv in servers:
@@ -513,10 +734,13 @@ def serve_main(cfg: Config, device="cuda", ready_out=None) -> int:
         ready["unix_socket"] = cfg.serve.unix_socket
     dev = runner.device
     ready["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
+    if mesh is not None:
+        ready["world"] = dist.get_world_size()
     print(json.dumps(ready), file=ready_out or sys.stdout, flush=True)
 
+    rc = 0
     try:
-        wait_for_signal()
+        rc = wait_for_signal(lambda: 1 if app.fatal is not None else None) or 0
     finally:
         print("serve: shutting down (draining queued requests)", file=sys.stderr)
         for srv in servers:
@@ -530,4 +754,4 @@ def serve_main(cfg: Config, device="cuda", ready_out=None) -> int:
                 os.unlink(cfg.serve.unix_socket)
             except OSError:
                 pass
-    return 0
+    return rc

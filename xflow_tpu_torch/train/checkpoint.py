@@ -211,19 +211,23 @@ def _fused_alias(lookup, tbl: str, tables: dict) -> Optional[np.ndarray]:
     return None
 
 
-def _walk_tiers(dirs: list, load) -> tuple:
+def _walk_tiers(dirs: list, load, only_step: Optional[int] = None) -> tuple:
     """(load(dir, step), step, dir) for the newest committed step that
     loads, walking the union of the committed steps of `dirs` (the
     primary tier first, then the replica) newest first, and within a
-    step the tiers in order. A candidate that fails (digest mismatch,
-    damaged or missing file, wrong shapes) is logged with its reason and
-    skipped. Raises FileNotFoundError when no tier holds a committed
-    step, RuntimeError listing every failure when none loads."""
+    step the tiers in order; `only_step` walks that one step's tiers. A
+    candidate that fails (digest mismatch, damaged or missing file, wrong
+    shapes) is logged with its reason and skipped. Raises
+    FileNotFoundError when no tier holds a committed step (the step),
+    RuntimeError listing every failure when none loads."""
     by_dir = {d: set(committed_steps(d)) for d in dirs}
     steps = sorted(set().union(*by_dir.values()), reverse=True)
+    if only_step is not None:
+        steps = [s for s in steps if s == only_step]
     where = " or ".join(repr(d) for d in dirs)
     if not steps:
-        raise FileNotFoundError(f"no committed checkpoint under {where}")
+        what = "checkpoint" if only_step is None else f"step {only_step}"
+        raise FileNotFoundError(f"no committed {what} under {where}")
     errors = []
     for step in steps:
         for d in dirs:
@@ -261,15 +265,18 @@ def restore_step_tables(ckpt_dir: str, step: int, shapes: dict, verify: str = "a
 
 
 def restore_tiered(ckpt_dir: str, shapes: dict, verify: str = "auto",
-                   replica_dir: Optional[str] = None) -> tuple[dict, int, str]:
+                   replica_dir: Optional[str] = None,
+                   step: Optional[int] = None) -> tuple[dict, int, str]:
     """Tables ({name: logical shape} -> {name: array}) of the newest
     committed step that loads across the primary `ckpt_dir` and the
     tier-2 `replica_dir` (`train.ckpt_replica_dir`; None or "" = none):
     a digest-poisoned primary step loads from the replica before the
-    walk falls back to an older step. Returns (tables, step, the dir it
-    loaded from), so sidecars are read from the same tier."""
+    walk falls back to an older step. `step` restores that step alone
+    (from either tier). Returns (tables, step, the dir it loaded from),
+    so sidecars are read from the same tier."""
     return _walk_tiers(_tiers(ckpt_dir, replica_dir),
-                       lambda d, step: restore_step_tables(d, step, shapes, verify))
+                       lambda d, s: restore_step_tables(d, s, shapes, verify),
+                       only_step=step)
 
 
 def _tiers(ckpt_dir: str, replica_dir: Optional[str]) -> list:

@@ -58,11 +58,14 @@ The multi-slice tier (`sync.mode`, `parallel/multislice.py`): every
 `sync.every_steps` steps a `SliceSyncer` round exchanges table deltas
 with the other slices (a kind="sync" record and a `slice_sync` span),
 and a final round runs at the end of the data; a relaunched slice first
-adopts the freshest snapshot. Off, the loop is what it was.
+adopts the freshest snapshot. A slice may be a mesh: every rank calls
+the round, the slice's rank 0 runs it. Off, the loop is what it was.
 
 `evaluate` is the JAX one on one process: exact, or bucketed
 (`train.eval_buckets`; a streaming pass takes 65,536 under auto) with
-the decayed window, either writing `pred_0_<block>.txt` rows.
+the decayed window, either writing `pred_0_<block>.txt` rows, over
+every test shard `assign_shards` gives one member of the shard set in
+play (after an elastic resume from a larger world, all of them).
 
 On a mesh (`Trainer(cfg, device, mesh)`, `parallel/`): each rank
 drives one device; the engine follows the JAX trainer's choice
@@ -106,7 +109,6 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.data import pipeline
-from xflow_tpu_torch.data.libffm import shard_path
 from xflow_tpu_torch.evaluate import (
     HostDedup,
     batch_arrays,
@@ -369,14 +371,13 @@ class Trainer:
         # the multi-slice sync tier (None when off: the loop is unchanged)
         self._syncer = None
         if cfg.sync.mode != "off":
-            if mesh is not None:
-                raise ValueError("sync.mode: the multi-slice tier runs slices of one device "
-                                 "each; it is not taken over on a mesh")
             from xflow_tpu_torch.parallel.multislice import SliceSyncer
             from xflow_tpu_torch.telemetry import resolve_num_slices, resolve_slice
 
+            # a slice may be a mesh: its rank 0 runs the rounds for it
             self._syncer = SliceSyncer(cfg.sync, slice_id=resolve_slice() or 0,
-                                       num_slices=resolve_num_slices())
+                                       num_slices=resolve_num_slices(), mesh=mesh,
+                                       layout=self._layout or "full")
         self._health = HealthMonitor(mode=health_mode(cfg),
                                      ema_decay=cfg.train.health_ema_decay,
                                      num_slots=cfg.num_slots)
@@ -1152,8 +1153,10 @@ class Trainer:
     # --------------------------------------------------------------- evaluate
     def evaluate(self, test_path: Optional[str] = None, dump: Optional[bool] = None,
                  block: int = 0, streaming: bool = False) -> tuple[float, float]:
-        """(auc, logloss) of the live tables on `test_path` (by default the
-        rank-0 shard of data.test_path); logloss keeps the reference's
+        """(auc, logloss) of the live tables on `test_path` (by default
+        every shard of data.test_path that `assign_shards` gives one
+        member: shard 0 on a fresh run, the whole set in play after an
+        elastic resume from a larger world); logloss keeps the reference's
         sign. Exact (rank-sum AUC) unless train.eval_buckets asks for
         buckets, or `streaming` (an `eval_every` pass) under auto, which
         takes 65,536. `dump` (default train.pred_dump) writes
@@ -1166,7 +1169,8 @@ class Trainer:
             buckets = 65536
         if self.mesh is not None:
             return self._evaluate_mesh(test_path, buckets, dump, block)
-        path = test_path or shard_path(cfg.data.test_path, 0)
+        path = test_path or pipeline.assign_shards(cfg.data.test_path, 0, 1,
+                                                   self._num_shards)
         if buckets:
             return self._evaluate_bucketed(path, buckets, dump, block)
         with self._pred_file(dump, block) as fout:
@@ -1227,7 +1231,7 @@ class Trainer:
             return auc_logloss(np.concatenate(pctrs), np.concatenate(labels))
         return self._fold_window(st, ll_sum, n_rows, buckets)
 
-    def _evaluate_bucketed(self, path: str, num_buckets: int, dump: bool = False,
+    def _evaluate_bucketed(self, path, num_buckets: int, dump: bool = False,
                            block: int = 0) -> tuple[float, float]:
         """The streaming pass: score-bucket histograms and the summed
         log-likelihood, folded into the decayed window under
