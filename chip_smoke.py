@@ -37,7 +37,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    floor of 1e-2 of its largest magnitude for the gradient z' implies,
    and the new w within 1e-3 of the FTRL rule on (z', n') (the gradient
    is far under the fixed floor; see `ftrl_errs`), and w of
-   never-touched slots bitwise kept. Then one fused train step from that
+   never-touched slots bitwise kept; #3's non-finite count on a copy of the
+   cotangent with NaN and +-Inf placed equal to torch's count of its
+   outputs and of its plain version's, and 0 on the clean one
+   (`check_nonfinite_count`). Then one fused train step from that
    state on the card and on the CPU: loss within 1e-5 relative, w, n, z
    as for the fused kernel. For every kernel, CUDA-event times of the
    kernel, its plain version and one PyTorch library call (or
@@ -86,7 +89,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the scatters on a skewed plan at the same S and Np (one slot in every
    row's first field: a run of 65,536, over the 4 stacked buffers for the
    multi-buffer one), bitwise against the CPU plain version and across two
-   launches, with their times (`hot_ms`, not a target). Then one product
+   launches, with their times (`hot_ms`, not a target), and #3 on the
+   flat one at K = 11 from a seeded state, bitwise across two launches and
+   by `ftrl_errs` against its plain version on the CPU (g and w_rule
+   gated, w, n, z reported: the plain version's float32 sum of the 65,536
+   terms is itself off by up to 5e-3), bf16 off and on,
+   with `hot_ms`, `hot_library_ms` (the composition) and `hot_bound_ms`;
+   #3's bound and composition time on the product plan too. Then one product
    step (two-pass and fused) and one segment step on the card and on the
    CPU, plain and plus-one factor forms, as in phase 5;
 11. the MVM main paths through `python -m xflow_tpu_torch train --model
@@ -861,6 +870,7 @@ def check_scatters(d_occ, ss, wo, w, n, z, hp, what: str) -> tuple[dict, dict]:
         g = torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T)
         return update_one(w, n, z, g, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
 
+    count = check_nonfinite_count(d_occ, ss, wo, w, n, z, hp, what)
     f_bound, f_by = bound_ms(
         6 * S * K * 4 + K * np_ * 4 + np_ * 4 + wo.numel() * 4,
         K * np_ + FTRL_OPS_PER_ELEMENT * S * K,
@@ -870,10 +880,48 @@ def check_scatters(d_occ, ss, wo, w, n, z, hp, what: str) -> tuple[dict, dict]:
         "ms": cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp)),
         "plain_ms": cuda_ms(lambda: st.scatter_ftrl_plain(d_occ, ss, w, n, z, K, hp)),
         "bound_ms": f_bound, "bound_by": f_by, "library_ms": cuda_ms(composition),
+        "nonfinite_check": count,
     }
     print(f"# scatter_ftrl{what} library_ms is a composition (index_add_ + the torch FTRL "
           f"expression): {ftrl['library_ms']:.4f} ms", flush=True)
     return scatter, ftrl
+
+
+def check_nonfinite_count(d_occ, ss, wo, w, n, z, hp, what: str) -> dict:
+    """#3's non-finite count on a copy of the cotangent with NaN, +Inf and
+    -Inf placed in three plan positions of real slots (and a NaN at a pad):
+    the kernel's count must equal torch's count of the outputs it wrote
+    and of its plain version's on the same inputs (the pattern too), and
+    0 on the clean cotangent. Returns both counts."""
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    S, K = w.shape
+    bad_d = d_occ.clone()
+    real = torch.nonzero(ss < S - 1).flatten()
+    at = real[torch.tensor([0, real.numel() // 2, real.numel() - 1], device=real.device)]
+    bad_d[0, at[0]] = float("nan")
+    bad_d[K - 1, at[1]] = float("inf")
+    bad_d[K // 2, at[2]] = -float("inf")
+    bad_d[0, ss.numel() - 1] = float("nan")  # a pad: slot S - 1, mask 0 on the path
+    clean = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    st.scatter_ftrl_cuda(d_occ, ss, wo, w, n, z, K, hp, False, clean)
+    got_count = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    got = st.scatter_ftrl_cuda(bad_d, ss, wo, w, n, z, K, hp, False, got_count)
+    want_count = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    want = st.scatter_ftrl_plain(bad_d, ss, w, n, z, K, hp, False, want_count)
+    torch.cuda.synchronize()
+    torch_count = sum(int((~torch.isfinite(o)).sum()) for o in got)
+    same = all(torch.equal(torch.isfinite(a), torch.isfinite(b)) for a, b in zip(got, want))
+    if not (int(clean) == 0 and int(got_count) == torch_count == int(want_count) > 0 and same):
+        fail(f"scatter_ftrl{what}: non-finite count {int(got_count)} (clean {int(clean)}), "
+             f"torch's count of its outputs {torch_count}, the plain version's "
+             f"{int(want_count)}, the same entries {same}")
+    print(f"# scatter_ftrl{what} non-finite count: {int(got_count)} on the cotangent with NaN "
+          f"and +-Inf placed (torch's count of the outputs {torch_count}, the plain "
+          f"version's {int(want_count)}), 0 on the clean one", flush=True)
+    return {"count": int(got_count), "torch": torch_count}
 
 
 def check_train_kernels(cfg, path) -> list:
@@ -1452,6 +1500,7 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
     from xflow_tpu_torch.models.mvm import mvm_product_channels
     from xflow_tpu_torch.ops import sorted_table as st
     from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.optim.ftrl import update_one
     from xflow_tpu_torch.train.step import fused_cotangent, make_train_step
 
     arrays = to_device(batch_arrays(batch, mcfg), DEVICE)
@@ -1535,6 +1584,18 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
     out["scatter_sorted"]["bound_ms"], _ = bound_ms(
         S * K * 4 + K * ss.numel() * 4 + ss.numel() * 4 + wo.numel() * 4, K * ss.numel())
     out["scatter_ftrl"]["ms"] = cuda_ms(lambda: st.scatter_ftrl_cuda(d_occ, ss, wo, v, n, z, K, hp))
+    out["scatter_ftrl"]["bound_ms"], _ = bound_ms(
+        6 * S * K * 4 + K * ss.numel() * 4 + ss.numel() * 4 + wo.numel() * 4,
+        K * ss.numel() + FTRL_OPS_PER_ELEMENT * S * K)
+
+    def composition():
+        g = torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d_occ[:K].T)
+        return update_one(v, n, z, g, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
+
+    out["scatter_ftrl"]["library_ms"] = cuda_ms(composition)
+    print(f"# scatter_ftrl on the MVM product plan: {out['scatter_ftrl']['ms']:.4f} ms, bound "
+          f"{out['scatter_ftrl']['bound_ms']:.4f} ms, the composition "
+          f"{out['scatter_ftrl']['library_ms']:.4f} ms", flush=True)
 
     # --- the product step, fused against two-pass (the `auto` rule keeps
     # MVM two-pass, as measured on the TPU)
@@ -1549,15 +1610,20 @@ def check_mvm_product_kernels(mcfg, batch) -> dict:
 
 
 def check_hot_scatters() -> dict:
-    """#4 and #6 on a skewed plan at the main paths' S and Np: B x F slots
-    drawn uniformly from the table (seeded), except that one slot takes
-    every row's first field, a run of B = 65,536 occurrences (16,384 in each
-    of #6's 4 stacked buffers). #4 at FM's K = 11 on the flat plan, #6 at
-    MVM's K = 10 on the stacked one, d ~ N(0, 1) masked as the plan's pads
-    are: bitwise against the CPU plain version and across two launches, bf16
-    off and on. Returns {name: {hot_ms, hot_library_ms}}: the times on this
-    plan (a hot slot's terms are added one at a time, so its run is serial;
-    not a target), and zeros + index_add_ on it."""
+    """#4, #6 and #3 on a skewed plan at the main paths' S and Np: B x F
+    slots drawn uniformly from the table (seeded), except that one slot
+    takes every row's first field, a run of B = 65,536 occurrences (16,384
+    in each of #6's 4 stacked buffers). #4 at FM's K = 11 on the flat plan,
+    #6 at MVM's K = 10 on the stacked one, d ~ N(0, 1) masked as the plan's
+    pads are: bitwise against the CPU plain version and across two
+    launches, bf16 off and on. #3 at K = 11 on the flat plan from a seeded
+    FTRL state (`seeded_state`): bitwise across two launches and by
+    `ftrl_errs` against its plain version on the CPU (g and w_rule gated),
+    bf16 off and on.
+    Returns {name: {hot_ms, hot_library_ms}}: the times on this plan (#4's
+    and #6's hot run is summed one term at a time, serially; #3 splits it),
+    and zeros + index_add_ on it (for #3 the composition with the torch
+    FTRL expression), with #3's bound."""
     import numpy as np
     import torch
 
@@ -1602,7 +1668,60 @@ def check_hot_scatters() -> dict:
         print(f"# {name} on the hot-slot plan ({ss_np.size} positions, a run of {BATCH} at "
               f"slot {HOT_SLOT}): bitwise, bf16 off and on; {out[name]['hot_ms']:.4f} ms, "
               f"zeros + index_add_ {out[name]['hot_library_ms']:.4f} ms", flush=True)
+    out["scatter_ftrl"] = check_hot_ftrl(flat, rng, S)
     return out
+
+
+def check_hot_ftrl(flat, rng, S: int) -> dict:
+    """#3 on the hot-slot plan (see `check_hot_scatters`) at FM's K = 11."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import FTRLConfig
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.optim.ftrl import update_one
+
+    K, hp = 1 + V_DIM, FTRLConfig()
+    ss_np = flat.sorted_slots
+    d_np = rng.standard_normal((st._k8(K), ss_np.size), dtype=np.float32)
+    d_np[:K] *= flat.sorted_mask[None, :]
+    d_cpu, ss_cpu = torch.from_numpy(d_np), torch.from_numpy(np.ascontiguousarray(ss_np))
+    d, ss = d_cpu.to(DEVICE), ss_cpu.to(DEVICE)
+    off = torch.from_numpy(np.ascontiguousarray(flat.win_off)).to(DEVICE)
+    tables, opt = seeded_state("wv", K, 0.01, SEED + 6)
+    w, n, z = tables["wv"], opt["wv"]["n"], opt["wv"]["z"]
+    prev_cpu = (w.cpu(), n.cpu(), z.cpu())
+    for bf16 in (False, True):
+        got = st.scatter_ftrl_cuda(d, ss, off, w, n, z, K, hp, bf16)
+        again = st.scatter_ftrl_cuda(d, ss, off, w, n, z, K, hp, bf16)
+        want = st.scatter_ftrl_plain(d_cpu, ss_cpu, *prev_cpu, K, hp, bf16)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"scatter_ftrl on the hot-slot plan (bf16={bf16}) gave different bits on two "
+                 "launches")
+        what = f"scatter_ftrl on the hot-slot plan (bf16={bf16}) against its plain version"
+        # g and w_rule gated, w, n, z reported (see `ftrl_errs`): the plain
+        # version sums the hot run's 65,536 unit terms one after another in
+        # float32, off by up to 5e-3 from the exact sum, and one channel's
+        # sum here is only -5.1, where that moves w' by 1e-3 of itself
+        errs = ftrl_errs(got, want, prev_cpu, hp, what, leaves=False)
+        print(f"# {what}: max err {errs} (tolerance {FTRL_RTOL}); bitwise across two launches",
+              flush=True)
+    ss_l = ss.long()
+
+    def composition():
+        g = torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d[:K].T)
+        return update_one(w, n, z, g, hp.alpha, hp.beta, hp.lambda1, hp.lambda2)
+
+    np_ = ss.numel()
+    bound, _ = bound_ms(6 * S * K * 4 + K * np_ * 4 + np_ * 4 + off.numel() * 4,
+                        K * np_ + FTRL_OPS_PER_ELEMENT * S * K)
+    hot = {"hot_ms": cuda_ms(lambda: st.scatter_ftrl_cuda(d, ss, off, w, n, z, K, hp), reps=10),
+           "hot_library_ms": cuda_ms(composition, reps=5, warmup=1), "hot_bound_ms": bound}
+    print(f"# scatter_ftrl on the hot-slot plan ({np_} positions, a run of {BATCH} at slot "
+          f"{HOT_SLOT}): {hot['hot_ms']:.4f} ms, bound {bound:.4f} ms, the composition "
+          f"{hot['hot_library_ms']:.4f} ms", flush=True)
+    return hot
 
 
 def mvm_steps_card_vs_cpu(mcfg, batch) -> None:
@@ -4412,7 +4531,7 @@ CAPI_ROWS = ("0:f0x 1:f1y 2:f2z", "1\t3:abc 7:q 12:r", "4:s 5:t 6:u 17:v")
 MESH_SYNC_BATCHES = 4  # a mesh slice's shard: 4 steps, one round (the final)
 # the legs' budgets (s) and the whole smoke's prediction, written before the run
 PHASE20_BUDGET_S = {"serve_world": 45.0, "c_api": 60.0, "mesh_sync": 45.0}
-SMOKE_PREDICTED_S = (1000.0, 1080.0)
+SMOKE_PREDICTED_S = (840.0, 900.0)
 
 
 def free_port() -> int:

@@ -16,7 +16,14 @@ empty in a window next to one with a long span there, at K = 5, 10, 11
 and 73 (the MVM, FM and FFM widths). The multi-buffer kernels (#5 gather, #6
 scatter) run on stacked plans: a slot every buffer shares, windows empty
 in some buffers, an all-pad buffer, a hot slot of 2,048 occurrences
-across the buffers, both table ends. The row sum (#2) runs at ch = 24,
+across the buffers, both table ends. The fused scatter + FTRL (#3) runs
+on the scatters' plans and on its own edges at K = 5, 10, 11 and 73, bf16
+off and on: runs longer than a 32-position piece and than a staging
+chunk, the 65,536-occurrence hot slot, windows with no occurrence, and
+slots below 0 and at or above S; each bitwise across two launches, w kept
+bitwise on never-touched entries, and its non-finite count equal to
+torch's count of its outputs and to its plain version's (0 on clean
+data; NaN and +-Inf placed in d, w, n and z by one test). The row sum (#2) runs at ch = 24,
 32, 104, 128 and 136 (one to five channel groups) and at ch 464 (over
 the old shared-memory limit), with rows out of range and whole zero
 quads, refuses a ch that is not a multiple of 4, and FM's forward runs at
@@ -42,7 +49,11 @@ Tolerances:
   slot's run in plan order from 0, buffer after buffer), and bitwise
   across two launches;
 - scatter + FTRL: 1e-3 relative over a 1e-4 floor (kernel_parity's
-  scatter_ftrl_*), w of never-touched entries bitwise;
+  scatter_ftrl_*) where finite, non-finite entries at the same places,
+  w of never-touched entries bitwise. #3 sums a run as a fixed tree and
+  the plain version in plan order; on #3's own crafted plans d holds
+  multiples of 2^-6 in [-1, 1], whose sums are exact in any order (see
+  `_dyadic`);
 - row sum: 1e-4 relative over a 1e-2 floor (float reductions reorder it)
   and, at the widths' test, the float32 reorder bound too; the lab's row
   sum within that bound alone (`bench_lab.reorder_err` < 1: a row of many
@@ -163,27 +174,126 @@ def test_scatter_kernel_bitwise_equal_to_plain_at_ffm_width(dev, case, k, bf16):
     assert reorder_err(got, card, terms, ss, S) < 1
 
 
-@pytest.mark.parametrize("case, k", CASES + FFM_CASES)
-@pytest.mark.parametrize("bf16", [False, True])
-def test_scatter_ftrl_kernel_matches_plain(dev, case, k, bf16):
-    plan, d = _inputs(case, k, seed=1)
-    rng = np.random.default_rng(2)
+def _ftrl_state(k, seed=2):
+    """(w, n, z) [S, k] on the CPU; n and z 0 on the upper half, whose
+    never-touched entries must keep w bitwise."""
+    rng = np.random.default_rng(seed)
     w = torch.from_numpy((rng.standard_normal((S, k)) * 0.01).astype(np.float32))
     n = torch.from_numpy((np.abs(rng.standard_normal((S, k))) * 0.1).astype(np.float32))
     z = torch.from_numpy((rng.standard_normal((S, k)) * 1e-4).astype(np.float32))
     n[S // 2:] = 0.0
     z[S // 2:] = 0.0
+    return w, n, z
+
+
+def _check_ftrl_kernel(dev, ss, wo, d, k, bf16, state=None):
+    """#3 on one plan against its plain version: w, n, z within the FTRL
+    tolerance, bitwise across two launches, w of never-touched entries
+    kept bitwise, fresh outputs, and its non-finite count equal to
+    torch's count of its outputs and to the plain version's. Returns the
+    kernel's outputs."""
+    w, n, z = _ftrl_state(k) if state is None else state
     hp = FTRLConfig()
-    ss, wo = torch.from_numpy(plan.sorted_slots), torch.from_numpy(plan.win_off)
-    got = st.scatter_ftrl_cuda(d.to(dev), ss.to(dev), wo.to(dev), w.to(dev), n.to(dev),
-                               z.to(dev), k, hp, bf16)
-    want = st.scatter_ftrl_plain(d, ss, w, n, z, k, hp, bf16)
+    args = [t.to(dev) for t in (d, ss, wo, w, n, z)]
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = st.scatter_ftrl_cuda(*args, k, hp, bf16, count)
+    again = st.scatter_ftrl_cuda(*args, k, hp, bf16)
+    want_count = torch.zeros(1, dtype=torch.int32)
+    want = st.scatter_ftrl_plain(d, ss, w, n, z, k, hp, bf16, want_count)
     torch.cuda.synchronize()
-    for name, a, b in zip("wnz", got, want):
-        assert _rel(a, b, FTRL_FLOOR) <= FTRL_RTOL, name
+    for a, b in zip(got, again):  # bitwise, NaNs included
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    finite = [torch.isfinite(b) for b in want]
+    for name, a, b, f in zip("wnz", got, want, finite):
+        assert torch.equal(torch.isfinite(a).cpu(), f), name
+        assert _rel(a.cpu()[f], b[f], FTRL_FLOOR) <= FTRL_RTOL, name
+    torch_count = sum(int((~torch.isfinite(o)).sum()) for o in got)
+    assert int(count) == torch_count == int(want_count)
     lazy = (st.scatter_sorted_plain(d, ss, S, k, bf16) == 0) & (n == 0)
     assert lazy.any() and torch.equal(got[0].cpu()[lazy], w[lazy])
-    assert all(o.data_ptr() != i.data_ptr() for o, i in zip(got, (w, n, z)))
+    assert all(o.data_ptr() != i.data_ptr() for o, i in zip(got, args[3:]))
+    return got
+
+
+@pytest.mark.parametrize("case, k", CASES + FFM_CASES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_ftrl_kernel_matches_plain(dev, case, k, bf16):
+    plan, d = _inputs(case, k, seed=1)
+    ss, wo = torch.from_numpy(plan.sorted_slots), torch.from_numpy(plan.win_off)
+    _check_ftrl_kernel(dev, ss, wo, d, k, bf16)
+
+
+def _sorted_plan(slots, num_slots=S):
+    """(sorted_slots, win_off) of flat slots that may lie outside [0,
+    num_slots) (the planners refuse those): sorted, padded to a multiple
+    of 4 at the last slot, windows by searchsorted."""
+    ss = np.sort(np.asarray(slots, np.int32).ravel())
+    ss = np.concatenate([ss, np.full(-len(ss) % 4 + 4, num_slots - 1, np.int32)])
+    ss.sort()
+    wo = np.searchsorted(ss, np.arange(0, num_slots + 1, st.WINDOW)).astype(np.int32)
+    return torch.from_numpy(ss), torch.from_numpy(wo)
+
+
+def _ftrl_plan(case, rng):
+    """Crafted (sorted_slots, win_off) for #3's own edges: its tiles (256
+    slots at k <= 11, 32 at k = 73), 32-position pieces and 64- to
+    512-position chunks."""
+    if case == "long_run":  # runs longer than a piece and than a chunk, beside short ones
+        flat = np.concatenate([np.full(1500, 300), np.full(45, 301), np.full(33, 299),
+                               np.full(700, 4100), rng.integers(0, S, 3000)])
+    elif case == "hot_65536":  # the chip smoke's hot slot: a run of 65,536
+        flat = np.concatenate([np.full(65536, 12345), rng.integers(0, S, 65536)])
+    elif case == "empty_windows":  # windows 1, 2 and 4..7 hold no occurrence
+        flat = np.concatenate([rng.integers(0, 2048, 900), rng.integers(6144, 8192, 900)])
+    elif case == "out_of_range":  # slots below 0 and at or above S, dropped
+        flat = np.concatenate([np.full(37, -3), np.full(5, -1), rng.integers(0, S, 4000),
+                               np.full(41, S), np.full(7, S + 999)])
+    else:
+        raise ValueError(case)
+    return _sorted_plan(flat)
+
+
+FTRL_SHAPES = ("long_run", "hot_65536", "empty_windows", "out_of_range")
+
+
+def _dyadic(rng, k, np_):
+    """d [K8, Np] of multiples of 2^-6 in [-1, 1]: every float32 sum of up
+    to 2^17 of them is exact, in any order. #3 sums each run as a tree and
+    the plain version in plan order; on unit normals a run of 65,536 terms
+    sums to within (n - 1) 2^-24 sum |d| in each order, which FTRL
+    magnifies past its tolerance where the run's sum is near 0. Exact sums
+    leave no such slack: a lost or misrouted term shows."""
+    return torch.from_numpy((rng.integers(-64, 65, (st._k8(k), np_)) / 64.0).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", FTRL_SHAPES)
+@pytest.mark.parametrize("k", [5, 10, 11, 73])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_ftrl_kernel_on_crafted_spans(dev, case, k, bf16):
+    rng = np.random.default_rng(7)
+    ss, wo = _ftrl_plan(case, rng)
+    _check_ftrl_kernel(dev, ss, wo, _dyadic(rng, k, ss.shape[0]), k, bf16)
+
+
+@pytest.mark.parametrize("k", [5, 10, 11, 73])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_ftrl_kernel_counts_nonfinite(dev, k, bf16):
+    """NaN and +-Inf placed in d (a short run, the long run), w, n and z:
+    the kernel's count equals torch's count of its outputs and the plain
+    version's, and the finite entries agree."""
+    rng = np.random.default_rng(11)
+    ss, wo = _ftrl_plan("long_run", rng)
+    d = _dyadic(rng, k, ss.shape[0])
+    at = {int(v): int(np.searchsorted(ss.numpy(), v)) for v in (300, 4100)}
+    d[0, at[300] + 17] = float("nan")
+    d[k - 1, at[4100] + 5] = float("inf")
+    d[k - 1, at[4100] + 6] = -float("inf")
+    w, n, z = _ftrl_state(k, seed=12)
+    w[77, 0] = float("nan")
+    n[S - 5, k - 1] = float("inf")
+    z[S // 2 + 9, 0] = -float("inf")
+    got = _check_ftrl_kernel(dev, ss, wo, d, k, bf16, (w, n, z))
+    assert sum(int((~torch.isfinite(o)).sum()) for o in got) >= 4
 
 
 @pytest.mark.parametrize("case, k", CASES + FFM_CASES)

@@ -1,8 +1,7 @@
 // The staged walk of the windowed scatter-adds for Hopper (sm_90a):
 // kernels #4 (`scatter_sorted.cu`, one buffer) and #6
 // (`scatter_sorted_multi.cu`, nbuf buffers) launch the two kernels below.
-// (#3, `scatter_ftrl.cu`, keeps the search-and-sum walk of
-// `scatter_window.cuh`.)
+// (#3, `scatter_ftrl.cu`, streams the state through its own walk.)
 //
 // Contract: out[s, c] = sum of d[c, j] over positions j with slots[j] = s,
 // for 0 <= s < S and c < K, every element of out written; slots outside

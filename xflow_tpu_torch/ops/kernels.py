@@ -41,7 +41,7 @@ SIGNATURES = {
     ],
     "scatter_ftrl": [
         ("xf_scatter_ftrl",
-         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _F, _P]),
+         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _F, _P]),
     ],
     "gather_sorted_multi": [
         ("xf_gather_sorted_multi", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),

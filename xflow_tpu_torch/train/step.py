@@ -10,7 +10,10 @@ fused step (FTRL on a flat sorted plan: fused FM, MVM's product row
 side, or FFM's aligned hybrid) takes autograd only through the row
 side, from the gathered occurrence rows to the loss, and hands the
 occurrence cotangent to the one `scatter_ftrl_sorted` pass, so the
-[S, K] gradient never exists.
+[S, K] gradient never exists. Under the non-finite guard that pass also
+counts the non-finite entries it writes, and the guard reads that count
+with the loss in its one host read; the two-pass step's guard sweeps the
+updated leaves with `isfinite`.
 
 Masked padded rows contribute zero gradient; the loss mean divides by
 the number of real rows.
@@ -61,19 +64,26 @@ def _leaves(state: TrainState):
         yield from st.values()
 
 
-def guard_nonfinite(cfg: Config, state: TrainState, new_state: TrainState, metrics: dict):
+def guard_nonfinite(cfg: Config, state: TrainState, new_state: TrainState, metrics: dict,
+                    nonfinite=None):
     """Fold the non-finite update guard into one step's result:
     `update_ok` = the loss and every updated table/optimizer leaf are
     finite. On a bad step the pre-step tables and optimizer state ride
     through; the step counter still advances, so checkpoint names stay
     monotonic. The flag is read on the host here (one sync per step),
     which keeps the old or the new tensors as they are instead of
-    selecting between them element by element."""
+    selecting between them element by element. `nonfinite` is the fused
+    step's count of non-finite entries in the updated leaves (int32 [1],
+    counted by the scatter + FTRL pass that wrote them): with it, the
+    leaves are not swept again."""
     if not nonfinite_guard_on(cfg):
         return new_state, metrics
     ok = torch.isfinite(metrics["loss"])
-    for leaf in _leaves(new_state):
-        ok = ok & torch.isfinite(leaf).all()
+    if nonfinite is not None:
+        ok = ok & (nonfinite[0] == 0)
+    else:
+        for leaf in _leaves(new_state):
+            ok = ok & torch.isfinite(leaf).all()
     ok = bool(ok)
     if not ok:
         new_state = TrainState(state.tables, state.opt_state, new_state.step)
@@ -207,16 +217,20 @@ def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
 
 def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
     """`fused_cotangent`, then one scatter_ftrl_sorted pass over the table
-    ("wv" for FM and FFM, "v" for MVM)."""
+    ("wv" for FM and FFM, "v" for MVM). Returns (state, metrics, count):
+    under the guard, count is the pass's int32 [1] count of non-finite
+    w', n', z' entries (else None)."""
     from xflow_tpu_torch.ops.sorted_table import scatter_ftrl_sorted
 
     tname = "v" if cfg.model.name == "mvm" else "wv"
     table = state.tables[tname]
     loss, d_occ = fused_cotangent(table, batch, cfg)
     st = state.opt_state[tname]
+    count = (torch.zeros(1, dtype=torch.int32, device=table.device)
+             if nonfinite_guard_on(cfg) else None)
     w_new, n_new, z_new = scatter_ftrl_sorted(
         d_occ, batch["sorted_slots"], batch["win_off"], table, st["n"], st["z"],
-        table.shape[1], cfg.optim.ftrl, cfg.data.sorted_bf16,
+        table.shape[1], cfg.optim.ftrl, cfg.data.sorted_bf16, count,
     )
     new_state = TrainState({tname: w_new}, {tname: {"n": n_new, "z": z_new}}, state.step + 1)
     metrics = {"loss": loss, "rows": batch["row_mask"].sum()}
@@ -224,7 +238,7 @@ def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
         with torch.no_grad():
             metrics.update(health_norms(cfg, state.tables, new_state.tables,
                                         grad_sq={tname: (d_occ.float() ** 2).sum()}))
-    return new_state, metrics
+    return new_state, metrics, count
 
 
 def _two_pass_step(state: TrainState, batch: dict, model: Model, optimizer: Optimizer,
@@ -262,8 +276,8 @@ def make_train_step(model: Model, optimizer: Optimizer, cfg: Config) -> Callable
                  else "sorted_fields" not in batch)
         )
         if fuse and fusable:
-            new_state, metrics = _fused_sorted_step(state, batch, cfg)
-            return guard_nonfinite(cfg, state, new_state, metrics)
+            new_state, metrics, count = _fused_sorted_step(state, batch, cfg)
+            return guard_nonfinite(cfg, state, new_state, metrics, count)
         if fuse and cfg.optim.fused_scatter == "on":
             raise ValueError(
                 "optim.fused_scatter=on but this batch has no flat "
