@@ -88,12 +88,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    as in phases 4 and 5, and the product step's time fused and two-pass. Then
    the scatters on a skewed plan at the same S and Np (one slot in every
    row's first field: a run of 65,536, over the 4 stacked buffers for the
-   multi-buffer one), bitwise against the CPU plain version and across two
-   launches, with their times (`hot_ms`, not a target), and #3 on the
+   multi-buffer one), bitwise against the CPU plain version (which adds
+   the run's pieces in the kernels' order) and across two launches,
+   within the float32 reorder bound of plan order (that share and the
+   error reported), with their times (`hot_ms`, zeros + `index_add_`'s,
+   the bound), and #3 on the
    flat one at K = 11 from a seeded state, bitwise across two launches and
    by `ftrl_errs` against its plain version on the CPU (g and w_rule
-   gated, w, n, z reported: the plain version's float32 sum of the 65,536
-   terms is itself off by up to 5e-3), bf16 off and on,
+   gated, w, n, z reported: a float32 sum of the 65,536 unit terms is
+   itself off by up to 5e-3 in some orders), bf16 off and on,
    with `hot_ms`, `hot_library_ms` (the composition) and `hot_bound_ms`;
    #3's bound and composition time on the product plan too. Then one product
    step (two-pass and fused) and one segment step on the card and on the
@@ -140,10 +143,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the CPU and across two launches and #3 by `ftrl_errs`, bf16 off and
    on, at K = 73 (`check_gather`, `check_scatters`: their times, plain,
    library and bound under an `ffm` key of each kernel's entry). One
-   fused and one two-pass step card vs CPU as in phase 5, each launching
-   #1 and #3, or #1 and #4, once and nothing else; the first batch with
-   field 0 repeated in column 1 routes row-major (the FFM route counts,
-   `models/ffm.ROUTES`), launches nothing and matches the CPU step. Then
+   two-pass step card vs CPU as in phase 5 and one fused step on the
+   card against it (the same tolerances), launching #1 and #4, or #1 and
+   #3, once and nothing else; the first batch with field 0 repeated in
+   column 1 routes row-major (the FFM route counts, `models/ffm.ROUTES`),
+   launches nothing, moves the table and matches the CPU forward's loss
+   (its full step against the CPU's runs at the card tests' width). Then
    `train --model ffm` (2 epochs, fused: #1 and #3 once a step), a rate
    run over one epoch of the rate shard (`examples_per_sec`), one
    two-pass epoch (#1 and #4), every aligned batch on the aligned route;
@@ -243,8 +248,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    holds #1-#3 by kernel name, and the launches are exact (#1 and #2 40 +
    6 eval batches, #3 40, #4-#6 0). It prints the window split, the
    pipeline stages and verdict, and #1-#3's mean trace time on Zipf
-   batches beside their uniform times; then 1 epoch with the guard off
-   and 1 with the guard and every record off, their examples/s and split;
+   batches beside their uniform times; #4 (K = 11, flat) and #6 (K = 10,
+   4 stacked buffers) on the first Zipf batch's plans and the uniform
+   rate shard's first batch's, bitwise against their plain versions,
+   timed beside `zeros` + `index_add_` (`check_zipf_scatters`); then 1
+   epoch with the guard off and 1 with the guard and every record off,
+   their examples/s and split;
 18. the multi-device engines (`run_mesh`) as a world of one NCCL rank
    over a TCPStore on localhost (the machine holds one card, and NCCL
    puts no two ranks of a communicator on one device: a world of 2 here
@@ -258,9 +267,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (K = 73, 131,072 rows) as checked; #5 bit-exact and #6 bitwise
    against their plain versions on the fully-sharded buffer with `cap`'s
    pads (its compact wire dtypes crossing NCCL as bytes), with their
-   times; the overflow fallback: a batch with 9 hot fields overflows a
-   1 x 8 split's buffers at slack 2.0 (a 1 x 1 block holds every
-   occurrence and cannot), and `Trainer`'s per-batch agreement runs it
+   times, and for #6 `zeros` + `index_add_`'s and its bound; the
+   overflow fallback: a batch with 9 hot fields overflows a 1 x 8
+   split's buffers at slack 2.0 (a 1 x 1 block holds every occurrence
+   and cannot), and `Trainer`'s per-batch agreement runs it
    on the row-major sharded step (counted), as checked; and one epoch of
    `Trainer(cfg, mesh=mesh).fit()` over the rate shard (#2, #5, #6 once
    a step) beside the single-device two-pass epoch, examples/s each;
@@ -315,10 +325,12 @@ Before them, the whole smoke's time beside its prediction. The last
 three lines of standard output: the card line, the kernels JSON (each entry with `share_of_bound` = bound_ms / ms; the row sum's
 `widths` hold its entry at each of ch 24, 32, 104, 128 and 136; #1, #3
 and #4 carry their FFM figures and launches under `ffm`, #1-#3 their
-phase-17 trace time on Zipf batches and launches under `zipf`, #1, #2,
-#4, #5 and #6 their phase-18 launches under `mesh` (#2, #5, #6 the
-signal leg's under `mesh.signal`), with #5's and #6's times on the
-fully-sharded buffer, #1-#3 their phase-19 launches under `launch`: the
+phase-17 trace time on Zipf batches and launches under `zipf`, #4 and
+#6 their times on a phase-17 Zipf batch's plans and a uniform one's
+under `zipf`, #1, #2, #4, #5 and #6 their phase-18 launches under
+`mesh` (#2, #5, #6 the signal leg's under `mesh.signal`), with #5's and
+#6's times on the fully-sharded buffer (#6's library time and bound
+beside), #1-#3 their phase-19 launches under `launch`: the
 elastic resume's counts and each slice's traced kernel events, #1-#3
 the C client's traced events under `c_api_traced`, #2, #5, #6 the mesh
 slices' launches under `mesh.sync`; the object's `launch` key holds
@@ -952,7 +964,8 @@ def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True,
     """One train step on the host arrays `host` from the checkpoint under
     cfg.train.checkpoint_dir (or `restored`, as in `restored_state`), on
     the card and on the CPU: the loss within LOSS_RTOL, the table's (w, n,
-    z) by `ftrl_errs` (`leaves` and `flips` as there)."""
+    z) by `ftrl_errs` (`leaves` and `flips` as there). Returns the card's
+    (state, metrics)."""
     from xflow_tpu_torch.evaluate import to_device
     from xflow_tpu_torch.models import get_model
     from xflow_tpu_torch.optim import get_optimizer
@@ -981,6 +994,7 @@ def step_card_vs_cpu(cfg, host: dict, kind: str, what: str, leaves: bool = True,
           f"w' of the {trained.numel()} trained entries (n' > 0): "
           f"{int((trained != 0).sum())} nonzero, largest |w'| "
           f"{trained.abs().max().item():.3g}", flush=True)
+    return s_gpu, m_gpu
 
 
 def first_batch(cfg, tables, path, device):
@@ -1616,18 +1630,23 @@ def check_hot_scatters() -> dict:
     in each of #6's 4 stacked buffers). #4 at FM's K = 11 on the flat plan,
     #6 at MVM's K = 10 on the stacked one, d ~ N(0, 1) masked as the plan's
     pads are: bitwise against the CPU plain version and across two
-    launches, bf16 off and on. #3 at K = 11 on the flat plan from a seeded
+    launches, bf16 off and on (the plain version adds the hot run's pieces
+    in the kernels' order, `csrc/scatter_staged.cuh`); their error against
+    plan order (`zeros` + `index_add_` on the CPU), which must be
+    reordering alone (`reorder_err` under 1, reported as a share of the
+    float32 reorder bound). #3 at K = 11 on the flat plan from a seeded
     FTRL state (`seeded_state`): bitwise across two launches and by
     `ftrl_errs` against its plain version on the CPU (g and w_rule gated),
     bf16 off and on.
-    Returns {name: {hot_ms, hot_library_ms}}: the times on this plan (#4's
-    and #6's hot run is summed one term at a time, serially; #3 splits it),
-    and zeros + index_add_ on it (for #3 the composition with the torch
-    FTRL expression), with #3's bound."""
+    Returns {name: {hot_ms, hot_library_ms, hot_bound_ms, ...}}: the
+    times on this plan (#3, #4 and #6 all split the hot run), zeros +
+    index_add_ on it (for #3 the composition with the torch FTRL
+    expression), and the bytes bound."""
     import numpy as np
     import torch
 
     from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.tools.bench_lab import reorder_err
 
     S = 1 << LOG2_SLOTS
     rng = np.random.default_rng(SEED + 5)
@@ -1658,16 +1677,29 @@ def check_hot_scatters() -> dict:
                 fail(f"{name} on the hot-slot plan (bf16={bf16}) is not bitwise equal across "
                      f"two launches and to its CPU plain version: max abs err "
                      f"{(got.cpu() - want).abs().max().item()}")
+            if not bf16:
+                plan_order = torch.zeros((S, K)).index_add_(0, ss_cpu.long(), d_cpu[:K].T)
+                got = got.cpu()
+                reorder = reorder_err(got, plan_order, d_cpu[:K], ss_cpu, S)
+                if not reorder < 1:
+                    fail(f"{name} on the hot-slot plan is {reorder} reorder bounds from plan "
+                         "order: more than reordering")
+                order_err = (got - plan_order).abs().max().item()
         ss_l = ss.long()
         out[name] = {
             "hot_ms": cuda_ms(lambda: run(d, ss, off, K, False), reps=5, warmup=1),
             "hot_library_ms": cuda_ms(
                 lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d[:K].T),
                 reps=5, warmup=1),
+            "hot_bound_ms": bound_ms(S * K * 4 + (K + 1) * ss_np.size * 4, 0.0)[0],
+            "hot_plan_order_max_abs_err": order_err, "hot_plan_order_reorder_share": reorder,
         }
         print(f"# {name} on the hot-slot plan ({ss_np.size} positions, a run of {BATCH} at "
-              f"slot {HOT_SLOT}): bitwise, bf16 off and on; {out[name]['hot_ms']:.4f} ms, "
-              f"zeros + index_add_ {out[name]['hot_library_ms']:.4f} ms", flush=True)
+              f"slot {HOT_SLOT}): bitwise, bf16 off and on; against plan order max abs err "
+              f"{order_err:.3g}, {reorder:.3g} of the float32 reorder bound; "
+              f"{out[name]['hot_ms']:.4f} ms, zeros + index_add_ "
+              f"{out[name]['hot_library_ms']:.4f} ms, bound {out[name]['hot_bound_ms']:.4f} ms",
+              flush=True)
     out["scatter_ftrl"] = check_hot_ftrl(flat, rng, S)
     return out
 
@@ -1700,10 +1732,10 @@ def check_hot_ftrl(flat, rng, S: int) -> dict:
             fail(f"scatter_ftrl on the hot-slot plan (bf16={bf16}) gave different bits on two "
                  "launches")
         what = f"scatter_ftrl on the hot-slot plan (bf16={bf16}) against its plain version"
-        # g and w_rule gated, w, n, z reported (see `ftrl_errs`): the plain
-        # version sums the hot run's 65,536 unit terms one after another in
-        # float32, off by up to 5e-3 from the exact sum, and one channel's
-        # sum here is only -5.1, where that moves w' by 1e-3 of itself
+        # g and w_rule gated, w, n, z reported (see `ftrl_errs`): #3 and the
+        # plain version sum the hot run's 65,536 unit terms in two float32
+        # orders, each off from the exact sum by up to 5e-3 at worst, and
+        # one channel's sum here is only -5.1, where that moves w' by 1e-3
         errs = ftrl_errs(got, want, prev_cpu, hp, what, leaves=False)
         print(f"# {what}: max err {errs} (tolerance {FTRL_RTOL}); bitwise across two launches",
               flush=True)
@@ -1752,6 +1784,7 @@ def run_mvm_training(mcfg, work: str, path: str, rate_path: str) -> dict:
     import math
 
     import numpy as np
+    import torch
 
     from xflow_tpu_torch.config import override
     from xflow_tpu_torch.data import pipeline
@@ -1862,8 +1895,8 @@ def check_ffm_kernels(fcfg, arrays, restored) -> dict:
 
 def run_ffm(cfg, work: str, path: str, rate_path: str) -> dict:
     """Phase 13, FFM: the kernels at K = 73 (`check_ffm_kernels`), one
-    fused and one two-pass step on the card against the CPU, the
-    repeated-field batch on the row-major route, the train CLI's main
+    two-pass step on the card against the CPU and a fused one against it,
+    the repeated-field batch on the row-major route, the train CLI's main
     path, rate run and two-pass epoch, evaluate and `predict_rows` of the
     trained checkpoint, and the train step's stage breakdown. Every path
     has the launch counts, the FFM routes and the host calls set to 0
@@ -1872,6 +1905,7 @@ def run_ffm(cfg, work: str, path: str, rate_path: str) -> dict:
     import math
 
     import numpy as np
+    import torch
 
     from xflow_tpu_torch.config import override
     from xflow_tpu_torch.data import pipeline
@@ -1882,7 +1916,7 @@ def run_ffm(cfg, work: str, path: str, rate_path: str) -> dict:
     from xflow_tpu_torch.optim import get_optimizer
     from xflow_tpu_torch.serve.runner import ServeRunner
     from xflow_tpu_torch.train.checkpoint import restore_state
-    from xflow_tpu_torch.train.step import make_train_step
+    from xflow_tpu_torch.train.step import loss_fn, make_train_step
     from xflow_tpu_torch.weights import table_shapes
 
     fcfg = ffm_config(cfg, os.path.join(work, "ck_ffm"))
@@ -1919,22 +1953,42 @@ def run_ffm(cfg, work: str, path: str, rate_path: str) -> dict:
     kern = check_ffm_kernels(fcfg, arrays, restored)
     lap("the first batch and the kernels at K = 73")
 
-    # --- one fused and one two-pass step, card against CPU, and their times
-    state, batch_dev, step_ms = restored_state(fcfg, DEVICE, restored), to_device(host, DEVICE), {}
-    for kind, extra, scatter in (("fused", {}, "scatter_ftrl"),
-                                 ("two-pass", {"optim.fused_scatter": "off"}, "scatter_sorted")):
+    # --- the two-pass step, card against CPU; the fused step on the card
+    # against it (the same state and batch: the FTRL tolerance, as the
+    # CPU's); their times. One CPU step, not two: the smoke's time limit.
+    state, batch_dev, step_ms, card = (restored_state(fcfg, DEVICE, restored),
+                                       to_device(host, DEVICE), {}, {})
+    for kind, extra, scatter in (("two-pass", {"optim.fused_scatter": "off"}, "scatter_sorted"),
+                                 ("fused", {}, "scatter_ftrl")):
         c = override(fcfg, **extra)
-        st.reset_launches()
-        step_card_vs_cpu(c, host, f"ffm {kind}", "the restored FFM step-1 state",
-                         restored=restored, flips=True)
-        counts_are(st.LAUNCHES, {"gather_sorted": 1, scatter: 1}, f"the ffm {kind} step")
         step = make_train_step(get_model("ffm")(c), get_optimizer("ftrl"), c)
+        st.reset_launches()
+        if kind == "two-pass":
+            card[kind] = step_card_vs_cpu(c, host, f"ffm {kind}", "the restored FFM step-1 state",
+                                          restored=restored, flips=True)
+        else:
+            card[kind] = step(restored_state(c, DEVICE, restored), batch_dev)
+        counts_are(st.LAUNCHES, {"gather_sorted": 1, scatter: 1}, f"the ffm {kind} step")
         step_ms[kind] = cuda_ms(lambda step=step: step(state, batch_dev), reps=5, warmup=1)
-    del state, batch_dev
+    (s_f, m_f), (s_p, m_p) = card["fused"], card["two-pass"]
+    lf, lp = m_f["loss"].item(), m_p["loss"].item()
+    if not (abs(lf - lp) <= LOSS_RTOL * abs(lp) and bool(m_f["update_ok"])):
+        fail(f"the ffm fused step on the card: loss {lf} against the two-pass step's {lp}, "
+             f"update_ok {m_f['update_ok']}")
+
+    def wnz(s):
+        return s.tables["wv"], s.opt_state["wv"]["n"], s.opt_state["wv"]["z"]
+
+    errs = ftrl_errs(wnz(s_f), wnz(s_p), wnz(state), fcfg.optim.ftrl,
+                     "ffm fused step against the two-pass step, both on the card", flips=True)
+    print(f"# ffm fused step from the restored FFM step-1 state, against the two-pass step on "
+          f"the card: loss {lf} vs {lp}; max err {errs}", flush=True)
+    del card, s_f, s_p
     print(f"# ffm train step on the card (CUDA events, guard on): fused {step_ms['fused']:.3f} "
           f"ms, two-pass {step_ms['two-pass']:.3f} ms per {FFM_BATCH}-row batch", flush=True)
 
-    # --- the first batch with field 0 repeated in column 1: row-major, no kernel
+    # --- the first batch with field 0 repeated in column 1: row-major, no
+    # kernel; on the card, its loss against the CPU's forward
     it = batch_iterator(path, fcfg.data)
     batch = next(it)
     it.close()
@@ -1946,12 +2000,23 @@ def run_ffm(cfg, work: str, path: str, rate_path: str) -> dict:
                                                                      "row_major": 1}:
         fail(f"the repeated-field FFM batch did not route row-major: {sorted(dup)}, "
              f"routes {ffm.ROUTES}")
+    model = get_model("ffm")(fcfg)
     st.reset_launches()
-    step_card_vs_cpu(fcfg, dup, "ffm row-major (field 0 repeated)",
-                     "the restored FFM step-1 state", restored=restored, flips=True)
+    s_r, m_r = make_train_step(model, get_optimizer("ftrl"), fcfg)(state, to_device(dup, DEVICE))
+    torch.cuda.synchronize()
     counts_are(st.LAUNCHES, {}, "the row-major ffm step")
-    del restored
-    lap("three steps, card vs CPU, and two timed")
+    with torch.no_grad():
+        lc = loss_fn(restored_state(fcfg, "cpu", restored).tables, to_device(dup, "cpu"), model,
+                     fcfg).item()
+    lg = m_r["loss"].item()
+    moved = int((s_r.tables["wv"] != state.tables["wv"]).sum())
+    if not (abs(lg - lc) <= LOSS_RTOL * abs(lc) and bool(m_r["update_ok"]) and moved > 0):
+        fail(f"ffm row-major step on the card: loss {lg} against the CPU forward's {lc}, "
+             f"update_ok {m_r['update_ok']}, {moved} table entries moved")
+    print(f"# ffm row-major (field 0 repeated) step on the card: loss {lg} vs the CPU "
+          f"forward's {lc}; {moved} table entries moved, no kernel launched", flush=True)
+    del restored, state, batch_dev, s_r
+    lap("two steps (the two-pass one card vs CPU), the row-major step, two timed")
 
     # --- the train CLI: main path (fused), a rate run, a two-pass epoch
     fargs = ("--set", f"model.v_dim={FFM_V_DIM}", "--set", f"data.batch_size={FFM_BATCH}")
@@ -3524,13 +3589,76 @@ def trace_kernels(prof_dir: str) -> dict:
     return out
 
 
+def check_zipf_scatters(zipf_batch, uniform_batch) -> dict:
+    """#4 (K = 11, the flat plan) and #6 (K = 10, the plan stacked in 4
+    buffers) on phase 17's first Zipf batch and on the uniform rate
+    shard's first batch, d ~ N(0, 1) masked as the plans' pads are:
+    bitwise against the plain version on the CPU and across two launches,
+    then CUDA-event times of the kernel and of `zeros` + `index_add_`.
+    Returns {name: {zipf_ms, zipf_library_ms, zipf_bound_ms, uniform_ms,
+    uniform_library_ms, zipf_longest_run}}."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.ops import sorted_table as st
+
+    S = 1 << LOG2_SLOTS
+    rng = np.random.default_rng(SEED + 17)
+    out = {}
+    for name, K in (("scatter_sorted", 1 + V_DIM), ("scatter_sorted_multi", V_DIM)):
+        entry = {}
+        for what, b in (("zipf", zipf_batch), ("uniform", uniform_batch)):
+            if name == "scatter_sorted":
+                plan = st.plan_sorted_batch(b.slots, b.mask, S)
+                ss_np, off_np, m_np = plan.sorted_slots, plan.win_off, plan.sorted_mask
+            else:
+                plan = st.plan_sorted_stacked(b.slots, b.mask, S, num_sub=4)
+                ss_np, off_np = plan.sorted_slots.reshape(-1), plan.win_off
+                m_np = plan.sorted_mask.reshape(-1)
+            d_np = rng.standard_normal((st._k8(K), ss_np.size), dtype=np.float32)
+            d_np[:K] *= m_np[None, :]
+            d_cpu, ss_cpu, off_cpu = (torch.from_numpy(np.ascontiguousarray(a))
+                                      for a in (d_np, ss_np, off_np))
+            d, ss, off = d_cpu.to(DEVICE), ss_cpu.to(DEVICE), off_cpu.to(DEVICE)
+            if name == "scatter_sorted":
+                def run(d=d, ss=ss, off=off, K=K):
+                    return st.scatter_sorted_cuda(d, ss, off, S, K)
+                want = st.scatter_sorted_plain(d_cpu, ss_cpu, S, K)
+            else:
+                def run(d=d, ss=ss, off=off, K=K):
+                    return st.scatter_sorted_multi_cuda(d, ss, off, S, K)
+                want = st.scatter_sorted_multi_plain(d_cpu, ss_cpu, off_cpu, S, K)
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(got.cpu(), want)):
+                fail(f"{name} on the {what} batch's plan is not bitwise equal across two "
+                     f"launches and to its CPU plain version")
+            ss_l = ss.long()
+            entry[f"{what}_ms"] = cuda_ms(run)
+            entry[f"{what}_library_ms"] = cuda_ms(
+                lambda ss_l=ss_l, d=d, K=K: torch.zeros((S, K), device=DEVICE).index_add_(
+                    0, ss_l, d[:K].T))
+            if what == "zipf":
+                entry["zipf_bound_ms"] = bound_ms(S * K * 4 + (K + 1) * ss_np.size * 4, 0.0)[0]
+                entry["zipf_longest_run"] = int(np.unique(ss_np[m_np > 0],
+                                                          return_counts=True)[1].max())
+        out[name] = entry
+        print(f"# {name} (K = {K}) on phase 17's first Zipf batch (longest run "
+              f"{entry['zipf_longest_run']}): bitwise; {entry['zipf_ms']:.4f} ms, zeros + "
+              f"index_add_ {entry['zipf_library_ms']:.4f} ms, bound {entry['zipf_bound_ms']:.4f} "
+              f"ms; on the uniform rate shard's first batch {entry['uniform_ms']:.4f} ms, zeros + "
+              f"index_add_ {entry['uniform_library_ms']:.4f} ms", flush=True)
+    return out
+
+
 def run_observe(work: str, rate_path: str, card: str) -> dict:
     """Phase 17, the trainer's observability on Zipf data at FM width:
     the port's `gen-data` writes the shards, `train --device cuda` runs 2
     epochs with every observability flag on, 1 epoch of the uniform rate
     shard under the same trace window, then 1 epoch with the guard off
     and 1 with the guard and observability off. Returns {launch key:
-    {"trace_ms", "uniform_trace_ms", "launches"}} for #1-#3."""
+    {"trace_ms", "uniform_trace_ms", "launches"}} for #1-#3, and #4's and
+    #6's times on the first Zipf batch's plans (`check_zipf_scatters`)."""
     import numpy as np
 
     from xflow_tpu_torch.config import Config, override
@@ -3595,6 +3723,9 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
           f"the longest slot run {int(counts.max())} occurrences; each field's top id in "
           f"{min(top)}-{max(top)} of {BATCH} rows; HealthMonitor.observe_batch on it "
           f"{observe_ms:.2f} ms (host, the prefetch thread's)", flush=True)
+    it = batch_iterator(rate_path, dcfg)
+    scatters = check_zipf_scatters(first, next(it))
+    it.close()
 
     # (2) 2 epochs with every flag on
     t0 = time.perf_counter()
@@ -3701,7 +3832,7 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
         print(f"# observe: train 1 epoch, {what}: {s['examples_per_sec']} examples/s; "
               f"window split (median / mean) {split}", flush=True)
     print(f"# observe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return zipf
+    return {**zipf, **scatters}
 
 
 # ------------------------------------------------------------ phase 18
@@ -3807,7 +3938,8 @@ def check_fs_layout(cfg, mesh, batch, tables) -> dict:
     """#5 and #6 against their plain versions at the fully-sharded buffer
     layout with `cap`'s pads (the one 1 x 1 buffer of a 65,536-row FM
     batch: its real occurrences, then pads at slot S-1 with mask 0), bit
-    exact / bitwise, and their times on it."""
+    exact / bitwise, and their times on it; for #6 also `zeros` +
+    `index_add_` on the same inputs and its bytes bound."""
     import numpy as np
     import torch
 
@@ -3842,19 +3974,25 @@ def check_fs_layout(cfg, mesh, batch, tables) -> dict:
         fail(f"scatter_sorted_multi at the fully-sharded layout is not bitwise its plain "
              f"version and itself: max abs err {err}")
     real = int(m_np.sum())
+    np_, ss_l = int(ss_cpu.numel()), ss.long()
     out = {
-        "fs_positions": int(ss_cpu.numel()), "fs_real": real,
-        "fs_pads": int(ss_cpu.numel()) - real,
+        "fs_positions": np_, "fs_real": real, "fs_pads": np_ - real,
         "fs_gather_ms": cuda_ms(lambda: st.gather_sorted_multi_cuda(table, ss, off),
                                 reps=5, warmup=1),
         "fs_scatter_ms": cuda_ms(lambda: st.scatter_sorted_multi_cuda(d, ss, off, S, K),
                                  reps=5, warmup=1),
+        "fs_library_ms": cuda_ms(
+            lambda: torch.zeros((S, K), device=DEVICE).index_add_(0, ss_l, d[:K].T),
+            reps=5, warmup=1),
+        "fs_bound_ms": bound_ms(S * K * 4 + K * np_ * 4 + np_ * 4 + off.numel() * 4,
+                                K * np_)[0],
         "fs_max_abs_err": err,
     }
     print(f"# #5/#6 at the fully-sharded layout ({out['fs_positions']} positions: "
           f"{real} real, {out['fs_pads']} pads at slot {S - 1}): bit-exact / bitwise; "
-          f"gather {out['fs_gather_ms']:.4f} ms, scatter {out['fs_scatter_ms']:.4f} ms",
-          flush=True)
+          f"gather {out['fs_gather_ms']:.4f} ms, scatter {out['fs_scatter_ms']:.4f} ms "
+          f"(zeros + index_add_ {out['fs_library_ms']:.4f} ms, bound "
+          f"{out['fs_bound_ms']:.4f} ms)", flush=True)
     return out
 
 
@@ -4531,7 +4669,7 @@ CAPI_ROWS = ("0:f0x 1:f1y 2:f2z", "1\t3:abc 7:q 12:r", "4:s 5:t 6:u 17:v")
 MESH_SYNC_BATCHES = 4  # a mesh slice's shard: 4 steps, one round (the final)
 # the legs' budgets (s) and the whole smoke's prediction, written before the run
 PHASE20_BUDGET_S = {"serve_world": 45.0, "c_api": 60.0, "mesh_sync": 45.0}
-SMOKE_PREDICTED_S = (840.0, 900.0)
+SMOKE_PREDICTED_S = (900.0, 1000.0)
 
 
 def free_port() -> int:
@@ -4985,7 +5123,8 @@ def main() -> int:
             k["mesh"] = dict(mesh["launches"][k["name"]])
         if k["name"] == "scatter_sorted_multi":
             k["mesh"].update({key: mesh[key] for key in (
-                "fs_positions", "fs_real", "fs_pads", "fs_scatter_ms", "fs_max_abs_err")})
+                "fs_positions", "fs_real", "fs_pads", "fs_scatter_ms", "fs_library_ms",
+                "fs_bound_ms", "fs_max_abs_err")})
         if k["name"] == "gather_sorted_multi":
             k["mesh"]["fs_gather_ms"] = mesh["fs_gather_ms"]
         if k["name"] in mesh["signal"]["launches"]:

@@ -13,7 +13,10 @@ on the edges of their staged design: runs across 160-position staging
 chunks, spans longer than a chunk (in one buffer and split over all of
 them), spans that start at odd positions (not 16 B aligned), a buffer
 empty in a window next to one with a long span there, at K = 5, 10, 11
-and 73 (the MVM, FM and FFM widths). The multi-buffer kernels (#5 gather, #6
+and 73 (the MVM, FM and FFM widths); and on the long-run split: runs of
+SCATTER_RUN_H - 1, SCATTER_RUN_H and SCATTER_RUN_H + 1, runs across
+chunk, cell and tile edges and across a buffer's end, and a run of
+40,000 (more than one group of cells), at K = 10, 11 and 73. The multi-buffer kernels (#5 gather, #6
 scatter) run on stacked plans: a slot every buffer shares, windows empty
 in some buffers, an all-pad buffer, a hot slot of 2,048 occurrences
 across the buffers, both table ends. The fused scatter + FTRL (#3) runs
@@ -45,9 +48,13 @@ one window, at 1, 4 and the most stacked buffers.
 
 Tolerances:
 - gathers: bitwise (a copy);
-- scatters: bitwise against the plain version on the CPU (both sum each
-  slot's run in plan order from 0, buffer after buffer), and bitwise
-  across two launches;
+- scatters: bitwise against the plain version on the CPU (both add in
+  the order of `csrc/scatter_staged.cuh`: a run of at most
+  SCATTER_RUN_H terms in plan order from 0, buffer after buffer; a
+  longer run by its pieces on a fixed grid, joined in order, so the hot
+  and all-pad cases check that order), and bitwise across two launches;
+  on terms whose sums are exact in any order (`_dyadic`), bitwise
+  against a plan-order `index_add_`;
 - scatter + FTRL: 1e-3 relative over a 1e-4 floor (kernel_parity's
   scatter_ftrl_*) where finite, non-finite entries at the same places,
   w of never-touched entries bitwise. #3 sums a run as a fixed tree and
@@ -489,6 +496,101 @@ def test_scatter_multi_kernel_bitwise_equal_to_plain(dev, case, k, nbuf, bf16):
     assert torch.equal(got.cpu(), want)
     if case == "hot":
         assert (want[12345] != 0).all()
+
+
+LONG_CASES = ("h_minus_1", "exactly_h", "h_plus_1", "crossing", "buffer_edge", "beyond_a_group")
+
+
+def _long_plan(case, nbuf, seed=0):
+    """(sorted_slots [nbuf * cap], loc_off [nbuf, S/W + 1], real) of a
+    plan built for the long-run split: every buffer holds the case's runs,
+    uniform slots around them and pads at S - 1. "buffer_edge" puts slot
+    9000 at every buffer's end and start: buffer 0 ends with a run of 300
+    there (no pads), the middle buffers are that slot alone, the last
+    starts with 300 of it, so in the flattened stream the slot's runs meet
+    at each buffer's end; with one buffer, the run ends the plan."""
+    rng = np.random.default_rng(seed)
+    H, C, cap = st.SCATTER_RUN_H, st.SCATTER_CELL, 1024
+    runs = {
+        "h_minus_1": [(777, H - 1), (4095, H - 1), (4096, H - 1)],
+        "exactly_h": [(777, H), (4095, H), (4096, H)],
+        "h_plus_1": [(777, H + 1), (4095, H + 1), (4096, H + 1)],
+        # runs across 160-position chunks and 256-position cells, neighbours
+        # in one 256-slot tile (255 / 256 / 257) and across tiles (511 / 512)
+        "crossing": [(255, 3 * C + 5), (256, 161), (257, 2 * C + 1), (511, 700), (512, 3),
+                     (513, 999)],
+        "beyond_a_group": [(12345, 40000), (12346, 300)],
+        "buffer_edge": [(9000, 0)],
+    }[case]
+    pool = np.setdiff1d(np.arange(S - 1), [s for s, _ in runs])
+    bufs = []
+    for i in range(nbuf):
+        if case != "buffer_edge":
+            parts = [rng.choice(pool, 1500)] + [np.full(n, s) for s, n in runs]
+        elif i == 0:
+            parts = [rng.choice(pool[pool < 9000], cap - 300), np.full(300, 9000)]
+        elif i < nbuf - 1:
+            parts = [np.full(cap, 9000)]
+        else:
+            parts = [np.full(300, 9000), rng.choice(pool[pool > 9000], 700)]
+        bufs.append(np.sort(np.concatenate(parts)).astype(np.int32))
+    if case != "buffer_edge":
+        cap = -(-max(b.size for b in bufs) // st.CHUNK) * st.CHUNK
+    real = np.concatenate([np.arange(cap) < b.size for b in bufs]).astype(np.float32)
+    bufs = [np.concatenate([b, np.full(cap - b.size, S - 1, np.int32)]) for b in bufs]
+    loc = np.stack([np.searchsorted(b, np.arange(0, S + 1, st.WINDOW)) for b in bufs])
+    loc[:, -1] = cap
+    return np.concatenate(bufs), loc.astype(np.int32), real
+
+
+def _long_scatters(dev, ss, loc, d, k, bf16):
+    """#6 over the buffers, and with one buffer #4 too; each launched twice."""
+    d_t, ss_t, loc_t = torch.from_numpy(d), torch.from_numpy(ss), torch.from_numpy(loc)
+    d_c, ss_c, loc_c = d_t.to(dev), ss_t.to(dev), loc_t.to(dev)
+    outs = [(st.scatter_sorted_multi_cuda(d_c, ss_c, loc_c, S, k, bf16),
+             st.scatter_sorted_multi_cuda(d_c, ss_c, loc_c, S, k, bf16))]
+    if loc.shape[0] == 1:
+        wo = loc_c.reshape(-1)
+        outs.append((st.scatter_sorted_cuda(d_c, ss_c, wo, S, k, bf16),
+                     st.scatter_sorted_cuda(d_c, ss_c, wo, S, k, bf16)))
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("case", LONG_CASES)
+@pytest.mark.parametrize("k", [10, 11, 73])
+@pytest.mark.parametrize("nbuf", [1, 4])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatters_split_long_runs_bitwise(dev, case, k, nbuf, bf16):
+    """#4 and #6 on runs at and around SCATTER_RUN_H and far beyond it:
+    bitwise across two launches and against the CPU plain version, which
+    adds in the kernels' order (a longer run's pieces joined in order)."""
+    ss, loc, real = _long_plan(case, nbuf)
+    rng = np.random.default_rng(9)
+    d = rng.normal(size=(st._k8(k), ss.size)).astype(np.float32)
+    d[:k] *= real[None, :]  # rows k..k8 keep noise to be ignored
+    want = st.scatter_sorted_multi_plain(torch.from_numpy(d), torch.from_numpy(ss),
+                                         torch.from_numpy(loc), S, k, bf16)
+    for got, again in _long_scatters(dev, ss, loc, d, k, bf16):
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", LONG_CASES)
+@pytest.mark.parametrize("k", [10, 11, 73])
+@pytest.mark.parametrize("nbuf", [1, 4])
+def test_scatters_on_exact_terms_equal_plan_order(dev, case, k, nbuf):
+    """On terms whose float32 sums are exact in any order (`_dyadic`),
+    #4 and #6 equal `zeros` + `index_add_` in plan order bitwise: a lost,
+    doubled or misrouted term shows, whatever the order of adds."""
+    ss, loc, real = _long_plan(case, nbuf, seed=1)
+    d = _dyadic(np.random.default_rng(10), k, ss.size).numpy()
+    d[:k] *= real[None, :]
+    want = torch.zeros((S, k)).index_add_(0, torch.from_numpy(ss).long(),
+                                          torch.from_numpy(d[:k]).T)
+    for got, again in _long_scatters(dev, ss, loc, d, k, False):
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), want)
 
 
 def test_multi_kernels_refuse_a_bad_loc_off(dev):

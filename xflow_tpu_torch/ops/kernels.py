@@ -36,7 +36,7 @@ SIGNATURES = {
         ("xf_row_sums", [_P, _P, _P, _I, _L, _L, _P]),
     ],
     "scatter_sorted": [
-        ("xf_scatter_sorted", [_P, _P, _P, _P, _L, _I, _L, _I, _P]),
+        ("xf_scatter_sorted", [_P, _P, _P, _L, _P, _L, _P, _L, _I, _L, _I, _P]),
         ("xf_scatter_sorted_tile", [_I]),
     ],
     "scatter_ftrl": [
@@ -47,7 +47,7 @@ SIGNATURES = {
         ("xf_gather_sorted_multi", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),
     ],
     "scatter_sorted_multi": [
-        ("xf_scatter_sorted_multi", [_P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P]),
+        ("xf_scatter_sorted_multi", [_P, _P, _P, _L, _P, _L, _P, _L, _I, _L, _I, _L, _I, _P]),
         ("xf_scatter_sorted_multi_tile", [_I]),
     ],
     "lab_mosaic": [

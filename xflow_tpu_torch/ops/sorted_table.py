@@ -524,18 +524,72 @@ def row_sums_sorted(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> 
 
 # ------------------------------------------------------- windowed scatter-add
 
+# The staged scatters' order of adds (csrc/scatter_staged.cuh): a run (a
+# maximal stretch of one slot in one buffer) of at most SCATTER_RUN_H
+# positions adds its terms in plan order; a longer run is cut on a fixed
+# grid of SCATTER_CELL stream positions, each piece summed in plan order
+# from 0, the pieces of SCATTER_GROUP consecutive cells added in cell order
+# from 0, the groups in order from 0; the slot's sum adds, from 0 in
+# stream order, each short run's terms and each long run's sum.
+SCATTER_RUN_H = 256
+SCATTER_CELL = 256
+SCATTER_GROUP = 64
+
+
+def _first_of_groups(*keys: torch.Tensor) -> torch.Tensor:
+    """True where any of the (equally long) key tensors changes from the
+    element before, and at element 0."""
+    change = torch.zeros(keys[0].shape[0], dtype=torch.bool, device=keys[0].device)
+    change[:1] = True
+    for key in keys:
+        change[1:] |= key[1:] != key[:-1]
+    return change
+
+
+def _staged_plain(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor, num_slots: int, k: int,
+                  bf16: bool, cap: int) -> torch.Tensor:
+    """The staged scatters' sum over buffers of `cap` positions, in their
+    order of adds, with `index_add_` alone (in index order on the CPU)."""
+    d = d_occ_t[:k]
+    if bf16:
+        d = d.to(torch.bfloat16).to(d_occ_t.dtype)
+    s = sorted_slots.long()
+    valid = (s >= 0) & (s < num_slots)
+    out = torch.zeros((num_slots, k), dtype=d_occ_t.dtype, device=d_occ_t.device)
+    start = _first_of_groups(s)
+    start[::cap] = True  # every buffer starts a run
+    run = torch.cumsum(start, 0) - 1
+    long_ = valid & (torch.bincount(run)[run] > SCATTER_RUN_H)
+    pos = torch.arange(s.shape[0], device=s.device)[long_]
+    lrun, cell = run[long_], pos // SCATTER_CELL
+    first1 = _first_of_groups(lrun, cell)  # pieces: (run, cell)
+    pieces = torch.zeros((int(first1.sum()), k), dtype=d.dtype, device=d.device).index_add_(
+        0, torch.cumsum(first1, 0) - 1, d[:, long_].T)
+    prun, pgroup = lrun[first1], cell[first1] // SCATTER_GROUP
+    first2 = _first_of_groups(prun, pgroup)  # groups: (run, cell // GROUP)
+    groups = torch.zeros((int(first2.sum()), k), dtype=d.dtype, device=d.device).index_add_(
+        0, torch.cumsum(first2, 0) - 1, pieces)
+    grun = prun[first2]
+    first3 = _first_of_groups(grun)  # runs
+    runs = torch.zeros((int(first3.sum()), k), dtype=d.dtype, device=d.device).index_add_(
+        0, torch.cumsum(first3, 0) - 1, groups)
+    take = (valid & ~long_) | (long_ & start)  # short runs' terms, long runs' first positions
+    vals = d[:, take].T.contiguous()
+    vals[(long_ & start)[take]] = runs
+    return out.index_add_(0, s[take], vals)
+
+
 def scatter_sorted_plain(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor, num_slots: int,
                          k: int, bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the scatter: [num_slots, k] with
     out[s] = sum of d_occ_t[:k, j] over j with sorted_slots[j] = s; slots
     outside [0, num_slots) dropped; `bf16` rounds each term to bfloat16
-    before the sum."""
-    d = d_occ_t[:k]
-    if bf16:
-        d = d.to(torch.bfloat16).to(d_occ_t.dtype)
-    valid = (sorted_slots >= 0) & (sorted_slots < num_slots)
-    out = torch.zeros((num_slots, k), dtype=d_occ_t.dtype, device=d_occ_t.device)
-    return out.index_add_(0, sorted_slots[valid].long(), d[:, valid].T)
+    before the sum. On the CPU it adds in the kernel's order
+    (csrc/scatter_staged.cuh): on a plan with no run longer than
+    SCATTER_RUN_H it equals `zeros` + `index_add_` (plan order) bitwise;
+    a longer run's sum is its pieces' on the fixed grid, added in order."""
+    return _staged_plain(d_occ_t, sorted_slots, num_slots, k, bf16,
+                         max(sorted_slots.shape[0], 1))
 
 
 def _check_cotangent(d_occ_t, sorted_slots, k) -> None:
@@ -577,6 +631,18 @@ def _check_staged(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor, k: int) -> 
         )
 
 
+def _staged_scratch(d_occ_t: torch.Tensor, num_slots: int, k: int, nbuf: int, tile: int):
+    """(toff, psum): the staged scatters' scratch (csrc/scatter_staged.cuh
+    `scratch_ints`, `scratch_floats`): int32 tile offsets, a tile counter,
+    two records a cell, the heavy tiles' flags and count and their list;
+    float32 two [k] piece sums a cell."""
+    cells, tiles = -(-d_occ_t.shape[1] // SCATTER_CELL), num_slots // tile
+    toff = torch.empty(nbuf * (tiles + 1) + 1 + 3 * cells + tiles + 1, dtype=torch.int32,
+                       device=d_occ_t.device)
+    psum = torch.empty(2 * k * cells, dtype=torch.float32, device=d_occ_t.device)
+    return toff, psum
+
+
 def scatter_sorted_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
                         win_off: torch.Tensor, num_slots: int, k: int,
                         bf16: bool = False) -> torch.Tensor:
@@ -586,14 +652,17 @@ def scatter_sorted_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
     bytes on the H100: the dense [S, K] gradient written once, d[:K]
     and the slots read once (0.0720 ms at the FM headline's S = 2^22,
     K = 11, Np = 1,180,672). The staged walk of `csrc/scatter_staged.cuh`
-    with one buffer: tile offsets marked from the slots, then persistent
-    blocks that stage each 256-slot tile's span in shared memory by 16 B
-    asynchronous copies (the next chunk in flight), sum each (slot,
-    channel) run there in plan order and write the [256, K] tile once
-    with 16 B stores: no atomics, the same bits on every run. On an
-    NVIDIA H100 80GB HBM3, 700.00 W (`chip_smoke.py`): 0.1212 ms at that
-    shape, against 0.2047 for `zeros` + `index_add_`; the earlier design
-    (a binary search a slot, runs summed from global memory) took 0.2286."""
+    with one buffer: tile offsets and long runs marked from the slots,
+    each long run's pieces (256-position cells) summed by a warp a cell;
+    then persistent blocks that stage each 256-slot tile's span in shared
+    memory by 16 B asynchronous copies (the next chunk in flight), sum
+    each short (slot, channel) run there in plan order, join each long
+    run's pieces in order, and write the [256, K] tile once with 16 B
+    stores: no atomics, the same bits on every run, in the order
+    `scatter_sorted_plain` adds. On an NVIDIA H100 80GB HBM3, 700.00 W
+    (`chip_smoke.py`): 0.1299 ms at that shape, against 0.2047 for
+    `zeros` + `index_add_`; 0.1520 with a run of 65,536 at one slot
+    (against 0.3590; 1.1002 before long runs were split)."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(d_occ_t, sorted_slots, win_off)
@@ -601,13 +670,13 @@ def scatter_sorted_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
     _check_staged(d_occ_t, sorted_slots, k)
     out = torch.empty((num_slots, k), dtype=torch.float32, device=d_occ_t.device)
     lib = kernels.load("scatter_sorted")
-    toff = torch.empty(num_slots // lib.xf_scatter_sorted_tile(k) + 2, dtype=torch.int32,
-                       device=d_occ_t.device)  # tile offsets and a tile counter
+    toff, psum = _staged_scratch(d_occ_t, num_slots, k, 1, lib.xf_scatter_sorted_tile(k))
     with torch.cuda.device(d_occ_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xf_scatter_sorted(
-            d_occ_t.data_ptr(), sorted_slots.data_ptr(), toff.data_ptr(), out.data_ptr(),
-            num_slots, k, d_occ_t.shape[1], int(bool(bf16)), stream,
+            d_occ_t.data_ptr(), sorted_slots.data_ptr(), toff.data_ptr(), toff.numel(),
+            psum.data_ptr(), psum.numel(), out.data_ptr(), num_slots, k, d_occ_t.shape[1],
+            int(bool(bf16)), stream,
         )
     kernels.check(err, "scatter_sorted")
     LAUNCHES["scatter_sorted"] += 1
@@ -808,10 +877,13 @@ def scatter_sorted_multi_plain(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor
                                loc_off: torch.Tensor, num_slots: int, k: int,
                                bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the multi-buffer scatter: the scatter of
-    the flattened stream, [num_slots, k] (`index_add_`, which on the CPU
-    adds in stream order: buffer 0's run of a slot, then buffer 1's)."""
-    _check_multi(sorted_slots, loc_off, num_slots)
-    return scatter_sorted_plain(d_occ_t, sorted_slots, num_slots, k, bf16)
+    the flattened stream, [num_slots, k], in the kernel's order of adds
+    (csrc/scatter_staged.cuh; a run is a slot's stretch in one buffer):
+    on a plan with no run longer than SCATTER_RUN_H it equals `zeros` +
+    `index_add_` bitwise (on the CPU: buffer 0's run of a slot, then
+    buffer 1's, each in plan order)."""
+    nbuf, cap = _check_multi(sorted_slots, loc_off, num_slots)
+    return _staged_plain(d_occ_t, sorted_slots, num_slots, k, bf16, max(cap, 1))
 
 
 def scatter_sorted_multi_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
@@ -823,15 +895,19 @@ def scatter_sorted_multi_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
     Bound by bytes on the H100: the dense [S, K] gradient written once,
     d[:K] and the slots read once (0.0656 ms at the MVM segment side's
     S = 2^22, K = 10, 4 x 295,936 positions). The staged walk of
-    `csrc/scatter_staged.cuh`: tile offsets marked in each buffer, then
-    persistent blocks that keep a 256-slot tile's sums in shared memory,
-    stage its spans of all the buffers there by 16 B asynchronous copies
-    and add each (slot, channel)'s runs buffer after buffer in plan
-    order; the tile is written once with 16 B stores. No atomics, the
-    same bits on every run. On an NVIDIA H100 80GB HBM3, 700.00 W
-    (`chip_smoke.py`): 0.1510 ms at that shape, against 0.2040 for
-    `zeros` + `index_add_`; the earlier design (runs marked in global
-    memory, summed from global memory) took 0.4857."""
+    `csrc/scatter_staged.cuh`: tile offsets and long runs marked in each
+    buffer, long runs' pieces summed a warp a cell; then persistent
+    blocks that keep a 256-slot tile's sums in shared memory, stage its
+    spans of all the buffers there by 16 B asynchronous copies, add each
+    (slot, channel)'s short runs buffer after buffer in plan order and
+    each long run's joined pieces at its place; the tile is written once
+    with 16 B stores. No atomics, the same bits on every run, in the
+    order `scatter_sorted_multi_plain` adds. On an NVIDIA H100 80GB HBM3,
+    700.00 W (`chip_smoke.py`): 0.1582 ms at that shape, against 0.2059
+    for `zeros` + `index_add_`; 0.1658 with a run of 65,536 at one slot
+    (against 0.4491; 1.1272 before long runs were split) and 0.2166 on
+    the fully-sharded buffer's 1,180,160 pads at one slot (against
+    2.3688; 17.6 before)."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(d_occ_t, sorted_slots, loc_off)
@@ -840,13 +916,14 @@ def scatter_sorted_multi_cuda(d_occ_t: torch.Tensor, sorted_slots: torch.Tensor,
     _check_staged(d_occ_t, sorted_slots, k)
     out = torch.empty((num_slots, k), dtype=torch.float32, device=d_occ_t.device)
     lib = kernels.load("scatter_sorted_multi")
-    toff = torch.empty(nbuf * (num_slots // lib.xf_scatter_sorted_multi_tile(k) + 1) + 1,
-                       dtype=torch.int32, device=d_occ_t.device)  # tile offsets and a tile counter
+    toff, psum = _staged_scratch(d_occ_t, num_slots, k, nbuf,
+                                 lib.xf_scatter_sorted_multi_tile(k))
     with torch.cuda.device(d_occ_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xf_scatter_sorted_multi(
-            d_occ_t.data_ptr(), sorted_slots.data_ptr(), toff.data_ptr(), out.data_ptr(),
-            num_slots, k, d_occ_t.shape[1], nbuf, cap, int(bool(bf16)), stream,
+            d_occ_t.data_ptr(), sorted_slots.data_ptr(), toff.data_ptr(), toff.numel(),
+            psum.data_ptr(), psum.numel(), out.data_ptr(), num_slots, k, d_occ_t.shape[1],
+            nbuf, cap, int(bool(bf16)), stream,
         )
     kernels.check(err, "scatter_sorted_multi")
     LAUNCHES["scatter_sorted_multi"] += 1
