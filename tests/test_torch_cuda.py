@@ -27,10 +27,13 @@ slots below 0 and at or above S; each bitwise across two launches, w kept
 bitwise on never-touched entries, and its non-finite count equal to
 torch's count of its outputs and to its plain version's (0 on clean
 data; NaN and +-Inf placed in d, w, n and z by one test). The row sum (#2) runs at ch = 24,
-32, 104, 128 and 136 (one to five channel groups) and at ch 464 (over
-the old shared-memory limit), with rows out of range and whole zero
-quads, refuses a ch that is not a multiple of 4, and FM's forward runs at
-v_dim = 64 against the CPU. FFM's steps (the aligned hybrid at K = 73,
+32, 104, 128 and 136 (one to five staging passes) and at ch 464, with
+rows out of range and whole zero quads; on rows at and past the warp's
+limit (ROW_SUMS_WARP_MAX), rows of 1,000 to 20,000 terms, a row spread
+over two of the long rows' windows (ROW_SUMS_WINDOW), and on a pad run as
+long as the real plan beside 256 rows of 200 terms; it refuses a ch that
+is not a multiple of 4, and FM's forward runs at v_dim = 64 against the
+CPU. FFM's steps (the aligned hybrid at K = 73,
 and the row-major route of a batch that repeats a field) and LR's steps
 (no hand-written kernel) run on
 the card against the CPU. The lab's kernels (#7-#11, `ops/lab.py`) run
@@ -61,9 +64,10 @@ Tolerances:
   the plain version in plan order; on #3's own crafted plans d holds
   multiples of 2^-6 in [-1, 1], whose sums are exact in any order (see
   `_dyadic`);
-- row sum: 1e-4 relative over a 1e-2 floor (float reductions reorder it)
-  and, at the widths' test, the float32 reorder bound too; the lab's row
-  sum within that bound alone (`bench_lab.reorder_err` < 1: a row of many
+- row sum (#2): bitwise against its plain version on CPU copies (both
+  add a row's terms in plan order from +0) and bitwise across two
+  launches; the lab's row sum (#11, float atomics) within the float32
+  reorder bound alone (`bench_lab.reorder_err` < 1: a row of many
   unit-scale terms reorders past 1e-4 over that floor), the relative
   error printed beside it;
 - the lab's slice probes: bitwise (copies);
@@ -315,8 +319,7 @@ def test_gather_and_row_sums_kernels_match_plain(dev, case, k, bf16):
     rows = torch.from_numpy(plan.sorted_row).to(dev)
     n_rows = int(plan.sorted_row.max()) + 1
     vals = (occ * torch.from_numpy(plan.sorted_mask).to(dev)[None, :]).contiguous()
-    got = st.row_sums_cuda(vals, rows, n_rows)
-    assert _rel(got, st.row_sums_plain(vals, rows, n_rows), FLOOR) <= RTOL
+    _check_row_sums(vals, rows, n_rows)
 
 
 def _batch(seed, B=64, F=8):
@@ -756,33 +759,93 @@ def _row_sums_case(dev, ch, seed=7):
     return torch.from_numpy(vals).to(dev), torch.from_numpy(rows).to(dev), n_rows
 
 
+def _check_row_sums(vals, rows, n_rows):
+    """#2 once: bitwise its plain version on CPU copies (both add a row's
+    terms in plan order from +0) and bitwise a second launch. Returns the
+    sums."""
+    st.reset_launches()
+    got = st.row_sums_cuda(vals, rows, n_rows)
+    again = st.row_sums_cuda(vals, rows, n_rows)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["row_sums"] == 2
+    want = st.row_sums_plain(vals.cpu(), rows.cpu(), n_rows)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want), (got.cpu() - want).abs().max().item()
+    return got
+
+
 @pytest.mark.parametrize("ch", [24, 32, 104, 128, 136])
 def test_row_sums_kernel_at_wide_channels(dev, ch):
     """The main paths' widths, FM's ch 24 and MVM's product ch 32, and the
     wide ones: FM's row side at v_dim 50 (ch 104) and v_dim 64 (ch 136),
-    and ch 128 (five channel groups at ch 136). Each launches once."""
+    and ch 128 (four and five staging passes of 32 channels)."""
     vals, rows, n_rows = _row_sums_case(dev, ch)
-    st.reset_launches()
-    got = st.row_sums_cuda(vals, rows, n_rows)
-    torch.cuda.synchronize()
-    assert st.LAUNCHES["row_sums"] == 1
-    want = st.row_sums_plain(vals, rows, n_rows)
-    print(f"ch {ch}: {_rel(got, want, FLOOR):.3g} relative over a {FLOOR} floor")
-    keep = (rows >= 0) & (rows < n_rows)
-    assert reorder_err(got, want, vals[:, keep], rows[keep], n_rows) < 1.0
-    assert _rel(got, want, FLOOR) <= RTOL
+    _check_row_sums(vals, rows, n_rows)
 
 
 def test_row_sums_kernel_launches_over_the_old_channel_limit(dev):
     """ch 464: over the 454 channels whose [ch, 128] slab fitted a block's
-    shared memory before the channel-group design (which needs two
-    [256][32] slabs at any ch)."""
+    shared memory before the channel-group design."""
     vals, rows, n_rows = _row_sums_case(dev, 464, seed=11)
-    st.reset_launches()
-    got = st.row_sums_cuda(vals, rows, n_rows)
-    torch.cuda.synchronize()
-    assert st.LAUNCHES["row_sums"] == 1
-    assert _rel(got, st.row_sums_plain(vals, rows, n_rows), FLOOR) <= RTOL
+    _check_row_sums(vals, rows, n_rows)
+
+
+def _long_rows_case(dev, ch, lengths, np_=1 << 16, n_rows=512, seed=5):
+    """Rows of the given numbers of nonzero terms (rows 1, 2, ...) at
+    random positions, the rest of the plan over rows [0, n_rows) with a
+    fifth of its values zeroed, values over 1e-3..1e3 of either sign."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n_rows, np_).astype(np.int32)
+    pos = rng.permutation(np_)
+    at = 0
+    for r, n in enumerate(lengths, start=1):
+        rows[rows == r] = 0
+        rows[pos[at:at + n]] = r
+        at += n
+    vals = (rng.choice([-1.0, 1.0], (ch, np_)) * 10.0 ** rng.uniform(-3, 3, (ch, np_)))
+    vals[:, rng.random(np_) < 0.2] = 0.0
+    vals[:, pos[:at]] = np.where(vals[:, pos[:at]] == 0.0, 1.0, vals[:, pos[:at]])
+    return (torch.from_numpy(vals.astype(np.float32)).to(dev), torch.from_numpy(rows).to(dev),
+            n_rows)
+
+
+@pytest.mark.parametrize("ch", [24, 136])
+@pytest.mark.parametrize("lengths", [
+    [st.ROW_SUMS_WARP_MAX - 1, st.ROW_SUMS_WARP_MAX, st.ROW_SUMS_WARP_MAX + 1],
+    [1000, 4096],
+    [5000, 20_000],
+])
+def test_row_sums_kernel_on_long_rows(dev, ch, lengths):
+    """Rows at the warp's limit and past it (a block orders them), and of
+    thousands of terms (several chunks), beside short rows."""
+    vals, rows, n_rows = _long_rows_case(dev, ch, lengths)
+    got = _check_row_sums(vals, rows, n_rows)
+    assert torch.isfinite(got).all()
+
+
+def test_row_sums_kernel_on_a_row_over_two_windows(dev):
+    """A row of 3,000 terms spread over a plan longer than the long rows'
+    window: its terms come in two windows, the sum carried between."""
+    np_ = 1 << 21
+    assert np_ > st.ROW_SUMS_WINDOW
+    vals, rows, n_rows = _long_rows_case(dev, 8, [3000], np_=np_, n_rows=4096)
+    pos = torch.nonzero(rows.cpu() == 1).flatten()
+    assert pos.max() - pos.min() >= st.ROW_SUMS_WINDOW
+    _check_row_sums(vals, rows, n_rows)
+
+
+def test_row_sums_kernel_on_a_pad_run_and_many_long_rows(dev):
+    """A plan whose second half is pads (row 0, value 0), as a
+    fully-sharded buffer's, and every row of its first half 200 terms
+    long: each row goes to the block that orders long rows."""
+    ch, n_rows, n = 24, 256, 200
+    rng = np.random.default_rng(8)
+    real = n_rows * n
+    rows = np.zeros(2 * real, np.int32)
+    rows[:real] = rng.permutation(np.repeat(np.arange(n_rows, dtype=np.int32), n))
+    vals = np.zeros((ch, 2 * real), np.float32)
+    vals[:, :real] = rng.normal(size=(ch, real)) * 10.0 ** rng.uniform(-3, 3, real)
+    _check_row_sums(torch.from_numpy(vals).to(dev), torch.from_numpy(rows).to(dev), n_rows)
 
 
 @pytest.mark.parametrize("ch", [1, 6, 10, 22, 26])

@@ -32,3 +32,7 @@ from a mesh (`serve` over a world of ranks), the C API (`c_api/`), the
 raw Criteo / Avazu converter, the native plane's sanitizer builds and
 the corruption helpers (`testing/faults.py`).
 """
+
+from xflow_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -33,7 +33,7 @@ SIGNATURES = {
         ("xf_gather_sorted", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),
     ],
     "row_sums": [
-        ("xf_row_sums", [_P, _P, _P, _I, _L, _L, _P]),
+        ("xf_row_sums", [_P, _P, _P, _I, _L, _L, _P, _P, _P, _P, _P, _P]),
     ],
     "scatter_sorted": [
         ("xf_scatter_sorted", [_P, _P, _P, _L, _P, _L, _P, _L, _I, _L, _I, _P]),

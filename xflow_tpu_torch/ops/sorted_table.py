@@ -444,9 +444,19 @@ def table_gather_sorted(table: torch.Tensor, sorted_slots: torch.Tensor,
 
 # ------------------------------------------------------------------- row sums
 
+# The row sum's order (csrc/row_sums.cu): each row's terms are added one
+# by one in ascending plan position from +0, terms whose channels are all
+# +-0 dropped. A warp orders a row of at most ROW_SUMS_WARP_MAX terms by
+# ranks; a longer row is ordered by a block, through a bitmap of
+# ROW_SUMS_WINDOW positions at a time (the kernel's WMAX and WWORDS * 32).
+ROW_SUMS_WARP_MAX = 128
+ROW_SUMS_WINDOW = 40960 * 32
+
+
 def row_sums_plain(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Plain PyTorch version of the row sum: [num_rows, ch], any ch; rows
-    outside [0, num_rows) skipped."""
+    outside [0, num_rows) skipped. On the CPU `index_add_` adds each
+    row's terms in index order from +0, the kernel's order."""
     out = torch.zeros((num_rows, vals_t.shape[0]), dtype=vals_t.dtype, device=vals_t.device)
     keep = (rows >= 0) & (rows < num_rows)
     return out.index_add_(0, rows[keep].long(), vals_t[:, keep].T)
@@ -455,18 +465,19 @@ def row_sums_plain(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> t
 def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Launch `csrc/row_sums.cu` on CUDA tensors.
 
-    Replaces `_rowsum_pallas` (xflow_tpu/ops/sorted_table.py). Bound by
-    bytes on the H100 ((ch + 1) * 4 B read per occurrence), held in
-    practice by the L2's rate of reductions into the scattered rows:
-    persistent blocks walk (256-position tile, group of at most 32
-    channels) items group by group, stage each tile's channels transposed
-    in shared memory while the previous one reduces, and add each
-    occurrence's four channels with one `red.global.add.v4.f32`. The
-    order of the adds, and the last bits of a sum, vary from run to run
-    (tolerance: 1e-4 relative over a 1e-2 floor). Shared memory does not
-    grow with ch: any ch that is a multiple of 4 launches (the JAX kernel
-    takes multiples of 8); another ch raises, as do Np not a multiple of
-    4 and inputs not 16 B aligned."""
+    Replaces `_rowsum_pallas` (xflow_tpu/ops/sorted_table.py). Adds each
+    row's terms in ascending plan position from +0, as the TPU kernel and
+    `row_sums_plain` on the CPU do, so the sums are bitwise theirs and the
+    same from launch to launch. Bound by bytes on the H100 ((ch + 1) * 4 B
+    read per occurrence); the fixed order costs about three times that:
+    count each row's nonzero terms, reserve each row a segment of
+    positions, copy the channels position-major while each position takes
+    a slot of its row's segment, then a warp a row ranks the row's
+    positions and adds its terms in that order (a block a row, on a side
+    stream, for rows of more than ROW_SUMS_WARP_MAX terms). Any ch that is
+    a multiple of 4 launches (the JAX kernel takes multiples of 8);
+    another ch raises, as do Np not a multiple of 4 and inputs not 16 B
+    aligned. Scratch: Np * (ch + 2.25) * 4 B and 12 B a row."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(vals_t, rows)
@@ -482,12 +493,20 @@ def row_sums_cuda(vals_t: torch.Tensor, rows: torch.Tensor, num_rows: int) -> to
             f"row_sums loads 16 B aligned quads: Np={np_} must be a multiple of 4 and vals_t "
             "and rows must start 16 B aligned"
         )
-    out = torch.zeros((num_rows, ch), dtype=torch.float32, device=vals_t.device)
+    dev = vals_t.device
+    out = torch.empty((num_rows, ch), dtype=torch.float32, device=dev)
+    ws = torch.empty(2 + 3 * num_rows, dtype=torch.int32, device=dev)
+    flags = torch.empty(np_, dtype=torch.uint8, device=dev)
+    pj = torch.empty(np_, dtype=torch.int32, device=dev)
+    order = torch.empty(np_, dtype=torch.int32, device=dev)
+    copy = torch.empty(np_ * ch, dtype=torch.float32, device=dev)
     lib = kernels.load("row_sums")
-    with torch.cuda.device(vals_t.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xf_row_sums(
-            vals_t.data_ptr(), rows.data_ptr(), out.data_ptr(), ch, np_, num_rows, stream
+            vals_t.data_ptr(), rows.data_ptr(), out.data_ptr(), ch, np_, num_rows,
+            ws.data_ptr(), flags.data_ptr(), pj.data_ptr(), order.data_ptr(), copy.data_ptr(),
+            stream,
         )
     kernels.check(err, "row_sums")
     LAUNCHES["row_sums"] += 1
