@@ -60,8 +60,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    has the launch counts set to 0 just before and read just after, and
    each kernel of its path must have launched. Then the default model:
    `train` with no `--model` (LR, `w [2^22]`, row-major, FTRL), 2 epochs
-   (4 steps), every kernel's launch count 0 (LR runs none), and one step
-   from its checkpoint on the card against the CPU (`run_lr`);
+   (4 steps), every kernel's launch count 0 (LR runs none), one step
+   from its checkpoint on the card against the CPU, and that two-pass
+   step twice on the card from one state, printing whether w, n and z
+   agree bitwise (`run_lr`; a finding, not a gate);
 8. train -> serve: the trained checkpoint loads in `ServeRunner` at the
    trained step and evaluates to a finite AUC above 0.5 on its own
    training shard; one more fused step from that checkpoint on the card
@@ -133,8 +135,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes; (e) `hostplane` (the host's parse rate per parser thread count
    and plan rate per pool size, up to the usable cores). The mosaic
    suite also reads the launch floor (a one-element `torch.zeros` fill by
-   the same profiler), carried as `floor_ms` in #7-#10's entries. Each
-   suite's output is echoed as comments;
+   the same profiler), carried as `floor_ms` in #7-#10's entries beside
+   `floor_share` (floor_ms / ms: the share of the least time a launch
+   takes, which lies over each probe's bytes bound), and the pieces #8-#10
+   cut each slice into (`pieces`); each probe's pieces, time, floor and
+   share are printed. Each suite's output is echoed as comments;
 13. FFM at bench.py's practical shape (`wv [2^22, 73]`: 18 fields, k =
    4; 131,072-row batches, so the shard is one batch and the rate shard
    ten; FTRL), run before phase 12, on a committed step-1 FFM state (wv ~
@@ -1268,11 +1273,14 @@ def run_lr(cfg, work: str, path: str, batch) -> dict:
     """The default model's main path: `python -m xflow_tpu_torch train`
     with no `--model` (LR: table `w [2^22]`, row-major batches, FTRL), 2
     epochs = 4 steps, with the launch counts around it: every kernel's
-    count must stay 0 (LR's gather is torch indexing and its gradient
-    autograd's `index_add_`, as both are XLA ops in the JAX package). Then
-    one step from the trained checkpoint on the card and on the CPU on
-    `batch` (the shard's first batch, parsed once for the MVM phases):
-    the loss within LOSS_RTOL, w, n and z by `ftrl_errs`. Returns the
+    count must stay 0 (LR's gather is advanced indexing, `table[slots]`,
+    and its gradient that indexing's backward, `index_put_` with
+    accumulate, as both are XLA ops in the JAX package). Then one step
+    from the trained checkpoint on the card and on the CPU on `batch` (the
+    shard's first batch, parsed once for the MVM phases): the loss within
+    LOSS_RTOL, w, n and z by `ftrl_errs`. Then the same two-pass step
+    twice on the card from that one state: whether w, n and z agree
+    bitwise is printed (a finding of the run, not a gate). Returns the
     launch counts."""
     import math
 
@@ -1299,7 +1307,26 @@ def run_lr(cfg, work: str, path: str, batch) -> dict:
         fail(f"the LR step launched a kernel ({st.LAUNCHES})")
     print(f"# lr: every kernel's launch count 0 on the main path ({launches}) and the "
           "card-vs-CPU step", flush=True)
+    print(f"# lr two-pass step twice on the card from one state: w, n, z bitwise "
+          f"{lr_repeats_bitwise(lcfg, host)} (a finding, not a gate)", flush=True)
     return launches
+
+
+def lr_repeats_bitwise(cfg, host: dict) -> dict:
+    """LR's two-pass step run twice on the card on `host` from one restored
+    state: {leaf: whether the two results agree bitwise} for w, n, z."""
+    import torch
+
+    from xflow_tpu_torch.evaluate import to_device
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(get_model("lr")(cfg), get_optimizer("ftrl"), cfg)
+    state, arrays = restored_state(cfg, DEVICE), to_device(host, DEVICE)
+    a, b = step(state, arrays)[0], step(state, arrays)[0]
+    leaves = lambda s: (s.tables["w"], s.opt_state["w"]["n"], s.opt_state["w"]["z"])  # noqa: E731
+    return {k: bool(torch.equal(x, y)) for k, x, y in zip("wnz", leaves(a), leaves(b))}
 
 
 def train_breakdown(cfg, path, kind: str) -> None:
@@ -2237,6 +2264,7 @@ def run_lab(work: str) -> list:
 
     kern = []
     tma = {key: lab.tma_result(code) for key, code in mosaic["tma"].items()}
+    floor = mosaic["floor_ms"]
     for name, key, replaces in LAB_PROBES:
         k = mosaic["kernels"][key]
         b_ms, b_by = bound_ms(k["bytes"], 0.0)
@@ -2245,9 +2273,14 @@ def run_lab(work: str) -> list:
             "replaces": replaces, "launches": launches[name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": k["library_ms"], "ms_by": k["ms_by"], "host_ms": k["host_ms"],
-            "floor_ms": mosaic["floor_ms"],
+            "floor_ms": floor, "floor_share": floor / k["ms"],
+            **({"pieces": k["pieces"]} if "pieces" in k else {}),
             **({"tma_encode": tma} if key == "d" else {}),
         })
+        pieces = f"{k['pieces']} pieces a slice, " if "pieces" in k else ""
+        print(f"# lab {name}: {pieces}{k['ms']:.5f} ms by {k['ms_by']}, launch floor "
+              f"{floor:.5f} ms, floor_share {floor / k['ms']:.3f}, bytes bound {b_ms:.7f} ms",
+              flush=True)
     b_ms, b_by = bound_ms(rowsum["bytes"], rowsum["adds"])
     kern.append({
         "name": "lab_rowsum", "route": "cuda", "source": "xflow_tpu_torch/csrc/lab_rowsum.cu",
@@ -5142,32 +5175,59 @@ def main() -> int:
         from xflow_tpu_torch.data.pipeline import batch_iterator
         from xflow_tpu_torch.serve.runner import ServeRunner
 
+        laps, marks = {}, [t_start]
+
+        def lap(name: str) -> None:  # seconds since the last lap, by phase function
+            marks.append(time.perf_counter())
+            laps[name] = round(marks[-1] - marks[-2], 1)
+
+        lap("build_and_inputs")
         gen = ServeRunner(cfg, device=DEVICE).load()
         kern = check_kernels(cfg, gen, path)
+        lap("check_kernels")
         kern += check_train_kernels(cfg, path)
+        lap("check_train_kernels")
         it = batch_iterator(path, mcfg.data)
         mvm_batch = next(it)  # parsed once for the MVM checks
         it.close()
         seg_cfg = mvm_config(cfg, mcfg.train.checkpoint_dir, **{"model.mvm_exclusive": "off"})
         kern += check_multi_kernels(seg_cfg, mvm_batch)
+        lap("check_multi_kernels")
         mvm_product = check_mvm_product_kernels(mcfg, mvm_batch)
+        lap("check_mvm_product_kernels")
         hot = check_hot_scatters()
+        lap("check_hot_scatters")
         mvm_steps_card_vs_cpu(mcfg, mvm_batch)
+        lap("mvm_steps_card_vs_cpu")
         eval_launches = run_slice(cfg, gen, path, rate_path)
+        lap("run_slice")
         train_launches, two_pass = run_training(cfg, work, path, rate_path)
+        lap("run_training")
         lr_launches = run_lr(cfg, work, path, mvm_batch)
+        lap("run_lr")
         segment = run_mvm_training(mcfg, work, path, rate_path)
+        lap("run_mvm_training")
         ffm_kern = run_ffm(cfg, work, path, rate_path)
+        lap("run_ffm")
         wide = check_wide_row_sums(cfg, path)
+        lap("check_wide_row_sums")
         lab_kern = run_lab(work)
+        lap("run_lab")
         run_serve(cfg, work, path, card)
+        lap("run_serve")
         bare = run_fleet(cfg, work, path, card)
+        lap("run_fleet")
         run_online(cfg, work, path, rate_path, card)
+        lap("run_online")
         zipf = run_observe(work, rate_path, card)
+        lap("run_observe")
         mesh = run_mesh(cfg, work, path, rate_path, card)
+        lap("run_mesh")
         launch = run_launch(cfg, work, rate_path, card)
+        lap("run_launch")
         p20 = run_phase20(cfg, work, path, rate_path, card, bare,
                           launch["multislice"]["delta_layout"])
+        lap("run_phase20")
     print(f"# launches: evaluate path {eval_launches}, training main path {train_launches}, "
           f"two-pass epoch {two_pass}, LR (the default model) {lr_launches}, "
           f"MVM segment path {segment}")
@@ -5210,6 +5270,7 @@ def main() -> int:
     for k in kern:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     total = time.perf_counter() - t_start
+    print(f"# seconds by phase function: {laps}", flush=True)
     print(f"# the smoke took {total:.1f} s (predicted {SMOKE_PREDICTED_S[0]:.0f}-"
           f"{SMOKE_PREDICTED_S[1]:.0f} s; limit 1200 s)", flush=True)
     print(card)

@@ -38,7 +38,10 @@ and the row-major route of a batch that repeats a field) and LR's steps
 (no hand-written kernel) run on
 the card against the CPU. The lab's kernels (#7-#11, `ops/lab.py`) run
 at the mosaic probe's shapes with one slice out of range (#7 also at the
-grids that split a window into 64 pieces and into none), #11 at one to
+grids that split a window into 64 pieces and into none; #8-#10 also at
+chunk 256 / 512 / 1024, R or K 1 / 11 / 24, grid 1 / 4 / 32, so at 2 to
+256 pieces a slice, with slices at the array's end and out of range),
+#11 at one to
 34 quads and at B 512, 65,536 and 2^18 (a quad column of 4 MiB), and
 `kernel_parity` runs whole. The server's runner runs on the card against
 the CPU, through a reload under a predict loop, and returns the old
@@ -934,6 +937,97 @@ def test_lab_block_scale_bitwise_at_every_split(dev, log2_rows):
     torch.cuda.synchronize()
     assert lab.LAUNCHES["mosaic_a"] == 1
     assert torch.equal(got.cpu(), table * 2)
+
+
+def _edge_offsets(n, c, grid, rng, rows):
+    """`grid` offsets: in-range ones (for a row slice offset i at row
+    residue i mod 4, each shift of the enclosing span), then the last
+    in-range one, one past it and one below 0 (as many as fit after the
+    first; grid 1 takes the last in-range one)."""
+    off = rng.integers(0, n - c + 1, grid).astype(np.int32)
+    if rows:
+        off = np.minimum((off & ~3) + np.arange(grid, dtype=np.int32) % 4, n - c)
+    edges = [n - c, n - c + (1 if rows else c), -3][: max(grid - 1, 1)]
+    off[grid - len(edges):] = edges
+    return off
+
+
+@pytest.mark.parametrize("grid", [1, 4, 32])
+@pytest.mark.parametrize("rows", [1, 11, 24])
+@pytest.mark.parametrize("chunk", [256, 512, 1024])
+def test_lab_col_slices_bitwise_at_every_shape(dev, chunk, rows, grid):
+    """#8 (f32) and #9 (i32 at one row) over `col_pieces`' pieces: a slice
+    in range, the last one and slices out of range, bitwise the plain
+    version and the numpy slices, one launch at the rule's piece count."""
+    from xflow_tpu_torch.ops import lab
+
+    n = 8192
+    rng = np.random.default_rng(chunk + rows + grid)
+    if rows == 1:
+        src = rng.integers(-(1 << 31), 1 << 31, (1, n), dtype=np.int64).astype(np.int32)
+    else:
+        src = rng.standard_normal((rows, n), dtype=np.float32)
+    off = _edge_offsets(n, chunk, grid, rng, rows=False)
+    lab.reset_launches()
+    got = lab.col_slices_cuda(torch.from_numpy(src).to(dev), torch.from_numpy(off).to(dev),
+                              chunk, grid)
+    torch.cuda.synchronize()
+    key = "mosaic_c" if rows == 1 else "mosaic_b"
+    assert lab.LAUNCHES[key] == 1
+    assert lab.PIECES[key] == lab.col_pieces(chunk, grid, lab._sms(dev))
+    want = lab.col_slices_plain(torch.from_numpy(src), torch.from_numpy(off), chunk, grid)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for t, o in enumerate(off):
+        s = (o // chunk) * chunk
+        ref = src[:, s:s + chunk] if 0 <= o and s + chunk <= n else np.zeros_like(src[:, :chunk])
+        assert got[0][t].cpu().numpy().tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("grid", [1, 4, 32])
+@pytest.mark.parametrize("k", [1, 11, 24])
+@pytest.mark.parametrize("chunk", [256, 512, 1024])
+def test_lab_row_slices_bitwise_at_every_shape(dev, chunk, k, grid):
+    """#10 over `row_pieces`' pieces: slices at every row residue mod 4
+    (each shift of the enclosing span), the last in-range one, one row
+    past it and one below 0, bitwise the plain version and numpy."""
+    from xflow_tpu_torch.ops import lab
+
+    n = 8192
+    rng = np.random.default_rng(chunk + k + grid)
+    src = rng.standard_normal((n, k), dtype=np.float32)
+    off = _edge_offsets(n, chunk, grid, rng, rows=True)
+    lab.reset_launches()
+    got = lab.row_slices_cuda(torch.from_numpy(src).to(dev), torch.from_numpy(off).to(dev),
+                              chunk, grid)
+    torch.cuda.synchronize()
+    assert lab.LAUNCHES["mosaic_d"] == 1
+    assert lab.PIECES["mosaic_d"] == lab.row_pieces(chunk, grid, lab._sms(dev))
+    want = lab.row_slices_plain(torch.from_numpy(src), torch.from_numpy(off), chunk, grid)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for t, o in enumerate(off):
+        ref = src[o:o + chunk] if 0 <= o and o + chunk <= n else np.zeros((chunk, k), np.float32)
+        assert got[0][t].cpu().numpy().tobytes() == ref.tobytes()
+
+
+def test_lab_slice_stores_land_before_the_next_kernel_reads_them(dev):
+    """The pieces' stores (#8/#9's TMA stores drain their shared memory
+    only; #10's are 16 B stores) are seen by the next kernel on the
+    stream: three calls back to back, their tiles joined and summed on
+    the card, read once, with no synchronize."""
+    from xflow_tpu_torch.ops import lab
+
+    x = {name: v.to(dev) for name, v in _lab_inputs().items()}
+    for fn, src in ((lab.col_slices_cuda, x["d_t"]), (lab.col_slices_cuda, x["sl"]),
+                    (lab.row_slices_cuda, x["d_rows"])):
+        offs = [x["off"][i:i + 4].contiguous() for i in (0, 8, 16)]
+        tiles = torch.cat([fn(src, o)[0] for o in offs])
+        total = tiles.double().sum()
+        want = torch.cat([(lab.row_slices_plain if fn is lab.row_slices_cuda
+                           else lab.col_slices_plain)(src.cpu(), o.cpu())[0] for o in offs])
+        assert torch.equal(tiles.cpu(), want)
+        assert total.item() == want.double().sum().item()
 
 
 def test_lab_tensor_maps_encode_where_the_strides_allow(dev):

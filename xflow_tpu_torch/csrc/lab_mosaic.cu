@@ -25,14 +25,25 @@
 //      threads. A 2-D tensor map cannot describe the table: its row
 //      stride, 44 B, is not a multiple of 16.
 //   #8 (B), #9 (C) a [R, C] column slice of a [R, N] array at the column
-//      (off[t] / C) * C: a 2-D tensor map over [R, N] (row stride N*4 B),
-//      loaded as C/256 boxes of [R, 256] (a box dimension holds at most
-//      256 elements). One source serves f32 (B, R 11) and i32 (C, R 1):
-//      the copy moves 4 B words, so the tiles are bitwise the slices.
+//      (off[t] / C) * C. One CTA a slice would leave 4 CTAs on 132 SMs,
+//      each running the whole slice's chain alone, so the slice is cut into
+//      P column pieces (P a power of two, from `ops/lab.py::col_pieces`:
+//      the most that keep the grid within one CTA a SM, each piece's width
+//      a multiple of 16 B and at most 256 elements), a one-warp CTA a
+//      piece: one 2-D TMA box [R, C/P] in through a tensor map over [R, N]
+//      (row stride N*4 B), one TMA store out through a second map over the
+//      tiles as [grid*R, C] with the same box (on the H100 it measured
+//      faster than the warp's 16 B stores). One source serves f32 (B, R 11)
+//      and i32 (C, R 1): the copy moves 4 B words, so the tiles are bitwise
+//      the slices.
 //   #10 (D) a [C, K] row slice of an [N, K] f32 array at the unaligned row
-//      off[t]: a 1-D bulk copy of the 16 B aligned span that encloses bytes
-//      [44*start, 44*(start + C)), then the shift in shared memory. No
-//      tensor map can describe a 44 B row stride.
+//      off[t], cut into P pieces of C/P rows (`row_pieces`: C/P a multiple
+//      of 4, so every piece's output starts on 16 B). A piece makes one
+//      1-D bulk copy of the 16 B aligned span enclosing its bytes; the
+//      shift (0, 4, 8 or 12 B) is made in registers for the warp's 16 B
+//      stores (on the H100 they measured faster than a shift into a
+//      staging area and one bulk store). No tensor map can describe a
+//      44 B row stride.
 //
 // A TPU grid runs in order, so its kernels write one scalar at every grid
 // step and the last step's value stays. The blocks here run in any order:
@@ -52,9 +63,9 @@
 
 namespace {
 
-constexpr int BOX = 256;                      // TMA: at most 256 elements a box dimension
 constexpr long long WAIT_CYCLES = 2000000000LL;  // about 1 s at the H100's clock
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;                  // #7's CTA
+constexpr int WARP = 32;                      // #8-#10's CTA: one warp a piece
 constexpr int SMEM_SLACK = 128;               // room to align the tile to 128 B
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -115,10 +126,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ void zero_block(T* out, long long n, T* scalar) {
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) out[i] = T(0);
-  if (threadIdx.x == 0) *scalar = T(0);
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Order this thread's generic-proxy writes and reads of shared memory
+// before the async proxy's (a bulk store's) reads of it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Commit this thread's bulk stores and wait until they have read their
+// shared memory, which must outlive them (the CTA may exit after this).
+__device__ __forceinline__ void bulk_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // #7: dst[piece] = scale * src[piece], one piece of `piece_floats` floats
@@ -149,70 +180,94 @@ __global__ void scale_blocks_kernel(const float* __restrict__ src, float* __rest
   }
 }
 
-// #8 / #9: block t copies the [rows, chunk] column slice at
-// (off[t] / chunk) * chunk of a [rows, cols] array of 4 B words through
-// the tensor map, as chunk / BOX boxes of [rows, BOX] (each [rows][BOX] in
-// shared memory), into tiles[t] ([rows, chunk]) and its first word into
-// scalars[t].
-__global__ void dma_cols_kernel(const __grid_constant__ CUtensorMap map,
-                                const int32_t* __restrict__ off, uint32_t* __restrict__ tiles,
-                                uint32_t* __restrict__ scalars, int rows, long long cols,
-                                int chunk) {
+// #8 / #9: CTA (p, t), one warp, copies column piece p ([rows, width] at
+// column start + p * width) of the [rows, chunk] slice at start = (off[t] /
+// chunk) * chunk of a [rows, cols] array of 4 B words into tiles[t]
+// ([rows, chunk]); piece 0 writes the slice's first word to scalars[t].
+// The offset's load is issued first; lane 0 prefetches the maps and arms the
+// barrier while it is in flight, then issues the box and, once it has
+// landed, one TMA store of it. `chunk_shift` is log2(chunk) where chunk is
+// a power of two (no division), else -1. A slice out of range is zeroed
+// by the warp's 16 B stores.
+__global__ void __launch_bounds__(WARP) dma_cols_kernel(
+    const __grid_constant__ CUtensorMap src_map, const __grid_constant__ CUtensorMap out_map,
+    const int32_t* __restrict__ off, uint32_t* __restrict__ tiles,
+    uint32_t* __restrict__ scalars, int rows, long long cols, int chunk, int chunk_shift,
+    int width, uint32_t q_magic) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   uint32_t* tile = reinterpret_cast<uint32_t*>(aligned_tile(smem_raw));
-  const int t = blockIdx.x;
+  const int p = blockIdx.x, t = blockIdx.y, lane = threadIdx.x;
   const int o = off[t];
-  const long long start = (long long)(o / chunk) * chunk;
-  uint32_t* out = tiles + (long long)t * rows * chunk;
-  if (o < 0 || start + chunk > cols) {
-    zero_block(out, (long long)rows * chunk, scalars + t);
+  if (lane == 0) {
+    prefetch_map(&src_map);
+    prefetch_map(&out_map);
+    bar_init(&bar);
+    bar_expect_tx(&bar, (uint32_t)rows * width * 4u);
+  }
+  const long long start = o < 0 ? cols
+                          : chunk_shift >= 0 ? (long long)(o >> chunk_shift) << chunk_shift
+                                             : (long long)(o / chunk) * chunk;
+  const int col = p * width;
+  const int q = width / 4;  // 16 B words a row of the piece (width is a multiple of 4)
+  uint4* out = reinterpret_cast<uint4*>(tiles + (long long)t * rows * chunk + col);
+  const int out_stride = chunk / 4;
+  // the piece's i-th 16 B word is (row i / q, column i % q): i / q is
+  // (i * q_magic) >> 31, exact for i < 2^16 (q_magic = 2^31 / q rounded up)
+  const int words = rows * q;
+  if (start + chunk > cols) {  // also off[t] < 0
+    for (int i = lane; i < words; i += WARP) {
+      const int r = (int)(((uint64_t)i * q_magic) >> 31);
+      out[r * out_stride + i - r * q] = make_uint4(0, 0, 0, 0);
+    }
+    if (p == 0 && lane == 0) scalars[t] = 0;
     return;
   }
-  if (threadIdx.x == 0) bar_init(&bar);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    bar_expect_tx(&bar, (uint32_t)rows * chunk * 4u);
-    for (int b = 0; b < chunk / BOX; ++b)
-      tma_load_2d(tile + b * rows * BOX, &map, (int)(start + b * BOX), 0, &bar);
-  }
+  if (lane != 0) return;
+  tma_load_2d(tile, &src_map, (int)start + col, 0, &bar);
   bar_wait(&bar, 0);
-  for (int i = threadIdx.x; i < rows * chunk; i += blockDim.x) {
-    const int r = i / chunk, c = i % chunk;
-    out[i] = tile[(c / BOX) * rows * BOX + r * BOX + c % BOX];
-  }
-  if (threadIdx.x == 0) scalars[t] = tile[0];
+  fence_proxy_async();
+  tma_store_2d(&out_map, tile, col, t * rows);
+  if (p == 0) scalars[t] = tile[0];
+  bulk_store_drain();
 }
 
-// #10: block t copies rows [off[t], off[t] + chunk) of an [n_rows,
-// row_floats] f32 array: one bulk copy of the enclosing 16 B aligned span,
-// then the rows from their byte offset in it.
-__global__ void dma_rows_kernel(const float* __restrict__ src, const int32_t* __restrict__ off,
-                                float* __restrict__ tiles, float* __restrict__ scalars,
-                                long long n_rows, int row_floats, int chunk) {
+// #10: CTA (p, t), one warp, copies rows [off[t] + p * piece_rows, + piece_rows)
+// of an [n_rows, row_floats] f32 array into tiles[t] at row p * piece_rows:
+// one bulk copy of the piece's enclosing 16 B aligned span, then the shift.
+// piece_rows is a multiple of 4, so the piece's output starts on 16 B and
+// the warp writes it with 16 B stores, the shift made in registers.
+__global__ void __launch_bounds__(WARP) dma_rows_kernel(
+    const float* __restrict__ src, const int32_t* __restrict__ off, float* __restrict__ tiles,
+    float* __restrict__ scalars, long long n_rows, int row_floats, int chunk, int piece_rows) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   unsigned char* span = aligned_tile(smem_raw);
-  const int t = blockIdx.x;
+  const int p = blockIdx.x, t = blockIdx.y, lane = threadIdx.x;
   const long long start = off[t];
-  const long long n = (long long)chunk * row_floats;
-  float* out = tiles + t * n;
+  if (lane == 0) bar_init(&bar);  // while the offset's load is in flight
+  const int piece_floats = piece_rows * row_floats;
+  const int q = piece_floats / 4;  // 16 B words of the piece's output
+  float4* out = reinterpret_cast<float4*>(
+      tiles + ((long long)t * chunk + (long long)p * piece_rows) * row_floats);
   if (start < 0 || start + chunk > n_rows) {
-    zero_block(out, n, scalars + t);
+    for (int i = lane; i < q; i += WARP) out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p == 0 && lane == 0) scalars[t] = 0.f;
     return;
   }
-  const long long b0 = start * row_floats * 4, b1 = b0 + n * 4;
-  const long long lo = b0 & ~15LL, hi = (b1 + 15) & ~15LL;
-  if (threadIdx.x == 0) bar_init(&bar);
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  const long long b0 = (start + (long long)p * piece_rows) * row_floats * 4;
+  const long long lo = b0 & ~15LL, hi = (b0 + (long long)piece_floats * 4 + 15) & ~15LL;
+  const int shift = (int)(b0 - lo) / 4;  // 0..3 words
+  if (lane == 0) {
     bar_expect_tx(&bar, (uint32_t)(hi - lo));
     bulk_load(span, reinterpret_cast<const unsigned char*>(src) + lo, (uint32_t)(hi - lo), &bar);
   }
+  const float* words = reinterpret_cast<const float*>(span) + shift;
+  __syncwarp();  // publishes the barrier's init to the other lanes
   bar_wait(&bar, 0);
-  const float* rows = reinterpret_cast<const float*>(span + (b0 - lo));
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) out[i] = rows[i];
-  if (threadIdx.x == 0) scalars[t] = rows[0];
+  if (p == 0 && lane == 0) scalars[t] = words[0];
+  for (int i = lane; i < q; i += WARP)
+    out[i] = make_float4(words[4 * i], words[4 * i + 1], words[4 * i + 2], words[4 * i + 3]);
 }
 
 // cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda);
@@ -294,32 +349,52 @@ extern "C" int xf_lab_scale_blocks(const void* src, void* dst, long long n_block
   return (int)cudaGetLastError();
 }
 
-// #8 / #9 over `grid` blocks. A tensor map that does not encode returns
-// minus its CUresult (NO_ENCODER without an encoder) and launches nothing.
+// #8 / #9 over `grid` slices of `pieces` column pieces each (a power of
+// two; chunk / pieces a multiple of 4 and at most 256, a TMA box's limit:
+// `ops/lab.py::col_pieces`). The source map and the map of the tiles as
+// [grid*rows, chunk] share the box [rows, chunk / pieces]. A map that does
+// not encode returns minus its CUresult (NO_ENCODER without an encoder) and
+// launches nothing.
 extern "C" int xf_lab_dma_cols(const void* src, int is_int, const void* off, void* tiles,
                                void* scalars, int rows, long long cols, int chunk, int grid,
-                               void* stream) {
-  CUtensorMap map;
-  int r = encode_2d(&map, src, is_int, cols, rows, cols * 4, BOX, rows);
+                               int pieces, void* stream) {
+  const int width = chunk / pieces;
+  int chunk_shift = -1;
+  for (int b = 0; b < 31; ++b)
+    if (chunk == 1 << b) chunk_shift = b;
+  // rows * width / 4 words a piece: at most 256 * 64 < 2^16, where the
+  // product with 2^31 / q rounded up, shifted by 31, divides by q exactly
+  const uint64_t q = (uint64_t)(width / 4);
+  const uint32_t q_magic = (uint32_t)(((1ull << 31) + q - 1) / q);
+  CUtensorMap src_map, out_map;
+  int r = encode_2d(&src_map, src, is_int, cols, rows, cols * 4, width, rows);
+  if (r == 0)
+    r = encode_2d(&out_map, tiles, is_int, chunk, (long long)grid * rows, (long long)chunk * 4,
+                  width, rows);
   if (r != 0) return -r;
-  size_t smem = (size_t)rows * chunk * 4 + SMEM_SLACK;
+  size_t smem = (size_t)rows * width * 4 + SMEM_SLACK;
   cudaError_t err = allow_smem(dma_cols_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dma_cols_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      map, (const int32_t*)off, (uint32_t*)tiles, (uint32_t*)scalars, rows, cols, chunk);
+  dma_cols_kernel<<<dim3(pieces, grid), WARP, smem, (cudaStream_t)stream>>>(
+      src_map, out_map, (const int32_t*)off, (uint32_t*)tiles, (uint32_t*)scalars, rows, cols,
+      chunk, chunk_shift, width, q_magic);
   return (int)cudaGetLastError();
 }
 
-// #10 over `grid` blocks. src must be 16 B aligned and n_rows * row_floats
-// * 4 a multiple of 16 (so the enclosing span stays inside the array).
+// #10 over `grid` slices of `pieces` row pieces each (chunk / pieces a
+// multiple of 4: `ops/lab.py::row_pieces`). src and tiles must be 16 B
+// aligned and n_rows * row_floats * 4 a multiple of 16 (so every enclosing
+// span stays inside the array). Shared memory: the span, a piece and up
+// to 16 B.
 extern "C" int xf_lab_dma_rows(const void* src, const void* off, void* tiles, void* scalars,
-                               long long n_rows, int row_floats, int chunk, int grid,
+                               long long n_rows, int row_floats, int chunk, int grid, int pieces,
                                void* stream) {
-  size_t smem = (size_t)chunk * row_floats * 4 + 32 + SMEM_SLACK;
+  const int piece_rows = chunk / pieces;
+  size_t smem = (size_t)piece_rows * row_floats * 4 + 16 + SMEM_SLACK;
   cudaError_t err = allow_smem(dma_rows_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dma_rows_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  dma_rows_kernel<<<dim3(pieces, grid), WARP, smem, (cudaStream_t)stream>>>(
       (const float*)src, (const int32_t*)off, (float*)tiles, (float*)scalars, n_rows, row_floats,
-      chunk);
+      chunk, piece_rows);
   return (int)cudaGetLastError();
 }

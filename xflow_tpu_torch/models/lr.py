@@ -2,8 +2,9 @@
 over the row's masked occurrences, one gather-sum through `batch_rows`
 (the host-deduped two-level gather when the batch carries it, see
 `data.dedup`). LR has no sorted-layout path, in the JAX package either:
-its batches are row-major, its gather is torch indexing and its gradient
-autograd's `index_add_`, so it runs no hand-written kernel.
+its batches are row-major, its gather is advanced indexing
+(`table[slots.long()]`) and its gradient that indexing's backward,
+`index_put_` with accumulate, so it runs no hand-written kernel.
 """
 
 from __future__ import annotations

@@ -53,8 +53,8 @@ SIGNATURES = {
     "lab_mosaic": [
         ("xf_lab_tma_encode", [_P, _I, _L, _L, _L, _I, _I]),
         ("xf_lab_scale_blocks", [_P, _P, _L, _I, _F, _P]),
-        ("xf_lab_dma_cols", [_P, _I, _P, _P, _P, _I, _L, _I, _I, _P]),
-        ("xf_lab_dma_rows", [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+        ("xf_lab_dma_cols", [_P, _I, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
+        ("xf_lab_dma_rows", [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     ],
     "lab_rowsum": [
         ("xf_lab_rowsum", [_P, _P, _P, _I, _L, _L, _P]),

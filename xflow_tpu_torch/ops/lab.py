@@ -4,11 +4,12 @@ probes #7-#10 of its `mosaic` suite and the row reduction #11 of its
 
 - `block_scale` (#7, `csrc/lab_mosaic.cu`): ``scale * table`` one [W, K]
   row block at a time (`suite_mosaic.fa`);
-- `col_slices` (#8 f32, #9 i32): block t copies the [R, C] column slice
-  of an [R, N] array at column ``(off[t] // C) * C`` through a TMA tensor
-  map (`fb`, `fc`);
-- `row_slices` (#10): block t copies the [C, K] row slice of an [N, K]
-  f32 array at the unaligned row ``off[t]`` (`fd`);
+- `col_slices` (#8 f32, #9 i32): tile t is the [R, C] column slice of
+  an [R, N] array at column ``(off[t] // C) * C``, copied in
+  `col_pieces` column pieces by TMA boxes (`fb`, `fc`);
+- `row_slices` (#10): tile t is the [C, K] row slice of an [N, K] f32
+  array at the unaligned row ``off[t]``, copied in `row_pieces` row
+  pieces by 1-D bulk copies (`fd`);
 - `tma_encode`: what the driver's cuTensorMapEncodeTiled says of the
   plain 2-D tensor map of an array (0 = it encodes), the counterpart of
   the TPU probe's OK/FAIL;
@@ -35,6 +36,8 @@ from xflow_tpu_torch.ops.sorted_table import _check, _on_cpu, _require_cuda
 TMA_BOX = 256  # a TMA box dimension holds at most 256 elements
 
 LAUNCHES = {"mosaic_a": 0, "mosaic_b": 0, "mosaic_c": 0, "mosaic_d": 0, "lab_rowsum": 0}
+# the pieces each slice probe's last launch cut a slice into (0: none yet)
+PIECES = {"mosaic_b": 0, "mosaic_c": 0, "mosaic_d": 0}
 
 
 def reset_launches() -> None:
@@ -130,16 +133,61 @@ def col_slices_plain(src: torch.Tensor, off: torch.Tensor, chunk: int = 512, gri
     return tiles, tiles[:, 0, 0].clone()
 
 
+def _pieces(chunk: int, grid: int, sms: int, p: int) -> int:
+    """Double `p` while the grid of grid * 2p CTAs stays within one a SM and
+    each of the 2p pieces of `chunk` stays a whole multiple of 4 words.
+
+    One CTA a SM, where #7 takes two: a piece's CTA is one warp running one
+    serial chain (offset, copy in, store), and at the probe's shapes 32
+    pieces a slice (128 CTAs) beat 64 (256) by 0.03-0.07 us for #8, #9
+    and #10 alike on an H100 80GB HBM3 at 700.00 W (PERF.md §6)."""
+    while grid * 2 * p <= sms and chunk % (2 * p) == 0 and (chunk // (2 * p)) % 4 == 0:
+        p *= 2
+    return p
+
+
+def col_pieces(chunk: int, grid: int, sms: int) -> int:
+    """Column pieces a slice of #8/#9 is cut into, a power of two: the fewest
+    whose width ``chunk // P`` fits a TMA box (256 elements), doubled while
+    ``grid * P`` stays within one CTA a SM and the width a multiple of 4
+    words (16 B). 32 pieces of [R, 16] at the probe's grid 4, chunk 512 on
+    132 SMs (128 CTAs)."""
+    p = 1
+    while chunk // p > TMA_BOX:
+        p *= 2
+    if chunk % p or (chunk // p) % 4:
+        raise ValueError(f"chunk {chunk} does not cut into TMA boxes of at most {TMA_BOX} "
+                         "elements, a multiple of 4")
+    return _pieces(chunk, grid, sms, p)
+
+
+def row_pieces(chunk: int, grid: int, sms: int) -> int:
+    """Row pieces a slice of #10 is cut into, a power of two: doubled from 1
+    while ``grid * P`` stays within one CTA a SM and ``chunk // P`` a
+    multiple of 4 rows (so each piece's output starts on 16 B whatever K).
+    32 pieces of 16 rows at the probe's grid 4, chunk 512 on 132 SMs."""
+    if chunk % 4:
+        raise ValueError(f"chunk {chunk}: a row slice's pieces need a multiple of 4 rows")
+    return _pieces(chunk, grid, sms, 1)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def col_slices_cuda(src: torch.Tensor, off: torch.Tensor, chunk: int = 512, grid: int = 4):
-    """Launch #8 (f32) or #9 (i32) of `csrc/lab_mosaic.cu`: a 2-D TMA
-    tensor map over src [R, N], each block's slice loaded as chunk / 256
-    boxes of [R, 256] under one mbarrier transaction.
+    """Launch #8 (f32) or #9 (i32) of `csrc/lab_mosaic.cu`: a CTA of one warp
+    for each of the `col_pieces` column pieces P of each slice; the piece
+    comes in as one [R, chunk / P] box of a 2-D TMA tensor map over src
+    [R, N] and leaves by one TMA store through a map over the tiles. P is
+    left in `PIECES`.
 
     Replaces `suite_mosaic.fb` / `fc` (xflow_tpu/tools/bench_lab.py:462,
-    :484). 4 blocks of 22.5 KB or 2 KB: each block's copy-in, wait and
-    store run one after another, far over the bytes bound. Raises
-    where the tensor map does not encode (R <= 256, N * 4 a multiple of 16
-    and a 16 B aligned src are what it needs)."""
+    :484). At the probe's 4 slices of 22.5 KB or 2 KB the bytes bound lies
+    far under the launch floor; the pieces spread the slices over the SMs,
+    so each CTA's chain (offset, box in, store) is short. Raises where a
+    tensor map does not encode (R <= 256, N * 4 a multiple of 16 and a
+    16 B aligned src are what it needs)."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(src, off)
@@ -150,18 +198,21 @@ def col_slices_cuda(src: torch.Tensor, off: torch.Tensor, chunk: int = 512, grid
             f"src {tuple(src.shape)}: the slice needs N a multiple of chunk {chunk}, chunk a "
             f"multiple of {TMA_BOX} and at most {TMA_BOX} rows"
         )
+    pieces = col_pieces(chunk, grid, _sms(src.device))
     tiles = torch.empty((grid, R, chunk), dtype=src.dtype, device=src.device)
     scalars = torch.empty((grid,), dtype=src.dtype, device=src.device)
-    _aligned16(src)
+    _aligned16(src, tiles)
     lib = kernels.load("lab_mosaic")
     is_int = int(src.dtype == torch.int32)
     err = _launch(src.device, lib.xf_lab_dma_cols, src.data_ptr(), is_int, off.data_ptr(),
-                  tiles.data_ptr(), scalars.data_ptr(), R, N, chunk, grid)
+                  tiles.data_ptr(), scalars.data_ptr(), R, N, chunk, grid, pieces)
     if err < 0:
-        raise RuntimeError(f"lab col_slices: the tensor map of {tuple(src.shape)} did not "
-                           f"encode ({tma_result(-err)})")
+        raise RuntimeError(f"lab col_slices: the tensor maps of {tuple(src.shape)} and its "
+                           f"tiles did not encode ({tma_result(-err)})")
     kernels.check(err, "lab col_slices")
-    LAUNCHES["mosaic_c" if is_int else "mosaic_b"] += 1
+    key = "mosaic_c" if is_int else "mosaic_b"
+    LAUNCHES[key] += 1
+    PIECES[key] = pieces
     return tiles, scalars
 
 
@@ -192,13 +243,14 @@ def row_slices_plain(src: torch.Tensor, off: torch.Tensor, chunk: int = 512, gri
 
 
 def row_slices_cuda(src: torch.Tensor, off: torch.Tensor, chunk: int = 512, grid: int = 4):
-    """Launch #10 of `csrc/lab_mosaic.cu`: one 1-D bulk copy of the 16 B
-    aligned span enclosing each block's rows, then the shift in shared
-    memory (a 44 B row stride has no tensor map).
+    """Launch #10 of `csrc/lab_mosaic.cu`: a CTA of one warp for each of the
+    `row_pieces` row pieces P of each slice; one 1-D bulk copy of the 16 B
+    aligned span enclosing the piece, then the shift in registers and 16 B
+    stores. A 44 B row stride has no tensor map. P is left in `PIECES`.
 
-    Replaces `suite_mosaic.fd` (xflow_tpu/tools/bench_lab.py:506). 4
-    blocks of 22.5 KB: each block's copy-in, wait and store run one after
-    another, far over the bytes bound."""
+    Replaces `suite_mosaic.fd` (xflow_tpu/tools/bench_lab.py:506). At the
+    probe's 4 slices of 22.5 KB the bytes bound lies far under the launch
+    floor; the pieces spread the slices over the SMs."""
     from xflow_tpu_torch.ops import kernels
 
     _require_cuda(src, off)
@@ -206,14 +258,16 @@ def row_slices_cuda(src: torch.Tensor, off: torch.Tensor, chunk: int = 512, grid
     N, K = src.shape
     if (N * K * 4) % 16:
         raise ValueError(f"src {tuple(src.shape)}: its bytes must be a multiple of 16")
+    pieces = row_pieces(chunk, grid, _sms(src.device))
     tiles = torch.empty((grid, chunk, K), dtype=src.dtype, device=src.device)
     scalars = torch.empty((grid,), dtype=src.dtype, device=src.device)
-    _aligned16(src)
+    _aligned16(src, tiles)
     lib = kernels.load("lab_mosaic")
     err = _launch(src.device, lib.xf_lab_dma_rows, src.data_ptr(), off.data_ptr(),
-                  tiles.data_ptr(), scalars.data_ptr(), N, K, chunk, grid)
+                  tiles.data_ptr(), scalars.data_ptr(), N, K, chunk, grid, pieces)
     kernels.check(err, "lab row_slices")
     LAUNCHES["mosaic_d"] += 1
+    PIECES["mosaic_d"] = pieces
     return tiles, scalars
 
 

@@ -38,7 +38,8 @@ that is asked for and missing is an error, never a fall back to the CPU.
   planner's with 8 sub-batch plans on pools of 1, 2, 4 workers.
 
 `mosaic` also reads the launch floor: a one-element `torch.zeros` fill
-by the same profiler (`floor_ms`).
+by the same profiler (`floor_ms`), and on the card gives the pieces #8-#10
+cut each slice into (`pieces`, `ops/lab.py::col_pieces` / `row_pieces`).
 
 Each suite function takes its shapes as keyword arguments with the JAX
 values as defaults (so tests run them small), prints what the JAX suite
@@ -402,6 +403,21 @@ def _same(got, want, what: str) -> None:
         raise AssertionError(f"{what} differs from the slice it copies")
 
 
+def mosaic_inputs(seed: int = 0, block_rows: int = 512, chunk: int = 512, k: int = 11,
+                  log2_slots: int = 14, log2_n: int = 13) -> dict:
+    """`suite_mosaic`'s arrays from `seed`, as numpy: #7's table [S, K],
+    #8's d_t [K, N], #9's sl_row [1, N], #10's d_rows [N, K] and the
+    offsets `off` (S / block_rows + 1 of them, each a slice in range)."""
+    S, N = 1 << log2_slots, 1 << log2_n
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((S, k), dtype=np.float32)
+    d_t = rng.standard_normal((k, N), dtype=np.float32)
+    sl_row = rng.integers(-(1 << 31), 1 << 31, (1, N), dtype=np.int64).astype(np.int32)
+    d_rows = rng.standard_normal((N, k), dtype=np.float32)
+    off = rng.integers(0, N - chunk + 1, S // block_rows + 1).astype(np.int32)
+    return {"table": table, "d_t": d_t, "sl_row": sl_row, "d_rows": d_rows, "off": off}
+
+
 def suite_mosaic(argv=(), *, device: str = "cuda", block_rows: int = 512, chunk: int = 512,
                  k: int = 11, log2_slots: int = 14, log2_n: int = 13, grid: int = 4,
                  transpose_log2: int = 22, seed: int = 0, iters: int = 6, inner: int = 20) -> dict:
@@ -419,13 +435,9 @@ def suite_mosaic(argv=(), *, device: str = "cuda", block_rows: int = 512, chunk:
 
     dev = resolve_device(device)
     W, C, K = block_rows, chunk, k
-    S, N = 1 << log2_slots, 1 << log2_n
-    rng = np.random.default_rng(seed)
-    table = rng.standard_normal((S, K), dtype=np.float32)
-    d_t = rng.standard_normal((K, N), dtype=np.float32)
-    sl_row = rng.integers(-(1 << 31), 1 << 31, (1, N), dtype=np.int64).astype(np.int32)
-    d_rows = rng.standard_normal((N, K), dtype=np.float32)
-    off = rng.integers(0, N - C + 1, S // W + 1).astype(np.int32)
+    S = 1 << log2_slots
+    x = mosaic_inputs(seed, W, C, K, log2_slots, log2_n)
+    table, d_t, sl_row, d_rows, off = (x[n] for n in ("table", "d_t", "sl_row", "d_rows", "off"))
     on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     t_table, t_dt, t_sl, t_rows, t_off = map(on, (table, d_t, sl_row, d_rows, off))
 
@@ -511,7 +523,10 @@ def suite_mosaic(argv=(), *, device: str = "cuda", block_rows: int = 512, chunk:
         t = dev_t if by == "torch.profiler" else host
         rec[key] = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
                     "ms_by": by, "host_ms": host, "bytes": library[key][1], "max_abs_err": 0.0}
-        print(f"{name}: {t['kernel']:.4f} ms (plain {t['plain']:.4f}, library "
+        if key != "a" and dev.type == "cuda":  # the pieces #8-#10 launched with
+            rec[key]["pieces"] = lab.PIECES[f"mosaic_{key}"]
+        cut = f", {rec[key]['pieces']} pieces a slice" if "pieces" in rec[key] else ""
+        print(f"{name}{cut}: {t['kernel']:.5f} ms (plain {t['plain']:.4f}, library "
               f"{t['library']:.4f}) by {by}; back-to-back calls {host['kernel']:.4f} (plain "
               f"{host['plain']:.4f}, library {host['library']:.4f})")
 
