@@ -206,7 +206,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    /healthz 3 healthy on step 3, circuit_open and circuit_close in the
    router stream, 256 rows through the router equal to the evaluate path
    on step 3 within PCTR_ATOL, and SIGTERM exits 0 after the router's
-   drain. Then the same closed loop for 6 s, no faults, against fleets
+   drain. Then the same closed loop for 4 s, no faults, against fleets
    of 1, 2 and 4 replicas and the bare `serve`: requests/s, rows/s,
    p50/p99, the windows' device and queue-wait p99, and the CPU seconds
    of the router, each replica and the client (/proc/<pid>/stat) over
@@ -233,15 +233,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every loss within 1e-5, the final w, n, z by `ftrl_errs`, the last
    commit bitwise the live state; (d) the fit loop's stall per save at
    FM width (synchronous, then async with and without the pinned
-   allocation, and the writer's `write_ms`), two snapshots of FM's and of
-   phase 13's FFM state (host time, pinned allocation, the copy's wait
-   and rate, the card's memory before, at the peak and after), and
-   FFM's synchronous save; (e) `train --device cuda` in tail mode as a
+   allocation, and the writer's `write_ms`), two snapshots of FM's state
+   and of an FFM-width state made on the card (host time, pinned
+   allocation, the copy's wait and rate, the card's memory before, at
+   the peak and after: no allocation on the card); (e) `train --device
+   cuda` in tail mode as a
    subprocess, SIGTERM after its second publication: exit 0, one
    `interrupted` record, its newest committed step the step it reached,
    and a resumed `train` restoring it;
 17. the trainer's observability on Zipf data at FM width (`run_observe`):
-   the port's `gen-data --bulk --zipf-alpha 1.05` writes a 20-batch train
+   the port's `gen-data --bulk --zipf-alpha 1.05` writes a 12-batch train
    shard and a 2-batch test shard sharing the planted truth (rate and the
    first batch's longest slot run printed); `train --device cuda` (the
    CLI's main in a subprocess, in a work dir) runs 2 epochs with
@@ -249,18 +250,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    s hang watchdog, the trace window over steps 5-7, `eval_every=1` and
    the test shard. It fails unless every record has the JAX trainer's
    keys for these flags (less its roofline gauges), the window steps run
-   1..40 with the last loss the summary's, both `eval_auc` exceed 0.5,
+   1..24 with the last loss the summary's, both `eval_auc` exceed 0.5,
    `pred_0_0.txt` holds the test shard's rows, the heartbeat has start,
    2 evals, a beat a step and final, the watchdog never dumped, the trace
-   holds #1-#3 by kernel name, and the launches are exact (#1 and #2 40 +
-   6 eval batches, #3 40, #4-#6 0). It prints the window split, the
+   holds #1-#3 by kernel name, and the launches are exact (#1 and #2 24 +
+   6 eval batches, #3 24, #4-#6 0). It prints the window split, the
    pipeline stages and verdict, and #1-#3's mean trace time on Zipf
    batches beside their uniform times; #4 (K = 11, flat) and #6 (K = 10,
    4 stacked buffers) on the first Zipf batch's plans and the uniform
    rate shard's first batch's, bitwise against their plain versions,
    timed beside `zeros` + `index_add_` (`check_zipf_scatters`); then 1
    epoch with the guard off and 1 with the guard and every record off,
-   their examples/s and split;
+   `Trainer.fit` in this process, their steps, #3's launches, examples/s
+   and split;
 18. the multi-device engines (`run_mesh`) as a world of one NCCL rank
    over a TCPStore on localhost (the machine holds one card, and NCCL
    puts no two ranks of a communicator on one device: a world of 2 here
@@ -290,16 +292,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 19. the launch layer (`run_launch`), FM at full width over phase 3's
    rate shard cut into two slice shards of 6 batches: (1) `python -m
    xflow_tpu_torch launch-multislice --slices 2` (bounded sync, K = 1, a
-   round every 4 steps, a snapshot every 2 rounds; 2 epochs, 12 steps a
-   slice), each slice a process on this one card (its /dev/nvidia* open)
-   with a trace window naming #1-#3, kind="sync" records and
+   round every 6 steps, no snapshot; 2 epochs, 12 steps a slice), each
+   slice a process on this one card (its /dev/nvidia* open), kind="sync"
+   records and
    `slice_sync` spans in each stream (each round's split printed: copy
    off the card, npz write, wait, read and apply, copy back, snapshot;
    its bytes), and each slice's last checkpoint the initial state plus
    every delta it folded in, summed on the host in float64 (normwise
    within 1e-5: float32 sums in another order); beside it one slice
-   alone with sync off, examples/s each; (2) the same launch with slice
-   1 killed entering round 2 (`XFLOW_FAULT_SLICE_KILL_ROUND`) and
+   alone with sync off, examples/s each; (2) the same launch with a round
+   every 4 steps, a snapshot every 2 rounds and a trace window naming
+   #1-#3 in each slice, slice 1 killed entering round 2
+   (`XFLOW_FAULT_SLICE_KILL_ROUND`) and
    `--max-restarts 1`: slice 0 finishes, slice 1 leaves the sync group,
    rejoins at gen 1 on the card and adopts a snapshot, the job exits 0;
    (3) `launch-local --num-processes 1 --device cuda --max-restarts 1`
@@ -710,9 +714,9 @@ def python_batches(path, cfg):
     from xflow_tpu_torch.data.libffm import iter_examples
     from xflow_tpu_torch.data.pipeline import examples_to_batches
 
-    d = cfg.data
+    data = cfg.data
     return itertools.islice(examples_to_batches(
-        iter_examples(path, d.log2_slots, d.hash_salt), d.batch_size, d.max_nnz),
+        iter_examples(path, data.log2_slots, data.hash_salt), data.batch_size, data.max_nnz),
         PYTHON_BATCHES)
 
 
@@ -2702,7 +2706,7 @@ def run_serve(cfg, work: str, path: str, card: str) -> None:
     lap("the FFM load")
 
 
-FLEET_DRILL_SECONDS, FLEET_SECONDS = 15.0, 6.0  # the drill; each pace loop
+FLEET_DRILL_SECONDS, FLEET_SECONDS = 15.0, 4.0  # the drill; each pace loop
 FLEET_CORRUPT_AT, FLEET_GOOD_AT = 4.0, 8.0  # seconds into the drill
 FLEET_KILL_BATCHES = 25
 FLEET_SIZES = (1, 2, 4)
@@ -3421,25 +3425,16 @@ def run_online(cfg, work: str, path: str, rate_path: str, card: str) -> None:
     torch.cuda.empty_cache()
     lap("(d) the stall at FM width")
 
-    from xflow_tpu_torch.train.checkpoint import restore_state
-    from xflow_tpu_torch.train.state import TrainState
-    from xflow_tpu_torch.weights import table_shapes
+    # the snapshot at FFM width, of a state made on the card (what the
+    # snapshot copies, not its values, is what the leg checks)
+    from xflow_tpu_torch.models import get_model
+    from xflow_tpu_torch.optim import get_optimizer
+    from xflow_tpu_torch.train.state import init_state
 
     fcfg = ffm_config(cfg, os.path.join(work, "ck_ffm"))
-    restored = restore_state(fcfg.train.checkpoint_dir, table_shapes(fcfg), ("n", "z"))
-    fstate = restored_state(fcfg, DEVICE, restored)
-    del restored
-    tf = Trainer(override(fcfg, **{"train.checkpoint_dir": os.path.join(root, "ffm_sync")}),
-                 device=DEVICE)
-    tf.state = TrainState(fstate.tables, fstate.opt_state, fstate.step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tf.save_checkpoint()
-    ffm_sync_s = time.perf_counter() - t0
-    print(f"# online: FFM's synchronous save ({tf._state_nbytes() / 1e6:.1f} MB) on {card}: "
-          f"{ffm_sync_s:.2f} s of the fit loop's time", flush=True)
-    snapshot_report(tf.state, "FFM", card)
-    del tf, fstate
+    fstate = init_state(get_model("ffm")(fcfg), get_optimizer(fcfg.optim.name), fcfg, DEVICE)
+    snapshot_report(fstate, "FFM", card)
+    del fstate
     torch.cuda.empty_cache()
     lap("(d) the stall at FFM width")
 
@@ -3562,7 +3557,8 @@ def drill(cfg, root: str, rate_path: str) -> None:
 
 
 OBS_ALPHA = 1.05  # bench.py's Zipf draw (bench.py:205-216)
-OBS_TRAIN_ROWS, OBS_TEST_ROWS = RATE_BATCHES * BATCH, 2 * BATCH
+OBS_BATCHES = 12  # the Zipf train shard's batches, so an epoch's steps
+OBS_TRAIN_ROWS, OBS_TEST_ROWS = OBS_BATCHES * BATCH, 2 * BATCH
 OBS_TRACE_START, OBS_TRACE_STEPS = 5, 3
 OBS_STAMP = {"ts", "rank", "run_id", "gen", "world"}
 OBS_HBM = {"hbm_bytes_in_use", "hbm_peak_bytes", "hbm_bytes_limit"}
@@ -3823,7 +3819,7 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
         "--set", f"train.trace_num_steps={OBS_TRACE_STEPS}", "--set", "train.eval_every=1"))
     wall = time.perf_counter() - t0
     summary = json.loads(out.strip().splitlines()[-1])
-    steps = 2 * RATE_BATCHES
+    steps = 2 * OBS_BATCHES
     if (summary["steps"], summary["epochs"], summary["bad_steps"]) != (steps, 2, 0):
         fail(f"observe: train summary {summary}")
     recs = read_jsonl(os.path.join(root, "run", "metrics_rank0.jsonl"))
@@ -3873,7 +3869,7 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
     traced = trace_kernels(os.path.join(root, "prof"))
     if not all(traced.values()):
         fail(f"observe: the trace window holds no {[k for k, v in traced.items() if not v]}")
-    print(f"# observe: train 2 epochs x {RATE_BATCHES} steps, every flag on, on {card}: "
+    print(f"# observe: train 2 epochs x {OBS_BATCHES} steps, every flag on, on {card}: "
           f"{wall:.1f} s wall, {summary['examples_per_sec']} examples/s; auc {aucs} then "
           f"{summary['auc']}; window split (median / mean) {window_split(recs)}", flush=True)
     prs = kinds["pipeline"]
@@ -3906,19 +3902,33 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
               f"the uniform rate shard by the same trace {ums:.4f} ms ({len(uniform[k])} "
               f"launches)", flush=True)
 
-    # (3) 1 epoch, guard off; then guard and observability off
+    # (3) 1 epoch, guard off; then guard and observability off: the
+    # trainer in this process (the CLI's path ran in (2))
+    from xflow_tpu_torch.ops import sorted_table as st
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    base = override(Config(), **{
+        "model.name": "fm", "model.v_dim": V_DIM, "model.num_fields": NUM_FIELDS,
+        "data.max_nnz": NUM_FIELDS, "data.batch_size": BATCH, "data.log2_slots": LOG2_SLOTS,
+        "data.train_path": os.path.join(root, "train"), "train.epochs": 1,
+        "train.nonfinite_guard": "off"})
     for what, run in (("guard off, observability on", "run_noguard"),
                       ("guard off, observability off", "")):
-        extra = obs_flags(run) if run else ["--set", "train.log_every=0"]
-        out, _, rl = port_cli(root, *obs_train_argv(1, "--set", "train.nonfinite_guard=off",
-                                                    *extra))
-        s = json.loads(out.strip().splitlines()[-1])
-        if s["steps"] != RATE_BATCHES or rl["scatter_ftrl"] != RATE_BATCHES:
-            fail(f"observe: {what}: summary {s}, launches {rl}")
+        extra = {"train.log_every": 0}
+        if run:
+            flags = obs_flags(os.path.join(root, run))
+            extra = dict(kv.split("=", 1) for kv in flags[1::2])
+        trainer = Trainer(override(base, **extra), device=DEVICE)
+        st.reset_launches()
+        res = trainer.fit()
+        rl = dict(st.LAUNCHES)
+        if res.steps != OBS_BATCHES or rl["scatter_ftrl"] != OBS_BATCHES:
+            fail(f"observe: {what}: {res.steps} steps, launches {rl}")
         split = (window_split(read_jsonl(os.path.join(root, run, "metrics_rank0.jsonl")))
                  if run else "no records")
-        print(f"# observe: train 1 epoch, {what}: {s['examples_per_sec']} examples/s; "
-              f"window split (median / mean) {split}", flush=True)
+        print(f"# observe: train 1 epoch in process, {what}: {res.examples_per_sec:.1f} "
+              f"examples/s; window split (median / mean) {split}", flush=True)
+        del trainer
     print(f"# observe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {**zipf, **scatters}
 
@@ -4269,6 +4279,7 @@ def run_mesh(cfg, work: str, path: str, rate_path: str, card: str) -> dict:
 # ------------------------------------------------------------ phase 19
 LAUNCH_SLICE_BATCHES = 6  # a slice's shard: 6 batches of the rate shard's rows
 LAUNCH_EPOCHS = 2  # 12 steps a slice
+LAUNCH_RATE_EVERY = 6  # (1)'s sync cadence: 2 rounds in the loop, then the final one
 LAUNCH_TRACE_START, LAUNCH_TRACE_STEPS = 5, 2
 LAUNCH_TIMEOUT_S = 300  # a launch command's whole run
 SYNC_SUM_RTOL = 1e-5  # normwise: float32 sums of the deltas in another order
@@ -4442,9 +4453,10 @@ def check_delta_sum(cfg, run: str, j: int, recs: list, sums: dict) -> float:
 def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
     """Phase 19, the launch layer on the card: (1) `launch-multislice
     --slices 2` of FM at full width, both slices on the card, bounded
-    sync (K = 1, a round every 4 steps, a snapshot every 2 rounds) with a
-    trace window in each, beside one slice alone with sync off; (2) the
-    same launch with slice 1 killed entering round 2 and relaunched;
+    sync (K = 1, a round every LAUNCH_RATE_EVERY steps, no snapshot),
+    beside one slice alone with sync off; (2) the same launch with a
+    round every 4 steps, a snapshot every 2 rounds and a trace window in
+    each slice, slice 1 killed entering round 2 and relaunched;
     (3) `launch-local --num-processes 1` killed after step 5 and
     restarted, against the uninterrupted run of (1); (4) a checkpoint a
     2-rank CPU world wrote, resumed on the card in a world of one,
@@ -4473,9 +4485,14 @@ def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
     steps = LAUNCH_SLICE_BATCHES * LAUNCH_EPOCHS
     print(f"# launch phase: {len(shards)} slice shards of {LAUNCH_SLICE_BATCHES} x {BATCH} "
           f"rows; {free:.0f} GB free on the work dir's disk", flush=True)
-    sync_flags = ["--set", "sync.mode=bounded", "--set", "sync.staleness_k=1",
-                  "--set", "sync.every_steps=4", "--set", "sync.snapshot_every=2",
-                  "--set", "sync.timeout_s=60", "--set", "sync.retries=0"]
+    def sync_flags(every: int, snapshot_every: int) -> list:
+        return ["--set", "sync.mode=bounded", "--set", "sync.staleness_k=1",
+                "--set", f"sync.every_steps={every}",
+                "--set", f"sync.snapshot_every={snapshot_every}",
+                "--set", "sync.timeout_s=60", "--set", "sync.retries=0"]
+
+    # (1)'s rounds: in the loop every LAUNCH_RATE_EVERY steps, then the final
+    want_rounds = list(range(1, steps // LAUNCH_RATE_EVERY + 2))
     trace_flags = ["--set", f"train.trace_start_step={LAUNCH_TRACE_START}",
                    "--set", f"train.trace_num_steps={LAUNCH_TRACE_STEPS}"]
 
@@ -4484,7 +4501,7 @@ def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
     ms = os.path.join(root, "ms")
     r = run_launcher(["launch-multislice", "--slices", "2", "--run-dir", ms, "--",
                       *fm_args(os.path.join(root, "slice{slice}"), os.path.join(ms, "ck{slice}"),
-                               *sync_flags)],
+                               *sync_flags(LAUNCH_RATE_EVERY, 0))],
                      root, os.path.join(root, "ms"), launch_env())
     if r["rc"] != 0:
         fail(f"launch-multislice exited {r['rc']}: {open(os.path.join(root, 'ms.err')).read()[-3000:]}")
@@ -4495,7 +4512,7 @@ def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
     for j in range(2):
         recs = read_jsonl(os.path.join(ms, f"metrics_rank{j}.jsonl"))
         rounds = sync_rounds(recs)
-        if [x[0] for x in rounds] != [1, 2, 3, 4] or not all(x[2] for x in rounds):
+        if [x[0] for x in rounds] != want_rounds or not all(x[2] for x in rounds):
             fail(f"multislice: slice {j}'s sync records and spans {[x[0] for x in rounds]}")
         (final,) = [x for x in recs if x.get("final")]
         if (final["steps"], final["examples"]) != (steps, steps * BATCH):
@@ -4530,8 +4547,9 @@ def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
         "rounds": splits,
     }
     print(f"# multislice on {card}: 2 slices x {steps} steps of {BATCH} rows, bounded K=1, a "
-          f"round every 4 steps: {rates[0]:.1f} and {rates[1]:.1f} examples/s (final records: "
-          f"the fit's time, 3 in-loop rounds in it), {r['wall_s']:.1f} s wall; one slice alone, "
+          f"round every {LAUNCH_RATE_EVERY} steps, no snapshot: {rates[0]:.1f} and "
+          f"{rates[1]:.1f} examples/s (final records: the fit's time, "
+          f"{len(want_rounds) - 1} in-loop rounds in it), {r['wall_s']:.1f} s wall; one slice alone, "
           f"sync off: {solo_rate:.1f} examples/s, {solo_wall:.1f} s wall; its launches "
           f"{solo_launches}", flush=True)
     if any(solo_launches[k] != steps for k in ("gather_sorted", "row_sums", "scatter_ftrl")):
@@ -4546,7 +4564,7 @@ def run_launch(cfg, work: str, rate_path: str, card: str) -> dict:
     r = run_launcher(["launch-multislice", "--slices", "2", "--run-dir", kill,
                       "--max-restarts", "1", "--restart-backoff", "0.5", "--",
                       *fm_args(os.path.join(root, "slice{slice}"),
-                               os.path.join(kill, "ck{slice}"), *sync_flags, *trace_flags,
+                               os.path.join(kill, "ck{slice}"), *sync_flags(4, 2), *trace_flags,
                                "--set", f"train.profile_dir={os.path.join(kill, 'prof{slice}')}",
                                "--set", "train.checkpoint_every=4")],
                      root, os.path.join(root, "kill"),
@@ -4767,7 +4785,7 @@ CAPI_ROWS = ("0:f0x 1:f1y 2:f2z", "1\t3:abc 7:q 12:r", "4:s 5:t 6:u 17:v")
 MESH_SYNC_BATCHES = 4  # a mesh slice's shard: 4 steps, one round (the final)
 # the legs' budgets (s) and the whole smoke's prediction, written before the run
 PHASE20_BUDGET_S = {"serve_world": 45.0, "c_api": 60.0, "mesh_sync": 45.0}
-SMOKE_PREDICTED_S = (850.0, 1000.0)
+SMOKE_PREDICTED_S = (740.0, 1000.0)
 
 
 def free_port() -> int:

@@ -63,8 +63,9 @@ def _env():
     return env
 
 
-def _world(ck, mesh, *extra, world=2):
-    """Start a serve world of `world` CPU ranks; returns the processes."""
+def _world(ck, mesh, *extra, world=2, ranks=None):
+    """Start a serve world of `world` CPU ranks (or only `ranks` of it);
+    returns the processes."""
     coord = f"127.0.0.1:{_free_port()}"
     return [subprocess.Popen(
         [sys.executable, "-m", "xflow_tpu_torch", "serve", "--checkpoint-dir", str(ck),
@@ -75,7 +76,7 @@ def _world(ck, mesh, *extra, world=2):
          "--set", f"mesh.table={mesh[1]}", "--coordinator", coord,
          "--num-processes", str(world), "--process-id", str(k), *extra],
         cwd=REPO_ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for k in range(world)]
+        for k in (range(world) if ranks is None else ranks)]
 
 
 def _ready(proc):
@@ -231,6 +232,19 @@ def test_serve_world_refusals_exit_2(served, case):
             else "serve: --no-mesh with a world of several processes")
     assert want in results[0][1]
     assert all("warmed up" not in err for _, err in results)  # no port was bound
+
+
+@pytest.mark.parametrize("case", ["max_batch", "no_mesh"])
+def test_a_refused_serve_world_exits_before_its_rendezvous(served, case):
+    """A rank refuses from its flags before it joins the world: rank 0
+    of a world of 2 whose rank 1 never starts exits 2 at once. (Refused
+    after the rendezvous, a rank could exit while its peer was still
+    setting up the mesh's groups, and the peer then died with exit 1 on
+    the closed connection instead of refusing.)"""
+    extra = ("--max-batch", "15") if case == "max_batch" else ("--no-mesh",)
+    (proc,) = _world(served["ck"], (2, 1), *extra, ranks=(0,))
+    ((rc, err),) = _finish([proc], sig=0)
+    assert rc == 2, err
 
 
 def test_max_batch_error_is_the_jax_message():

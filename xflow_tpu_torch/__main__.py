@@ -115,6 +115,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from typing import Optional
 
 MODEL_INDEX = {"0": "lr", "1": "fm", "2": "mvm"}
 
@@ -179,12 +180,37 @@ def cmd_serve(args) -> int:
         print(f"serve: --device {args.device}: no CUDA device (torch.cuda.is_available() is "
               "false); pass --device cpu to serve from the CPU", file=sys.stderr)
         return 2
+    refusal = _serve_world_refusal(args)
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
     rank = maybe_initialize(args.coordinator, args.num_processes, args.process_id,
                             device=args.device)
     try:
         return _serve(args, rank)
     finally:
         shutdown()
+
+
+def _serve_world_refusal(args) -> Optional[str]:
+    """Why a serve world of the flags must not start (a `--no-mesh`
+    world, a max batch that does not split over the data axis), or None.
+    Each rank decides it from its flags before it joins the world, so no
+    rank waits in the rendezvous or a group's setup on a peer that has
+    already exited."""
+    from xflow_tpu_torch.parallel.distributed import requested_world
+
+    world = requested_world(args.coordinator, args.num_processes)
+    if world == 1:
+        return None
+    if args.no_mesh:
+        return ("serve: --no-mesh with a world of several processes would serve from each "
+                "rank alone; drop --no-mesh, or run one process")
+    from xflow_tpu_torch.parallel.mesh import mesh_shape
+    from xflow_tpu_torch.serve.runner import max_batch_error
+
+    cfg = build_config(args)
+    return max_batch_error(cfg.serve.max_batch, mesh_shape(cfg, world)[0])
 
 
 def _serve(args, rank: int) -> int:
@@ -197,22 +223,13 @@ def _serve(args, rank: int) -> int:
     world = dist.get_world_size() if dist.is_initialized() else 1
     mesh, device = None, args.device
     if world > 1:
-        if args.no_mesh:
-            print("serve: --no-mesh with a world of several processes would serve from each "
-                  "rank alone; drop --no-mesh, or run one process", file=sys.stderr)
-            return 2
         from xflow_tpu_torch.parallel.distributed import local_device
         from xflow_tpu_torch.parallel.mesh import make_mesh
-        from xflow_tpu_torch.serve.runner import max_batch_error
 
         device = local_device(args.device, rank, world)
         mesh = make_mesh(cfg, device=device)
         if torch.device(device).type == "cpu":
             device = "cpu"
-        err = max_batch_error(cfg.serve.max_batch, mesh.data)
-        if err:
-            print(err, file=sys.stderr)
-            return 2
     try:
         return serve_main(cfg, device=device, mesh=mesh)
     except (FileNotFoundError, RuntimeError) as e:

@@ -30,11 +30,14 @@ import subprocess
 import sys
 import tempfile
 import threading
-from typing import Iterator
+from typing import TYPE_CHECKING, Iterator
 
 import numpy as np
 
 from xflow_tpu_torch.data.schema import SparseBatch
+
+if TYPE_CHECKING:  # the config type only
+    from xflow_tpu_torch.config import DataConfig
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "native", "parser.cc")
@@ -235,7 +238,7 @@ class _NativeBatchStream:
     newline-aligned blocks, reassembled in file order: byte-identical
     batches)."""
 
-    def __init__(self, path: str, cfg, batch_size: int):
+    def __init__(self, path: str, cfg: DataConfig, batch_size: int):
         self.lib = get_lib()
         if not os.path.exists(path):
             raise FileNotFoundError(path)
@@ -304,7 +307,7 @@ class _NativeBatchStream:
                   f"data.max_nnz={self.cfg.max_nnz}", file=sys.stderr)
 
 
-def native_batch_iterator(path: str, cfg, batch_size: int) -> Iterator[SparseBatch]:
+def native_batch_iterator(path: str, cfg: DataConfig, batch_size: int) -> Iterator[SparseBatch]:
     """Padded `[batch_size, max_nnz]` batches of libffm file `path` by the
     native parser (`cfg.parser_threads` workers); the last partial batch
     is padded and row-masked."""

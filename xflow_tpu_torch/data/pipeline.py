@@ -37,13 +37,16 @@ import queue
 import sys
 import threading
 import time
-from typing import Iterable, Iterator, Optional
+from typing import TYPE_CHECKING, Iterable, Iterator, Optional
 
 import numpy as np
 
 from xflow_tpu_torch.data.libffm import QuarantineWriter
 from xflow_tpu_torch.data.schema import SparseBatch, make_batch
 from xflow_tpu_torch.jsonl import JsonlAppender
+
+if TYPE_CHECKING:  # the config type only
+    from xflow_tpu_torch.config import DataConfig
 
 # the process's run total of the JAX package's `data.quarantined_rows`
 COUNTERS = {"quarantined_rows": 0}
@@ -66,7 +69,7 @@ def bad_row_indices(batch: SparseBatch) -> np.ndarray:
 
 def monitor_bad_rows(
     batches: Iterator[SparseBatch],
-    cfg,
+    cfg: DataConfig,
     path: str,
     enforce: bool = True,
     quarantine: bool = True,
@@ -140,7 +143,7 @@ def skip_batches(batches: Iterator[SparseBatch], n: int) -> Iterator[SparseBatch
 
 def batch_iterator(
     path: str,
-    cfg,
+    cfg: DataConfig,
     batch_size: Optional[int] = None,
     enforce_bad_rows: bool = True,
     quarantine: bool = True,
@@ -159,7 +162,7 @@ def batch_iterator(
                                 quarantine=quarantine)
 
 
-def _cache_batch_iterator(path: str, cfg, bs: int,
+def _cache_batch_iterator(path: str, cfg: DataConfig, bs: int,
                           profiler=None) -> Optional[Iterator[SparseBatch]]:
     """The verified cache's batch iterator for text shard `path`, or None
     to read the text. A cache that fails its digest, or cannot be opened,
@@ -204,7 +207,7 @@ def _cache_batch_iterator(path: str, cfg, bs: int,
     return sc.iter_batches(bs, profiler=profiler)
 
 
-def _raw_batch_iterator(path: str, cfg, batch_size: Optional[int] = None,
+def _raw_batch_iterator(path: str, cfg: DataConfig, batch_size: Optional[int] = None,
                         profiler=None) -> Iterator[SparseBatch]:
     from xflow_tpu_torch.data.native import native_batch_iterator
 
@@ -228,7 +231,7 @@ def _raw_batch_iterator(path: str, cfg, batch_size: Optional[int] = None,
         yield b
 
 
-def count_batches(path: str, cfg, batch_size: Optional[int] = None) -> int:
+def count_batches(path: str, cfg: DataConfig, batch_size: Optional[int] = None) -> int:
     """Batches `batch_iterator` yields for the text of `path`, from the
     native row counter."""
     from xflow_tpu_torch.data.native import native_count_rows
@@ -350,7 +353,7 @@ class IngestSegment:
     ingest_ts: float  # wall anchor: when the segment sealed
 
 
-def stream_dir_for(prefix: str, cfg) -> str:
+def stream_dir_for(prefix: str, cfg: DataConfig) -> str:
     """Where a tail follower spools segments: data.stream_dir, or an
     `.xfstream` dir beside the watched shards."""
     if cfg.stream_dir:
@@ -377,7 +380,7 @@ class TailFollower:
     follow forever); `close()` ends it at once, from any thread.
     `clock`/`wall` are injectable for tests."""
 
-    def __init__(self, prefix: str, cfg, appender=None, clock=time.monotonic,
+    def __init__(self, prefix: str, cfg: DataConfig, appender=None, clock=time.monotonic,
                  wall=time.time):
         self._prefix = prefix
         self._cfg = cfg

@@ -44,11 +44,14 @@ import os
 import struct
 import sys
 import zlib
-from typing import Iterator, Optional
+from typing import TYPE_CHECKING, Iterator, Optional
 
 import numpy as np
 
 from xflow_tpu_torch.data.schema import SparseBatch
+
+if TYPE_CHECKING:  # the config type only
+    from xflow_tpu_torch.config import DataConfig
 
 MAGIC = b"XFSC"
 VERSION = 1
@@ -138,7 +141,7 @@ def _crc(running: int, arr: np.ndarray) -> int:
 
 
 def write_shard_cache(
-    text_path: str, cfg, cache_path: str = ""
+    text_path: str, cfg: DataConfig, cache_path: str = ""
 ) -> dict:
     """Parse one libffm text shard ONCE and write its packed cache;
     returns {'rows': n, 'bytes': total}.
@@ -243,7 +246,7 @@ def write_shard_cache(
     return {"rows": rows, "bytes": os.path.getsize(cache_path)}
 
 
-def build_cache(prefix: str, cfg, force: bool = False) -> dict:
+def build_cache(prefix: str, cfg: DataConfig, force: bool = False) -> dict:
     """Cache every existing `<prefix>-NNNNN` text shard. Shards whose
     cache is already fresh for this config are skipped unless `force`
     (incremental rebuilds after appending shards). Returns
@@ -311,7 +314,7 @@ class ShardCache:
 
     # ------------------------------------------------------- validation
     def check_compatible(
-        self, cfg, text_path: str = ""
+        self, cfg: DataConfig, text_path: str = ""
     ) -> None:
         """Raise ShardCacheStale unless this cache was written with the
         run's hash parameters and still matches its source file. The
@@ -498,7 +501,7 @@ def open_shard_cache(path: str) -> ShardCache:
     return ShardCache(path, footer)
 
 
-def resolve_cache(path: str, cfg) -> Optional[ShardCache]:
+def resolve_cache(path: str, cfg: DataConfig) -> Optional[ShardCache]:
     """The pipeline's auto-detect seam (data.cache):
     the VERIFIED cache for text shard `path`, or None to take the text
     path. Raising semantics are the policy matrix:

@@ -128,18 +128,27 @@ def init_world(rank: int, world: int, device="cuda", coordinator: Optional[str] 
     return dev
 
 
+def requested_world(coordinator: Optional[str] = None,
+                    num_processes: Optional[int] = None) -> int:
+    """The number of processes of the world the flags or the ``XFLOW_*``
+    environment name (1: no world), before any process joins it."""
+    coordinator = coordinator or os.environ.get("XFLOW_COORDINATOR")
+    if num_processes is None:
+        num_processes = int(os.environ.get("XFLOW_NUM_PROCESSES", "0") or 0)
+    return num_processes if coordinator and num_processes > 1 else 1
+
+
 def maybe_initialize(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
                      process_id: Optional[int] = None, device="cuda") -> int:
     """Join the world the flags or the ``XFLOW_*`` environment name, when
     it holds more than one process; returns this process's rank (0 for a
     single process, which starts no process group)."""
+    num_processes = requested_world(coordinator, num_processes)
     coordinator = coordinator or os.environ.get("XFLOW_COORDINATOR")
-    if num_processes is None:
-        num_processes = int(os.environ.get("XFLOW_NUM_PROCESSES", "0") or 0)
     if process_id is None:
         pid_env = os.environ.get("XFLOW_PROCESS_ID")
         process_id = int(pid_env) if pid_env is not None else None
-    if not (coordinator and num_processes > 1):
+    if num_processes == 1:
         return 0
     if process_id is None or not 0 <= process_id < num_processes:
         raise ValueError(

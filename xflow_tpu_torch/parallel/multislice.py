@@ -63,11 +63,14 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
 from xflow_tpu_torch.train.checkpoint import PinnedStaging, SaveSnapshot, _write_atomic
+
+if TYPE_CHECKING:  # the config type only
+    from xflow_tpu_torch.config import SyncConfig
 
 MEMBERSHIP_FILE = "membership.json"
 _DELTA_RE = re.compile(r"^delta_s(\d+)_r(\d+)\.ok$")
@@ -111,7 +114,7 @@ class SliceSyncer:
     last round of peer p folded in (0: none). `clock` and `sleep` are
     the waits' (a test injects both)."""
 
-    def __init__(self, sync_cfg, slice_id: int, num_slices: int, clock=time.monotonic,
+    def __init__(self, sync_cfg: SyncConfig, slice_id: int, num_slices: int, clock=time.monotonic,
                  sleep=time.sleep, mesh=None, layout: str = "full"):
         mode = str(sync_cfg.mode)
         if mode not in ("sync", "bounded", "async"):

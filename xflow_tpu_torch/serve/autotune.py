@@ -32,13 +32,16 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
+
+if TYPE_CHECKING:  # the config type only
+    from xflow_tpu_torch.config import ServeConfig
 
 # damping never erases a knob's step: a later load change must move it
 MIN_STEP_FRAC = 0.02
 
 
-def parse_ladder(scfg) -> tuple:
+def parse_ladder(scfg: ServeConfig) -> tuple:
     """`serve.ladder` ("16,64,256") -> ascending rungs. Rungs above
     `serve.max_batch` clamp to it, max_batch always joins as the top
     rung, "" = max_batch alone. Raises ValueError on a non-integer or
@@ -85,7 +88,7 @@ class AutotuneController:
     device worker; `state()` snapshots for `/stats` on handler threads
     (the lock covers that read). `clock` is injectable."""
 
-    def __init__(self, scfg, rungs: Optional[tuple] = None,
+    def __init__(self, scfg: ServeConfig, rungs: Optional[tuple] = None,
                  clock: Callable[[], float] = time.perf_counter):
         self.slo_ms = float(scfg.slo_p99_ms)
         if self.slo_ms <= 0:

@@ -24,9 +24,12 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 from xflow_tpu_torch.data.schema import make_batch
+
+if TYPE_CHECKING:  # the config type only
+    from xflow_tpu_torch.config import ServeConfig
 
 
 class RejectedRequest(Exception):
@@ -57,7 +60,7 @@ class BrownoutPolicy:
     window_factor: float = 0.25
 
     @staticmethod
-    def from_config(scfg) -> "BrownoutPolicy":
+    def from_config(scfg: ServeConfig) -> "BrownoutPolicy":
         q = int(scfg.max_queue_rows)
         return BrownoutPolicy(
             high_rows=max(int(q * scfg.brownout_high_frac), 1),

@@ -176,8 +176,8 @@ class ServeRunner:
 
     def latest_committed_step(self) -> Optional[int]:
         """The newest committed step across both checkpoint tiers."""
-        t = self.cfg.train
-        return max((s for d in {t.checkpoint_dir, t.ckpt_replica_dir} - {""}
+        tc = self.cfg.train
+        return max((s for d in {tc.checkpoint_dir, tc.ckpt_replica_dir} - {""}
                     for s in ckpt.committed_steps(d)), default=None)
 
     def _to_device(self, host: dict) -> dict:
@@ -217,10 +217,10 @@ class ServeRunner:
     def _restore(self, step: Optional[int]) -> Generation:
         """The tables of the newest loadable step (or of `step`) on the
         device, as a generation not yet numbered or served."""
-        t = self.cfg.train
+        tc = self.cfg.train
         host, got, src = ckpt.restore_tiered(
-            t.checkpoint_dir, table_shapes(self.cfg), verify=t.checkpoint_verify,
-            replica_dir=t.ckpt_replica_dir, step=step,
+            tc.checkpoint_dir, table_shapes(self.cfg), verify=tc.checkpoint_verify,
+            replica_dir=tc.ckpt_replica_dir, step=step,
         )
         if self._gen is not None and got <= self._gen.step:
             raise RuntimeError(
