@@ -249,12 +249,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `log_every=1`, health norms, the pipeline profiler, a heartbeat, a 30
    s hang watchdog, the trace window over steps 5-7, `eval_every=1` and
    the test shard. It fails unless every record has the JAX trainer's
-   keys for these flags (less its roofline gauges), the window steps run
+   keys for these flags (its roofline gauges included), the window steps run
    1..24 with the last loss the summary's, both `eval_auc` exceed 0.5,
    `pred_0_0.txt` holds the test shard's rows, the heartbeat has start,
    2 evals, a beat a step and final, the watchdog never dumped, the trace
    holds #1-#3 by kernel name, and the launches are exact (#1 and #2 24 +
-   6 eval batches, #3 24, #4-#6 0). It prints the window split, the
+   6 eval batches, #3 24, #4-#6 0). The port's `trace_attrib` reads the
+   same trace (`check_trace_attrib`): every kernel of #1, #2 and #3 must
+   lie under `gather`, `loss` and `scatter_optimizer`, and the scopes'
+   device time must sum to the trace's within 0.1%; every window record
+   after the first must carry both roofline gauges, `achieved_hbm_gbps`
+   at most 3.35 TB/s and within 1% of its step's work count
+   (`train/cost.step_cost`, recounted) over its device time
+   (`check_gauges`). It prints the scope table, the gauges and their
+   share of the peak, and the guarded fused-FM step's time beside the
+   2.420 ms it took before the ranges. It prints the window split, the
    pipeline stages and verdict, and #1-#3's mean trace time on Zipf
    batches beside their uniform times; #4 (K = 11, flat) and #6 (K = 10,
    4 stacked buffers) on the first Zipf batch's plans and the uniform
@@ -349,7 +358,9 @@ beside), #1-#3 their phase-19 launches under `launch`: the
 elastic resume's counts and each slice's traced kernel events, #1-#3
 the C client's traced events under `c_api_traced`, #2, #5, #6 the mesh
 slices' launches under `mesh.sync`; the object's `launch` key holds
-what phase 19 proved, `phase20` what phase 20 measured), and
+what phase 19 proved, `phase20` what phase 20 measured, `observe`
+phase 17's trace_attrib table (`scopes`) and roofline gauges
+(`gauges`)), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run outside a checkout of the repository, it fails before printing any.
 """
@@ -1387,6 +1398,7 @@ def train_breakdown(cfg, path, kind: str) -> None:
               + ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in acc.items()), flush=True)
     state = trainer.state
     step_ms = cuda_ms(lambda: trainer.train_step(state, arrays), reps=10)
+    STEP_MS[(cfg.model.name, kind)] = step_ms
     unguarded = make_train_step(
         trainer.model, trainer.optimizer, override(cfg, **{"train.nonfinite_guard": "off"})
     )
@@ -3564,9 +3576,10 @@ OBS_STAMP = {"ts", "rank", "run_id", "gen", "world"}
 OBS_HBM = {"hbm_bytes_in_use", "hbm_peak_bytes", "hbm_bytes_limit"}
 OBS_HEALTH = {"grad_norm", "grad_norm_max", "update_norm", "param_norm", "loss_ema",
               "slots_touched", "table_occupancy", "est_collision_rate"}
+OBS_ROOFLINE = {"achieved_flops_per_s", "achieved_hbm_gbps"}
 OBS_WINDOW = {"steps_per_s", "rows_per_s", "step_time_p50_ms", "step_time_p99_ms",
-              "data_wait_ms", "dispatch_ms", "device_ms"}
-# the key sets of the JAX trainer's records under phase 17's flags, less
+              "data_wait_ms", "dispatch_ms", "device_ms"} | OBS_ROOFLINE
+# the key sets of the JAX trainer's records under phase 17's flags, with
 # its roofline gauges (tests/test_torch_observe.py holds the port's key
 # sets equal to the JAX trainer's on the CPU, where neither has the HBM
 # gauges; a TPU's allocator reports them, as the card's does)
@@ -3585,6 +3598,16 @@ OBS_KERNEL_NAMES = {"gather_sorted": ("gather_flat",),
                                  "row_sums_long_kernel"),
                     "scatter_ftrl": ("scatter_ftrl_kernel",)}
 OBS_GEN_TIMEOUT_S = 90  # both gen-data writers (20.2 s on the H100 host)
+# each of #1-#3's kernels and the step scope it must lie under in the
+# trace window (trace_attrib's join)
+OBS_KERNEL_SCOPES = {"gather_sorted": "gather", "row_sums": "loss",
+                     "scatter_ftrl": "scatter_optimizer"}
+OBS_SCOPE_SUM_RTOL = 1e-3  # the scopes' device ms against the trace's total
+OBS_GAUGE_RTOL = 1e-2  # a window's achieved_hbm_gbps against its count / device time
+# the guarded fused-FM step before the scope ranges existed (PERF.md §5:
+# H100 80GB HBM3, 700.00 W)
+FM_STEP_MS_BEFORE_SCOPES = 2.420
+STEP_MS: dict = {}  # {(model, kind): the step's CUDA-event ms}, from train_breakdown
 
 _CLI_WITH_LAUNCHES = (
     "import json, sys\n"
@@ -3670,6 +3693,196 @@ def trace_kernels(prof_dir: str) -> dict:
         if len(set(counts)) > 1:
             fail(f"the trace in {prof_dir} holds {k}'s kernels "
                  f"{dict(zip(OBS_KERNEL_NAMES[k], counts))} times: not each once a call")
+    return out
+
+
+def check_trace_attrib(prof_dir: str, card: str) -> dict:
+    """The port's trace_attrib over phase 17's trace window: its CLI's
+    table and --json, and its join event by event. Fails unless every
+    kernel of #1, #2 and #3 lies under its scope (OBS_KERNEL_SCOPES) and
+    the scopes' device ms sum to the trace's device total (its kernel,
+    memcpy and memset events, summed here) within OBS_SCOPE_SUM_RTOL.
+    Returns the --json object with the fused-FM step's CUDA-event ms."""
+    from xflow_tpu_torch.tools import trace_attrib as ta
+
+    out = os.path.join(os.path.dirname(prof_dir), "attrib.json")
+    r = subprocess.run([sys.executable, "-m", "xflow_tpu_torch.tools.trace_attrib", prof_dir,
+                        "--json", out], cwd=HERE, capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        fail(f"observe: trace_attrib exited {r.returncode}: {r.stderr[-2000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    events = ta.load_trace(ta.find_trace(prof_dir))
+    seen = dict.fromkeys(OBS_KERNEL_SCOPES, 0)
+    other: dict = {}  # what `other` holds: device us by event name
+    for e, scope in ta.event_scopes(events):
+        if scope == "other":
+            name = e["name"][:60]
+            other[name] = other.get(name, 0.0) + float(e["dur"])
+        for key, want in OBS_KERNEL_SCOPES.items():
+            if any(kname in e.get("name", "") for kname in OBS_KERNEL_NAMES[key]):
+                seen[key] += 1
+                if scope != want:
+                    fail(f"observe: trace_attrib puts {e['name'][:80]} ({key}) under "
+                         f"{scope!r}, not {want!r}")
+    if not all(seen.values()):
+        fail(f"observe: trace_attrib saw {seen} kernels of #1-#3")
+    total_ms = sum(float(e["dur"]) for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and isinstance(e.get("dur"), (int, float)) and e["dur"] > 0) / 1e3
+    scope_ms = sum(v["ms"] for v in got["scopes"].values())
+    if abs(scope_ms - total_ms) > OBS_SCOPE_SUM_RTOL * total_ms:
+        fail(f"observe: the scopes' device time {scope_ms:.4f} ms is not the trace's "
+             f"{total_ms:.4f} ms within {OBS_SCOPE_SUM_RTOL:.1%}")
+    step_ms = STEP_MS.get(("fm", "fused"))
+    got["fm_step_ms"] = step_ms
+    got["other_top_ms"] = {k: round(v / 1e3, 4) for k, v in
+                           sorted(other.items(), key=lambda kv: -kv[1])[:8]}
+    print("# observe: trace_attrib over the trace window (steps "
+          f"{OBS_TRACE_START}-{OBS_TRACE_START + OBS_TRACE_STEPS - 1}, {seen} kernels of "
+          f"#1-#3 each under its scope; scopes {scope_ms:.3f} ms of the trace's {total_ms:.3f} "
+          f"ms) on {card}:\n" + "\n".join("#   " + ln for ln in r.stdout.splitlines())
+          + f"\n#   other's largest, device ms: {got['other_top_ms']}", flush=True)
+    print(f"# observe: the guarded fused-FM step with the scope ranges (train_breakdown, "
+          f"CUDA events): {step_ms:.3f} ms on {card}; before the ranges {FM_STEP_MS_BEFORE_SCOPES:.3f} ms "
+          "(H100 80GB HBM3, 700.00 W)", flush=True)
+    return got
+
+
+def check_gauges(windows: list, shard: str, card: str) -> dict:
+    """The roofline gauges of phase 17's window records (log_every 1: a
+    record's window is its own step, step s on batch (s - 1) mod
+    OBS_BATCHES of `shard`). Fails unless every record after the first
+    carries both, achieved_hbm_gbps is at most PEAK_BYTES_PER_S, and it
+    equals the step's work count (`train/cost.step_cost` of the batch's
+    host arrays, recounted here) over its device time within
+    OBS_GAUGE_RTOL. A record's device time is the one-behind wait, the
+    pipeline interval on a host-bound run; beside the gauges it prints
+    the first batch's count over the fused step's CUDA-event time on
+    that batch (`time_fm_step`), guarded and with the guard off, the
+    share of the bound the step itself reaches. Returns the medians and
+    the shares of the peak."""
+    import numpy as np
+
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+    from xflow_tpu_torch.evaluate import batch_arrays
+    from xflow_tpu_torch.train.cost import distinct_rows, step_cost
+
+    cfg = obs_fm_config()
+    costs = []
+    for b in batch_iterator(shard, cfg.data):
+        host = batch_arrays(b, cfg)
+        if not distinct_rows(host)[1]:
+            fail("observe: the fused-FM plan carries no distinct count")
+        costs.append(step_cost(cfg, host))
+    r = subprocess.run([sys.executable, "-c", _TIME_FM_STEP, HERE, shard], cwd=HERE,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"observe: time_fm_step exited {r.returncode}: {r.stderr[-2000:]}")
+    steps = json.loads(r.stdout.strip().splitlines()[-1])
+    if len(costs) != OBS_BATCHES:
+        fail(f"observe: {len(costs)} batches in {shard}, expected {OBS_BATCHES}")
+    gbps, flops, errs = [], [], []
+    for r in windows[1:]:
+        if not OBS_ROOFLINE <= set(r):
+            fail(f"observe: the step-{r['step']} record lacks {sorted(OBS_ROOFLINE - set(r))}")
+        c = costs[(r["step"] - 1) % OBS_BATCHES]
+        want = c["bytes"] / (r["device_ms"] / 1e3) / 1e9
+        errs.append(abs(r["achieved_hbm_gbps"] - want) / want)
+        if r["achieved_hbm_gbps"] * 1e9 > PEAK_BYTES_PER_S or errs[-1] > OBS_GAUGE_RTOL:
+            fail(f"observe: step {r['step']}'s achieved_hbm_gbps {r['achieved_hbm_gbps']} "
+                 f"against its count {c['bytes']} B over {r['device_ms']} ms ({want:.4f}) "
+                 f"and the peak {PEAK_BYTES_PER_S / 1e9:.0f} GB/s")
+        gbps.append(r["achieved_hbm_gbps"])
+        flops.append(r["achieved_flops_per_s"])
+    out = {"achieved_hbm_gbps_median": float(np.median(gbps)),
+           "achieved_flops_per_s_median": float(np.median(flops)),
+           "share_of_peak_bytes": float(np.median(gbps)) * 1e9 / PEAK_BYTES_PER_S,
+           "step_mb_median": float(np.median([c["bytes"] for c in costs])) / 1e6,
+           "step_gflop_median": float(np.median([c["flops"] for c in costs])) / 1e9,
+           "max_rel_err": max(errs), "first_step": steps}
+    for what in ("guarded_ms", "guard_off_ms"):
+        gb = costs[0]["bytes"] / (steps[what] / 1e3) / 1e9
+        steps[what.replace("_ms", "_share_of_peak")] = gb * 1e9 / PEAK_BYTES_PER_S
+    print(f"# observe: roofline gauges of the {len(gbps)} window records after the first on "
+          f"{card}: achieved_hbm_gbps median {out['achieved_hbm_gbps_median']:.4f} (min "
+          f"{min(gbps):.4f}, max {max(gbps):.4f}; {out['share_of_peak_bytes']:.2%} of "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), achieved_flops_per_s median "
+          f"{out['achieved_flops_per_s_median']:.4g}; the step's count median "
+          f"{out['step_mb_median']:.3f} MB, {out['step_gflop_median']:.4f} GFLOP; each within "
+          f"{out['max_rel_err']:.2e} of its count over its device time (device_ms includes "
+          "the one-behind wait's host time, so the gauges are lower bounds)", flush=True)
+    print(f"# observe: the first Zipf batch's count {costs[0]['bytes'] / 1e6:.3f} MB over the "
+          f"fused-FM step's CUDA-event time on it: guarded {steps['guarded_ms']:.3f} ms "
+          f"({steps['guarded_share_of_peak']:.2%} of the peak), guard off "
+          f"{steps['guard_off_ms']:.3f} ms ({steps['guard_off_share_of_peak']:.2%}); the guarded "
+          f"step with its scopes as they are (ranges only under a profiler) "
+          f"{steps['gated_ms']} ms, with the ranges always open {steps['open_ms']} ms, with "
+          f"each a no-op {steps['none_ms']} ms (rotated order, same state and batch, a "
+          f"process of its own), on {card}", flush=True)
+    return out
+
+
+# `time_fm_step` in a process of its own: one that ran a torch.profiler
+# session launches slower afterwards (`xflow_tpu_torch/tools/scope_probe.py`)
+_TIME_FM_STEP = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "print(json.dumps(chip_smoke.time_fm_step(sys.argv[2])))\n"
+)
+FM_STEP_ROUNDS = 4  # rounds of the three scope variants, each round in a rotated order
+
+
+def obs_fm_config():
+    """Phase 17's FM configuration (`obs_train_argv`'s) as a Config."""
+    from xflow_tpu_torch.config import Config, override
+
+    return override(Config(), **{"model.name": "fm", "model.v_dim": V_DIM,
+                                 "model.num_fields": NUM_FIELDS, "data.max_nnz": NUM_FIELDS,
+                                 "data.batch_size": BATCH, "data.log2_slots": LOG2_SLOTS})
+
+
+def time_fm_step(shard: str) -> dict:
+    """CUDA-event ms of the fused-FM step on `shard`'s first batch from a
+    fresh state, guarded, with `train/step.py`'s `scope` as it is (ranges
+    only under a running profiler: "gated"), always open ("open") and a
+    no-op ("none"), FM_STEP_ROUNDS runs of each in rotated order; then
+    with the guard off. The guard reads its flag on the host inside the
+    step, so the guarded time holds the host's launch gap; the unguarded
+    step queues its launches ahead of the card."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.config import override
+    from xflow_tpu_torch.data.pipeline import batch_iterator
+    from xflow_tpu_torch.evaluate import batch_arrays, to_device
+    from xflow_tpu_torch.train import step as step_mod
+    from xflow_tpu_torch.train.trainer import Trainer
+
+    cfg = obs_fm_config()
+    it = batch_iterator(shard, cfg.data)
+    host = batch_arrays(next(it), cfg)
+    it.close()
+    trainer = Trainer(cfg, device=DEVICE)
+    state, arrays = trainer.state, to_device(host, DEVICE)
+    gated = step_mod.scope
+    variants = {"gated": gated, "open": torch.profiler.record_function,
+                "none": lambda name: contextlib.nullcontext()}
+    out = {f"{k}_ms": [] for k in variants}
+    try:
+        for r in range(FM_STEP_ROUNDS):
+            order = list(variants)[r % 3:] + list(variants)[:r % 3]
+            for k in order:
+                step_mod.scope = variants[k]
+                out[f"{k}_ms"].append(
+                    round(cuda_ms(lambda: trainer.train_step(state, arrays), reps=10), 4))
+    finally:
+        step_mod.scope = gated
+    out["guarded_ms"] = float(np.median(out["gated_ms"]))
+    unguarded = step_mod.make_train_step(
+        trainer.model, trainer.optimizer, override(cfg, **{"train.nonfinite_guard": "off"}))
+    out["guard_off_ms"] = cuda_ms(lambda: unguarded(state, arrays), reps=10)
     return out
 
 
@@ -3869,6 +4082,8 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
     traced = trace_kernels(os.path.join(root, "prof"))
     if not all(traced.values()):
         fail(f"observe: the trace window holds no {[k for k, v in traced.items() if not v]}")
+    attrib = check_trace_attrib(os.path.join(root, "prof"), card)
+    gauges = check_gauges(kinds["window"], os.path.join(root, "train-00000"), card)
     print(f"# observe: train 2 epochs x {OBS_BATCHES} steps, every flag on, on {card}: "
           f"{wall:.1f} s wall, {summary['examples_per_sec']} examples/s; auc {aucs} then "
           f"{summary['auc']}; window split (median / mean) {window_split(recs)}", flush=True)
@@ -3930,7 +4145,7 @@ def run_observe(work: str, rate_path: str, card: str) -> dict:
               f"examples/s; window split (median / mean) {split}", flush=True)
         del trainer
     print(f"# observe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {**zipf, **scatters}
+    return {**zipf, **scatters, "scopes": attrib, "gauges": gauges}
 
 
 # ------------------------------------------------------------ phase 18
@@ -4785,7 +5000,7 @@ CAPI_ROWS = ("0:f0x 1:f1y 2:f2z", "1\t3:abc 7:q 12:r", "4:s 5:t 6:u 17:v")
 MESH_SYNC_BATCHES = 4  # a mesh slice's shard: 4 steps, one round (the final)
 # the legs' budgets (s) and the whole smoke's prediction, written before the run
 PHASE20_BUDGET_S = {"serve_world": 45.0, "c_api": 60.0, "mesh_sync": 45.0}
-SMOKE_PREDICTED_S = (740.0, 1000.0)
+SMOKE_PREDICTED_S = (780.0, 1000.0)
 
 
 def free_port() -> int:
@@ -5238,6 +5453,7 @@ def main() -> int:
         run_online(cfg, work, path, rate_path, card)
         lap("run_online")
         zipf = run_observe(work, rate_path, card)
+        observe = {k: zipf.pop(k) for k in ("scopes", "gauges")}
         lap("run_observe")
         mesh = run_mesh(cfg, work, path, rate_path, card)
         lap("run_mesh")
@@ -5292,7 +5508,7 @@ def main() -> int:
     print(f"# the smoke took {total:.1f} s (predicted {SMOKE_PREDICTED_S[0]:.0f}-"
           f"{SMOKE_PREDICTED_S[1]:.0f} s; limit 1200 s)", flush=True)
     print(card)
-    print(json.dumps({"kernels": kern, "launch": launch, "phase20": p20}))
+    print(json.dumps({"kernels": kern, "launch": launch, "phase20": p20, "observe": observe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

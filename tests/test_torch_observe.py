@@ -93,7 +93,7 @@ def _leaves(obj, prefix=""):
 NEW_TRAIN_FIELDS = ("eval_every", "pred_dump", "eval_buckets", "eval_window_decay",
                     "metrics_max_bytes", "health_metrics", "health_ema_decay", "heartbeat_path",
                     "heartbeat_every", "hang_timeout_s", "pipeline_metrics", "profile_dir",
-                    "trace_start_step", "trace_num_steps")
+                    "trace_start_step", "trace_num_steps", "compile_metrics")
 
 
 def test_every_shared_config_field_has_the_jax_default():
@@ -102,8 +102,9 @@ def test_every_shared_config_field_has_the_jax_default():
     for key, v in port.items():
         assert v == ref[key] and type(v) is type(ref[key]), key
     assert {f"train.{k}" for k in NEW_TRAIN_FIELDS} <= set(port)
-    # compile accounting alone (no compile step in torch); the sync tier whole
-    assert {k for k in ref if k.startswith("train.")} - set(port) == {"train.compile_metrics"}
+    # every train leaf, compile_metrics (the work count's switch) included;
+    # the sync tier whole
+    assert {k for k in ref if k.startswith("train.")} == {k for k in port if k.startswith("train.")}
     assert {k for k in ref if k.startswith("sync.")} == {k for k in port if k.startswith("sync.")}
     assert len([k for k in port if k.startswith("sync.")]) == 9
 

@@ -9,8 +9,8 @@ both row sides, and FM's online loop in tail mode with async tiered
 saves and publications), with `jax` and `xflow_tpu` blocked: through the native
 parser and planner, and from an `.xfc` cache the port packs; so do
 `serve` and `serve-fleet` (the fleet's replica too, and torch blocked
-in the fleet process, which only routes), and the launchers'
-`--help` and `launch-dist --dry-run`.
+in the fleet process, which only routes), the launchers'
+`--help` and `launch-dist --dry-run`, and `trace_attrib --help`.
 """
 
 import http.client
@@ -214,6 +214,8 @@ def test_port_imports_without_jax():
         "import xflow_tpu_torch.launch.watchdog, xflow_tpu_torch.launch.dist\n"
         "import xflow_tpu_torch.parallel.multislice\n"
         "import xflow_tpu_torch.c_api, xflow_tpu_torch.c_api.embed\n"
+        "import xflow_tpu_torch.train.cost, xflow_tpu_torch.tools.trace_attrib\n"
+        "import xflow_tpu_torch.tools.scope_probe\n"
         "from xflow_tpu_torch.tools.criteo_convert import convert, criteo_line_to_libffm\n"
         "from xflow_tpu_torch.testing.faults import (bitflip_file, bitflip_npz_array,\n"
         "    corrupt_npz_checkpoint, poison_nan_batches, truncate_file,\n"
@@ -223,6 +225,17 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_trace_attrib_help_without_jax():
+    """`python -m xflow_tpu_torch.tools.trace_attrib --help` with jax and
+    xflow_tpu blocked: the tool reads a trace with the port alone."""
+    r = _run_without_jax("import runpy\n"
+                         "sys.argv[0] = 'trace_attrib'\n"
+                         "runpy.run_module('xflow_tpu_torch.tools.trace_attrib',\n"
+                         "                 run_name='__main__')\n", "--help")
+    assert r.returncode == 0, r.stderr
+    assert "--json" in r.stdout and "--scopes" in r.stdout and "--run-dir" not in r.stdout
 
 
 def test_cli_serve_world_flags_without_jax():

@@ -5,8 +5,8 @@ passes (`xflow_tpu/analysis/`) on their shared fixture corpus:
 - the rules both packages run (XF001, XF301, XF401, XF501/XF502) give the
   same (rule, line) sets on `tests/fixtures/xflowlint/`'s lockset, schema,
   config, suppression and clean fixtures; the port reads its own config
-  tree, which lacks five of the reference's leaves on purpose, and a read of
-  one of those five is the one place the two differ;
+  tree, which lacks four of the reference's leaves on purpose, and a read of
+  one of those four is the one place the two differ;
 - the torch host-sync corpus (`tests/fixtures/xflowlint_torch/`) fires
   XF110/XF111 on every marked line and nowhere else: the one-behind staged
   read, the non-blocking copy into pinned memory, metadata reads and a
@@ -47,10 +47,9 @@ from xflow_tpu_torch.tools import xflowlint as cli  # noqa: E402
 FIXTURES = os.path.join(REPO_ROOT, "tests", "fixtures", "xflowlint")
 TORCH_FIXTURES = os.path.join(REPO_ROOT, "tests", "fixtures", "xflowlint_torch")
 SHARED_RULES = {"XF001", "XF301", "XF401", "XF501", "XF502"}
-# the reference's leaves the port's Config lacks on purpose: no compile
-# step, and four data knobs the port's input plane does not take
-PORT_LACKS = {("train", "compile_metrics"), ("data", "block_bytes"),
-              ("data", "drop_remainder"), ("data", "packed_tables"),
+# the reference's leaves the port's Config lacks on purpose: four data
+# knobs the port's input plane does not take
+PORT_LACKS = {("data", "block_bytes"), ("data", "drop_remainder"), ("data", "packed_tables"),
               ("data", "use_native_parser")}
 PARITY_FIXTURES = ("bad_lockset.py", "good_lockset.py", "bad_schema.py", "bad_config.py",
                    "suppress_line.py", "suppress_file.py", "good_clean.py")

@@ -3,7 +3,7 @@ to a default of the port's config tree (xflow_tpu_torch/config.py), and
 every default is read somewhere.
 
 The config tree is the port's only schema (one dataclass tree, the
-reference's less five leaves): a misspelled key in code raises
+reference's less four leaves): a misspelled key in code raises
 `AttributeError` only when that code path finally runs, and a default
 nobody reads is dead weight that reads as a tunable. Both are
 mechanical to check:

@@ -7,8 +7,10 @@ JAX package's
 names and defaults (`xflow_tpu/config.py`), so a `--set section.key=value`
 override means the same in both.
 
-Fields not listed here belong to what the port leaves out by design
-(`train.compile_metrics`); an override naming one raises KeyError.
+Fields not listed here belong to what the port's input plane does not
+take (four `data` knobs: `block_bytes`, `drop_remainder`,
+`packed_tables`, `use_native_parser`); an override naming one raises
+KeyError.
 """
 
 from __future__ import annotations
@@ -189,8 +191,12 @@ class TrainConfig:
     (`train/checkpoint.py` `AsyncCheckpointWriter`). `publish_every` (0
     = off; needs `checkpoint_dir` and `data.stream=tail`): every Nth
     step commits a checkpoint with a publication sidecar the server
-    reads. Compile accounting (`compile_metrics`) is not taken over:
-    the torch step has no compile step."""
+    reads. `compile_metrics` turns on the step's work count
+    (`train/cost.py`, the counterpart of the JAX compile records' cost
+    analysis; the torch step has no compile step) and, from it, each
+    window record's roofline gauges `achieved_flops_per_s` and
+    `achieved_hbm_gbps` on one device. The train steps' named scopes
+    (`telemetry.scope`) are on either way."""
 
     epochs: int = 60
     seed: int = 0
@@ -225,6 +231,7 @@ class TrainConfig:
     profile_dir: str = ""
     trace_start_step: int = 0
     trace_num_steps: int = 20
+    compile_metrics: bool = True
 
 
 @dataclass(frozen=True)

@@ -181,16 +181,18 @@ def _plan_sorted_call(slots, mask, fields, num_slots: int, window: int,
             "xf_plan_sorted_wire: data violated the wire contract (row >= 2^16, "
             "field >= 2^8, or a non-0/1 mask): the caller's config-derived bounds "
             "disagree with the batch")
-    if rc != 0:
+    if rc < 0:
         raise ValueError(f"{'xf_plan_sorted_wire' if wire else 'xf_plan_sorted'} "
                          f"failed (rc={rc})")
-    return out_slots, out_row, out_mask, out_fields, win_off
+    return out_slots, out_row, out_mask, out_fields, win_off, int(rc)
 
 
 def native_plan_sorted(slots, mask, fields, num_slots: int, window: int, np_len: int):
     """The C radix-sort plan (xf_plan_sorted): (sorted_slots, sorted_row,
-    sorted_mask, sorted_fields | None, win_off), bit-identical to the
-    numpy stable argsort plan. ctypes releases the GIL during the call,
+    sorted_mask, sorted_fields | None, win_off, distinct), the arrays
+    bit-identical to the numpy stable argsort plan; `distinct` is the
+    number of distinct slots among the unpadded occurrences, counted in
+    the same pass. ctypes releases the GIL during the call,
     so stacked sub-batch plans run in parallel host threads."""
     return _plan_sorted_call(slots, mask, fields, num_slots, window, np_len, wire=False)
 

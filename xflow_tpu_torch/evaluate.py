@@ -29,7 +29,7 @@ from xflow_tpu_torch.models.predict import make_predict_fn
 from xflow_tpu_torch.ops.sorted_table import (
     WINDOW,
     compact_plan_wire,
-    dedup_slots,
+    dedup_slots_counted,
     plan_sorted_stacked,
     resolve_sub_batches,
 )
@@ -61,6 +61,16 @@ def mvm_wants_fields(batch: SparseBatch, cfg: Config) -> bool:
     return not resolve_mvm_product(excl, dup, 1)
 
 
+class HostArrays(dict):
+    """A batch's host arrays (`batch_arrays`) with `distinct`, a host
+    int beside them: the distinct table slots among the batch's unpadded
+    occurrences, as the planner or the dedup counted them while placing
+    them (None where nothing counted: a row-major batch without dedup).
+    `train/cost.step_cost` reads it; the arrays alone go to the card."""
+
+    distinct = None
+
+
 class HostDedup:
     """`data.dedup` for the row-major batches of one process (the JAX
     trainer's `_maybe_dedup`): attach (unique_slots, inverse) in place of
@@ -78,15 +88,15 @@ class HostDedup:
     def __call__(self, arrays: dict) -> dict:
         if not self.cap or self.on is False:
             return arrays
-        got = dedup_slots(arrays["slots"], self.cap)
+        got = dedup_slots_counted(arrays["slots"], self.cap)
         if got is None:
             if self.on is None:
                 self.on = False
             return arrays
         self.on = True
-        arrays = {k: v for k, v in arrays.items() if k != "slots"}
-        arrays["unique_slots"], arrays["inverse"] = got
-        return arrays
+        out = HostArrays((k, v) for k, v in arrays.items() if k != "slots")
+        out["unique_slots"], out["inverse"], out.distinct = got
+        return out
 
 
 def ffm_takes_aligned(batch: SparseBatch, cfg: Config) -> bool:
@@ -114,14 +124,15 @@ def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = N
     `ffm_invperm`; an FFM batch that repeats a field in a row goes
     row-major (`ffm_takes_aligned`; both routes counted in
     `models/ffm.ROUTES`). MVM and FFM field ids must lie below
-    model.num_fields."""
+    model.num_fields. Returns `HostArrays`, the planner's or the dedup's
+    distinct count beside the arrays."""
     mvm, ffm = cfg.model.name == "mvm", cfg.model.name == "ffm"
     if (mvm or ffm) and batch.fields.size and int(batch.fields.max()) >= cfg.model.num_fields:
         raise ValueError(
             f"libffm field id {int(batch.fields.max())} >= model.num_fields="
             f"{cfg.model.num_fields}; raise model.num_fields"
         )
-    arrays = {"labels": batch.labels, "row_mask": batch.row_mask}
+    arrays = HostArrays(labels=batch.labels, row_mask=batch.row_mask)
     row_major = not sorted_layout_on(cfg)
     if not row_major and ffm:
         row_major = not ffm_takes_aligned(batch, cfg)
@@ -153,10 +164,12 @@ def batch_arrays(batch: SparseBatch, cfg: Config, dedup: Optional[HostDedup] = N
         arrays["ffm_invperm"] = ffm_invperm(plan.sorted_row, plan.sorted_fields,
                                             plan.sorted_mask, len(batch.labels),
                                             cfg.model.num_fields)
-    return compact_plan_wire(
+    out = HostArrays(compact_plan_wire(
         arrays, rows_bound=rows_bound,
         fields_bound=cfg.model.num_fields if want_fields else 0,
-    )
+    ))
+    out.distinct = plan.distinct
+    return out
 
 
 def _host_array(v) -> np.ndarray:

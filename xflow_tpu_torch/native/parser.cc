@@ -556,6 +556,10 @@ long xf_count_rows(const char* path, long block_bytes) {
 //   - out_win_off[w] = first sorted position with slot >= w*window,
 //     w in [0, num_slots/window]; pads are owned by the last window
 //   - stability: equal slots keep original (row-major) occurrence order
+//   - the return value is the number of distinct slots among the n
+//     unpadded occurrences (the pads are no table rows), counted while
+//     the sorted slots are placed: each run's start adds one; -1 (and
+//     -2 for the wire contract) on invalid input
 
 namespace {
 
@@ -652,10 +656,12 @@ long xf_plan_sorted(const int32_t* slots, const float* mask, const int32_t* fiel
   uint64_t* cur =
       plan_sort_core(slots, n, nnz_per_row, num_slots, window, np_len, keys, scratch);
   if (cur == nullptr) return -1;
+  long distinct = 0;
   for (long i = 0; i < n; ++i) {
     uint64_t k = cur[i];
     int32_t src = static_cast<int32_t>(k & 0xffffffffu);
     out_slots[i] = static_cast<int32_t>(k >> 32);
+    distinct += (i == 0 || out_slots[i] != out_slots[i - 1]);
     out_row[i] = static_cast<int32_t>(src / nnz_per_row);
     out_mask[i] = mask[src];
     if (out_fields != nullptr) out_fields[i] = fields[src];
@@ -667,7 +673,7 @@ long xf_plan_sorted(const int32_t* slots, const float* mask, const int32_t* fiel
     if (out_fields != nullptr) out_fields[i] = 0;
   }
   plan_win_off(out_slots, np_len, num_slots, window, out_win_off);
-  return 0;
+  return distinct;
 }
 
 // Wire-format emitter (ops/sorted_table.compact_plan_wire's dtypes
@@ -688,6 +694,7 @@ long xf_plan_sorted_wire(const int32_t* slots, const float* mask,
   uint64_t* cur =
       plan_sort_core(slots, n, nnz_per_row, num_slots, window, np_len, keys, scratch);
   if (cur == nullptr) return -1;
+  long distinct = 0;
   for (long i = 0; i < n; ++i) {
     uint64_t k = cur[i];
     int32_t src = static_cast<int32_t>(k & 0xffffffffu);
@@ -695,6 +702,7 @@ long xf_plan_sorted_wire(const int32_t* slots, const float* mask,
     float m = mask[src];
     if (row >= (1L << 16) || (m != 0.0f && m != 1.0f)) return -2;
     out_slots[i] = static_cast<int32_t>(k >> 32);
+    distinct += (i == 0 || out_slots[i] != out_slots[i - 1]);
     out_row[i] = static_cast<uint16_t>(row);
     out_mask[i] = static_cast<uint8_t>(m != 0.0f);
     if (out_fields != nullptr) {
@@ -710,7 +718,7 @@ long xf_plan_sorted_wire(const int32_t* slots, const float* mask,
     if (out_fields != nullptr) out_fields[i] = 0;
   }
   plan_win_off(out_slots, np_len, num_slots, window, out_win_off);
-  return 0;
+  return distinct;
 }
 
 }  // extern "C"

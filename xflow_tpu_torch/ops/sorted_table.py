@@ -71,13 +71,17 @@ def padded_len(n: int) -> int:
 
 class SortedPlan(NamedTuple):
     """Host-computed slot-sorted layout of one batch's occurrences,
-    padded to `padded_len`; pads sit at slot S-1 with row 0 and mask 0."""
+    padded to `padded_len`; pads sit at slot S-1 with row 0 and mask 0.
+    `distinct` is a host int: the distinct slots among the unpadded
+    occurrences (the table rows the step touches; pads are none), summed
+    over the sub-plans of a stacked plan."""
 
     sorted_slots: np.ndarray  # int32 [Np]
     sorted_row: np.ndarray  # int32 [Np]
     sorted_mask: np.ndarray  # float32 [Np]
     win_off: np.ndarray  # int32 [S/WINDOW + 1]
     sorted_fields: Optional[np.ndarray] = None  # int32 [Np]
+    distinct: Optional[int] = None
 
 
 def plan_sorted_plain(
@@ -104,6 +108,7 @@ def plan_sorted_plain(
     pad = padded_len(n) - n
     order = np.argsort(flat_slots, kind="stable").astype(np.int32)
     ss = np.concatenate([flat_slots[order], np.full(pad, num_slots - 1, np.int32)])
+    distinct = int(np.count_nonzero(np.diff(ss[:n]))) + 1 if n else 0
     win_off = np.searchsorted(ss, np.arange(0, num_slots + 1, WINDOW)).astype(np.int32)
     sorted_fields = None
     if fields is not None:
@@ -117,6 +122,7 @@ def plan_sorted_plain(
         sorted_mask=np.concatenate([flat_mask[order], np.zeros(pad, np.float32)]),
         win_off=win_off,
         sorted_fields=sorted_fields,
+        distinct=distinct,
     )
 
 
@@ -140,11 +146,11 @@ def plan_sorted_batch(
     from xflow_tpu_torch.data.native import native_plan_sorted, native_plan_sorted_wire
 
     plan = native_plan_sorted_wire if wire else native_plan_sorted
-    ss, row, m, f, off = plan(
+    ss, row, m, f, off, distinct = plan(
         np.ascontiguousarray(slots, np.int32), mask, fields, num_slots, WINDOW,
         padded_len(slots.size),
     )
-    return SortedPlan(ss, row, m, off, f)
+    return SortedPlan(ss, row, m, off, f, distinct)
 
 
 _PLAN_POOL = None  # one fixed-size executor a process, never shut down
@@ -195,7 +201,8 @@ def plan_sorted_stacked(
         p = plan_sorted_batch(slots, mask, num_slots, fields=fields, wire=wire)
         if not always_stack:
             return p
-        return SortedPlan(*(None if a is None else a[None] for a in p))
+        return p._replace(**{k: a[None] for k, a in p._asdict().items()
+                             if isinstance(a, np.ndarray)})
     if B % num_sub:
         raise ValueError(f"batch {B} not divisible by num_sub {num_sub}")
     bs = B // num_sub
@@ -208,8 +215,8 @@ def plan_sorted_stacked(
 
     plans = map_host_parallel(one, num_sub)
     return SortedPlan(*(
-        None if parts[0] is None else np.stack(parts) for parts in zip(*plans)
-    ))
+        None if parts[0] is None else np.stack(parts) for parts in zip(*(p[:5] for p in plans))
+    ), distinct=sum(p.distinct for p in plans))
 
 
 def auto_sub_batches(batch_size: int, row_state_bytes_per_row: int,
@@ -312,6 +319,13 @@ def dedup_slots(slots: np.ndarray, cap: int):
     padded with the last unique, inverse [B, F] int32), or None when the
     batch has more than `cap` uniques (or none), in which case the batch
     ships row-major and the direct gather runs."""
+    got = dedup_slots_counted(slots, cap)
+    return None if got is None else got[:2]
+
+
+def dedup_slots_counted(slots: np.ndarray, cap: int):
+    """`dedup_slots` with the number of uniques as a third item (a host
+    int, the table rows the step touches), or None."""
     flat = np.asarray(slots, np.int32).ravel()
     u, inv = np.unique(flat, return_inverse=True)
     if u.size > cap or u.size == 0:
@@ -320,6 +334,7 @@ def dedup_slots(slots: np.ndarray, cap: int):
     return (
         np.concatenate([u.astype(np.int32), pad]),
         inv.astype(np.int32).reshape(np.asarray(slots).shape),
+        int(u.size),
     )
 
 

@@ -70,6 +70,7 @@ from xflow_tpu_torch.ops.sorted_table import (
 from xflow_tpu_torch.parallel import collectives as C
 from xflow_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS, Mesh
 from xflow_tpu_torch.parallel.train_step import finish_step, mesh_loss
+from xflow_tpu_torch.telemetry import scope
 from xflow_tpu_torch.train.state import TrainState
 
 
@@ -316,11 +317,17 @@ def make_fullshard_train_step(optimizer, cfg, mesh: Mesh) -> Callable:
 
     def train_step(state: TrainState, batch: dict):
         tbl = state.tables[tname].detach().requires_grad_(True)
-        with torch.enable_grad():
-            logits = local_logits(_batch_mode(cfg, batch), tbl, batch, cfg, mesh)
-            loss, rows = mesh_loss(logits, batch["labels"], batch["row_mask"], mesh.data_group)
+        # "gather" holds the forward (the shard-local gather, the
+        # occurrences' all_to_all, the row aggregates' return); "grad" the
+        # forward and its backward, whose scatter stays on the owner
+        with torch.enable_grad(), scope("grad"):
+            with scope("gather"):
+                logits = local_logits(_batch_mode(cfg, batch), tbl, batch, cfg, mesh)
+            with scope("loss"):
+                loss, rows = mesh_loss(logits, batch["labels"], batch["row_mask"],
+                                       mesh.data_group)
             (grad,) = torch.autograd.grad(loss, [tbl])
-        with torch.no_grad():
+        with torch.no_grad(), scope("optimizer"):
             new_tables, new_opt = optimizer.apply(
                 {tname: state.tables[tname]}, state.opt_state, {tname: grad}, cfg)
         return finish_step(cfg, mesh, "full", state, new_tables, new_opt, loss, rows,

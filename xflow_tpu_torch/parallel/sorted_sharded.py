@@ -40,6 +40,7 @@ from xflow_tpu_torch.ops.sorted_table import (
 from xflow_tpu_torch.parallel import collectives as C
 from xflow_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS, Mesh
 from xflow_tpu_torch.parallel.train_step import finish_step, mesh_loss
+from xflow_tpu_torch.telemetry import scope
 from xflow_tpu_torch.train.state import TrainState
 
 
@@ -102,16 +103,19 @@ def local_logits(wv_local: torch.Tensor, batch: dict, cfg, mesh: Mesh) -> torch.
     sorted_mask = wire_mask(batch["sorted_mask"])
     off_local = batch["win_off"][t * wpt : (t + 1) * wpt + 1]
     slots_local = sorted_slots - t * S_local
-    occ_t = table_gather_sorted(wv_local, slots_local, off_local, cfg.data.sorted_bf16)
-    pos = torch.arange(sorted_slots.shape[0], dtype=torch.int32, device=sorted_slots.device)
-    in_span = (pos >= off_local[0]) & (pos < off_local[-1])
-    occm_t = torch.where(in_span[None, :], occ_t[:K],
-                         torch.zeros((), dtype=occ_t.dtype, device=occ_t.device))
-    occm_t = occm_t * sorted_mask[None, :]
-    stacked = stack_channels(occm_t, K).contiguous()
-    partial = row_sums_sorted(stacked, sorted_row, batch["labels"].shape[0])
-    sums = C.all_reduce(partial, mesh.table_group)  # the one forward collective
-    return fm_logits_from_sums(sums, K, cfg)
+    with scope("gather"):
+        occ_t = table_gather_sorted(wv_local, slots_local, off_local, cfg.data.sorted_bf16)
+    with scope("loss"):
+        pos = torch.arange(sorted_slots.shape[0], dtype=torch.int32,
+                           device=sorted_slots.device)
+        in_span = (pos >= off_local[0]) & (pos < off_local[-1])
+        occm_t = torch.where(in_span[None, :], occ_t[:K],
+                             torch.zeros((), dtype=occ_t.dtype, device=occ_t.device))
+        occm_t = occm_t * sorted_mask[None, :]
+        stacked = stack_channels(occm_t, K).contiguous()
+        partial = row_sums_sorted(stacked, sorted_row, batch["labels"].shape[0])
+        sums = C.all_reduce(partial, mesh.table_group)  # the one forward collective
+        return fm_logits_from_sums(sums, K, cfg)
 
 
 def make_sorted_sharded_train_step(optimizer, cfg, mesh: Mesh) -> Callable:
@@ -122,12 +126,17 @@ def make_sorted_sharded_train_step(optimizer, cfg, mesh: Mesh) -> Callable:
 
     def train_step(state: TrainState, batch: dict):
         wv = state.tables["wv"].detach().requires_grad_(True)
-        with torch.enable_grad():
+        # "grad" holds the forward and its backward: the windowed scatter
+        # and the gradient's all_reduce over data land there
+        with torch.enable_grad(), scope("grad"):
             logits = local_logits(wv, batch, cfg, mesh)
-            loss, rows = mesh_loss(logits, batch["labels"], batch["row_mask"], mesh.data_group)
+            with scope("loss"):
+                loss, rows = mesh_loss(logits, batch["labels"], batch["row_mask"],
+                                       mesh.data_group)
             (grad,) = torch.autograd.grad(loss, [wv])
-        with torch.no_grad():
-            dist.all_reduce(grad, group=mesh.data_group)  # the table repeats over data
+            with torch.no_grad():
+                dist.all_reduce(grad, group=mesh.data_group)  # the table repeats over data
+        with torch.no_grad(), scope("optimizer"):
             new_tables, new_opt = optimizer.apply(
                 {"wv": state.tables["wv"]}, state.opt_state, {"wv": grad}, cfg)
         return finish_step(cfg, mesh, "table", state, new_tables, new_opt, loss, rows,

@@ -46,6 +46,7 @@ import torch.distributed as dist
 from xflow_tpu_torch.metrics import binary_logloss_from_logits, reference_pctr
 from xflow_tpu_torch.parallel import collectives as C
 from xflow_tpu_torch.parallel.mesh import Mesh
+from xflow_tpu_torch.telemetry import scope
 from xflow_tpu_torch.train.state import TrainState
 from xflow_tpu_torch.train.step import health_mode, nonfinite_guard_on
 
@@ -203,16 +204,23 @@ def make_sharded_train_step(model, optimizer, cfg, mesh: Mesh, layout: str = "fu
 
     def train_step(state: TrainState, batch: dict):
         RUNS["row_major"] += 1
-        params = {k: t.detach().requires_grad_(True) for k, t in state.tables.items()}
-        with torch.enable_grad():
-            logits = pulled_logits(model, params, batch, cfg, mesh, layout)
-            loss, rows = mesh_loss(logits, batch["labels"], batch["row_mask"])
-            got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(t) if g is None else g
-                 for (k, t), g in zip(state.tables.items(), got)}
-        with torch.no_grad():
-            new_tables, new_opt = optimizer.apply(state.tables, state.opt_state, grads, cfg)
-        return finish_step(cfg, mesh, layout, state, new_tables, new_opt, loss, rows, grads)
+        # "train_step" brackets the whole step, its collectives included;
+        # inside it the single-device step's ranges
+        with scope("train_step"):
+            params = {k: t.detach().requires_grad_(True) for k, t in state.tables.items()}
+            with torch.enable_grad(), scope("grad"):
+                with scope("gather"):
+                    logits = pulled_logits(model, params, batch, cfg, mesh, layout)
+                with scope("loss"):
+                    loss, rows = mesh_loss(logits, batch["labels"], batch["row_mask"])
+                got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+                grads = {k: torch.zeros_like(t) if g is None else g
+                         for (k, t), g in zip(state.tables.items(), got)}
+            with torch.no_grad(), scope("optimizer"):
+                new_tables, new_opt = optimizer.apply(state.tables, state.opt_state, grads,
+                                                      cfg)
+            return finish_step(cfg, mesh, layout, state, new_tables, new_opt, loss, rows,
+                               grads)
 
     return train_step
 

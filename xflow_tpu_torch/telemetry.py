@@ -21,13 +21,21 @@ time, the input pipeline's stage profiler (`PipelineProfiler`,
 port waits on a CUDA event recorded on the step's stream after the
 metrics' copies to the host (`stage_metrics`): never a device-wide
 synchronize, which would also wait for the checkpoint snapshot's side
-stream. CPU tensors need no wait. Compile accounting
-(`CompileRecorder`) is not taken over: the torch step has no compile
-step.
+stream. CPU tensors need no wait.
+
+Compile accounting (`CompileRecorder`) has no subject: the torch step
+has no compile step. What the JAX package takes from it, the port has
+by other means: the roofline gauges' numerators are the step's work
+count (`train/cost.py`), which the fit loop hands to `StepTimer` a step
+at a time, and the trace's scope labels are `torch.profiler` ranges
+that the train steps open with `scope` (`SCOPE_LABELS`), which
+`tools/trace_attrib.py` reads back out of the trace window's Chrome
+trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import sys
@@ -365,6 +373,39 @@ def wait_metrics(metrics) -> None:
         ev.synchronize()
 
 
+# ------------------------------------------------------------------ scopes
+
+# the scope labels the train steps open (the JAX package's named
+# scopes, label for label): the buckets tools/trace_attrib.py sorts a
+# trace's device time into
+SCOPE_LABELS = (
+    "gather",
+    "loss",
+    "grad",
+    "optimizer",
+    "scatter_optimizer",
+    "train_step",
+)
+
+
+def scope(name: str):
+    """A `torch.profiler.record_function` range named `name` (one of
+    SCOPE_LABELS) while a profiler runs, the port's `jax.named_scope`: it
+    labels the kernels launched inside it in the trace, and adds no
+    synchronize and no host read. Without a running profiler it opens
+    nothing, as a named scope costs nothing at run time: an open range
+    costs microseconds of host time, which the guarded step, whose host
+    read puts the host on its path, pays in full (`tools/scope_probe.py`
+    measures it; PERF.md)."""
+    if name not in SCOPE_LABELS:
+        raise ValueError(f"scope {name!r}: expected one of {SCOPE_LABELS}")
+    import torch
+
+    if not torch._C._autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
 class StepTimer:
     """One-step-behind step-time decomposition, after the JAX module's.
 
@@ -377,6 +418,8 @@ class StepTimer:
     `dispatched` records step i's host-side times, then finishes step i-1
     by waiting for its staged metrics (`stage_metrics`' event), which
     overlaps step i's device work. The last step needs `flush()`.
+    `dispatched(..., cost=)` takes the step's work count ({"flops",
+    "bytes"}, `train/cost.step_cost`) for the window's roofline gauges.
 
     Per finished step: data_wait_s (inside the iterator's next()),
     dispatch_s (fetch end to dispatch return: the transfer and the
@@ -387,12 +430,12 @@ class StepTimer:
 
     def __init__(self, registry: Optional[Registry] = None):
         self._reg = registry or default_registry()
-        self._pending = None  # (metrics, rows, wait_s, dispatch_s, dispatch_end)
+        self._pending = None  # (metrics, rows, wait_s, dispatch_s, dispatch_end, cost)
         self._last_ready: Optional[float] = None
         self._last_wait = 0.0
         self._wait_end: Optional[float] = None
         self._win_rows = 0
-        self._win: dict = {"step": [], "wait": [], "dispatch": [], "device": []}
+        self._win: dict = {"step": [], "wait": [], "dispatch": [], "device": [], "cost": []}
         self._win_start = time.perf_counter()
         self.steps = 0
         self.rows = 0
@@ -428,13 +471,13 @@ class StepTimer:
         before the first)."""
         return self._wait_end
 
-    def dispatched(self, metrics, rows: int) -> None:
+    def dispatched(self, metrics, rows: int, cost: Optional[dict] = None) -> None:
         """Call right after the step's dispatch returns: finishes the
         previous step (its wait overlaps this step's device work) and
-        stages this one."""
+        stages this one, with its work count `cost` when given."""
         now = time.perf_counter()
         wait_end = self._wait_end if self._wait_end is not None else now
-        cur = (metrics, int(rows), self._last_wait, now - wait_end, now)
+        cur = (metrics, int(rows), self._last_wait, now - wait_end, now, cost)
         self._finish_pending()
         self._pending = cur
 
@@ -446,7 +489,7 @@ class StepTimer:
     def _finish_pending(self) -> None:
         if self._pending is None:
             return
-        metrics, rows, wait_s, dispatch_s, dispatch_end = self._pending
+        metrics, rows, wait_s, dispatch_s, dispatch_end, cost = self._pending
         self._pending = None
         wait_metrics(metrics)
         t_ready = time.perf_counter()
@@ -464,14 +507,24 @@ class StepTimer:
         w["wait"].append(wait_s)
         w["dispatch"].append(dispatch_s)
         w["device"].append(device_s)
+        w["cost"].append(cost)
         self._reg.timer("step.time").observe(t_ready - base)
         self._reg.timer("step.data_wait").observe(wait_s)
 
-    def window_record(self) -> dict:
+    def window_record(self, cost: Optional[dict] = None) -> dict:
         """Stats over the steps finished since the last call, then a
         reset; {} when none finished (the first tick under log_every=1).
-        The JAX record's roofline gauges need a compiled program's cost
-        and are not taken over."""
+
+        With work counts, the record carries the measured roofline gauges
+        of the JAX record over the window's device time:
+        `achieved_flops_per_s` = Σ flops / Σ device_s and
+        `achieved_hbm_gbps` = Σ bytes / Σ device_s / 1e9, summed over
+        the steps' own counts (`dispatched(..., cost=)`); `cost`, one
+        {"flops", "bytes"} for every step (the JAX signature), stands in
+        for a step that brought none, so a constant cost gives JAX's
+        n * flops / device_s. Without any count the keys are absent. On
+        a host-bound run device_s degrades to the pipeline interval, so
+        the gauges are lower bounds on what the card sustains."""
         w = self._win
         n = len(w["step"])
         if n == 0:
@@ -488,7 +541,15 @@ class StepTimer:
             "dispatch_ms": round(float(np.mean(w["dispatch"])) * 1e3, 3),
             "device_ms": round(float(np.mean(w["device"])) * 1e3, 3),
         }
-        self._win = {"step": [], "wait": [], "dispatch": [], "device": []}
+        costs = [c for c in (own or cost for own in w["cost"]) if c]
+        device_s = float(np.sum(w["device"]))
+        flops = sum(c.get("flops") or 0 for c in costs)
+        byts = sum(c.get("bytes") or 0 for c in costs)
+        if device_s > 0 and flops:
+            rec["achieved_flops_per_s"] = round(flops / device_s, 1)
+        if device_s > 0 and byts:
+            rec["achieved_hbm_gbps"] = round(byts / device_s / 1e9, 4)
+        self._win = {"step": [], "wait": [], "dispatch": [], "device": [], "cost": []}
         self._win_rows = 0
         self._win_start = now
         self._reg.timer("step.time").window_reset()

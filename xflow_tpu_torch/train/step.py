@@ -18,6 +18,13 @@ updated leaves with `isfinite`.
 Masked padded rows contribute zero gradient; the loss mean divides by
 the number of real rows.
 
+Both forms open the JAX step's named scopes as `torch.profiler` ranges
+(`telemetry.scope`), label for label: the two-pass step `grad` around
+the forward and its backward (with `gather` and `loss` inside, through
+`loss_fn`) and `optimizer` around the update; the fused step `gather`,
+`loss` (the row side and the loss), `grad` (its backward) and
+`scatter_optimizer` (the one scatter + FTRL pass).
+
 `train.health_metrics` adds the grad, update and param norms to each
 step's metrics (`health_norms`; per table under "full"): on the fused
 path the grad norm is the occurrence cotangent's, since the table
@@ -37,6 +44,7 @@ from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.metrics import binary_logloss_from_logits
 from xflow_tpu_torch.models.base import Model
 from xflow_tpu_torch.optim.base import Optimizer
+from xflow_tpu_torch.telemetry import scope
 from xflow_tpu_torch.train.state import TrainState
 
 
@@ -47,7 +55,12 @@ def masked_mean_logloss(logits, labels, row_mask):
 
 
 def loss_fn(tables, batch, model: Model, cfg: Config):
-    return masked_mean_logloss(model(tables, batch), batch["labels"], batch["row_mask"])
+    # the forward holds the table gather; its backward, the scatter, runs
+    # under the caller's "grad" range
+    with scope("gather"):
+        logits = model(tables, batch)
+    with scope("loss"):
+        return masked_mean_logloss(logits, batch["labels"], batch["row_mask"])
 
 
 def nonfinite_guard_on(cfg: Config) -> bool:
@@ -186,13 +199,13 @@ def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
     side is FM's, MVM's product row side, or FFM's aligned hybrid."""
     from xflow_tpu_torch.ops.sorted_table import table_gather_sorted
 
-    with torch.no_grad():
+    with torch.no_grad(), scope("gather"):
         occ_t = table_gather_sorted(
             table, batch["sorted_slots"], batch["win_off"], cfg.data.sorted_bf16
         )
     occ_t.requires_grad_(True)
     rows = batch["labels"].shape[0]
-    with torch.enable_grad():
+    with torch.enable_grad(), scope("loss"):
         if cfg.model.name == "ffm":
             from xflow_tpu_torch.models.ffm import ffm_aligned_logits
 
@@ -211,6 +224,7 @@ def fused_cotangent(table: torch.Tensor, batch: dict, cfg: Config):
                 occ_t, batch["sorted_row"], batch["sorted_mask"], rows, cfg
             )
         loss = masked_mean_logloss(logits, batch["labels"], batch["row_mask"])
+    with scope("grad"):
         (d_occ,) = torch.autograd.grad(loss, occ_t)
     return loss.detach(), d_occ
 
@@ -228,10 +242,11 @@ def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
     st = state.opt_state[tname]
     count = (torch.zeros(1, dtype=torch.int32, device=table.device)
              if nonfinite_guard_on(cfg) else None)
-    w_new, n_new, z_new = scatter_ftrl_sorted(
-        d_occ, batch["sorted_slots"], batch["win_off"], table, st["n"], st["z"],
-        table.shape[1], cfg.optim.ftrl, cfg.data.sorted_bf16, count,
-    )
+    with scope("scatter_optimizer"):  # the one pass is scatter and optimizer
+        w_new, n_new, z_new = scatter_ftrl_sorted(
+            d_occ, batch["sorted_slots"], batch["win_off"], table, st["n"], st["z"],
+            table.shape[1], cfg.optim.ftrl, cfg.data.sorted_bf16, count,
+        )
     new_state = TrainState({tname: w_new}, {tname: {"n": n_new, "z": z_new}}, state.step + 1)
     metrics = {"loss": loss, "rows": batch["row_mask"].sum()}
     if health_mode(cfg) != "off":
@@ -244,15 +259,18 @@ def _fused_sorted_step(state: TrainState, batch: dict, cfg: Config):
 def _two_pass_step(state: TrainState, batch: dict, model: Model, optimizer: Optimizer,
                    cfg: Config):
     params = {k: t.detach().requires_grad_(True) for k, t in state.tables.items()}
-    with torch.enable_grad():
+    # "grad" holds the forward and its backward: the table scatter (the
+    # gather's transpose) lands there
+    with torch.enable_grad(), scope("grad"):
         loss = loss_fn(params, batch, model, cfg)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads = {
-        k: torch.zeros_like(t) if g is None else g
-        for (k, t), g in zip(state.tables.items(), grads)
-    }
+        got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {
+            k: torch.zeros_like(t) if g is None else g
+            for (k, t), g in zip(state.tables.items(), got)
+        }
     with torch.no_grad():
-        new_tables, new_opt = optimizer.apply(state.tables, state.opt_state, grads, cfg)
+        with scope("optimizer"):
+            new_tables, new_opt = optimizer.apply(state.tables, state.opt_state, grads, cfg)
         metrics = {"loss": loss.detach(), "rows": batch["row_mask"].sum()}
         metrics.update(health_norms(cfg, state.tables, new_tables, grads=grads))
     return TrainState(new_tables, new_opt, state.step + 1), metrics

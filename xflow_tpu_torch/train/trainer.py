@@ -89,8 +89,14 @@ save. The online loop is not taken over on a mesh.
 The fit loop's drills (`testing/faults.py`): `XFLOW_FAULT_KILL_STEP`,
 the step delay and stall, read once when the run starts.
 
-Not taken over from the JAX trainer: compile accounting and its
-roofline gauges (the torch step has no compile step).
+The roofline gauges (`train.compile_metrics`, on by default, one
+device): each step's work count (`train/cost.step_cost`, from the host
+arrays' shapes and the planner's distinct count) goes to `StepTimer`
+beside its metrics, and each window record carries
+`achieved_flops_per_s` and `achieved_hbm_gbps` over the window's device
+time, as the JAX record does from its compile records' cost analysis.
+The torch step has no compile step, so there are no `kind="compile"`
+records; the mesh engines' records carry no gauges.
 """
 
 from __future__ import annotations
@@ -141,6 +147,7 @@ from xflow_tpu_torch.telemetry import (
 )
 from xflow_tpu_torch.tracing import emit_linked_span, emit_op_span, new_id
 from xflow_tpu_torch.train import checkpoint as ckpt
+from xflow_tpu_torch.train.cost import step_cost
 from xflow_tpu_torch.train.state import TrainState, init_state
 from xflow_tpu_torch.train.step import health_mode, make_train_step, nonfinite_guard_on
 from xflow_tpu_torch.weights import table_shapes
@@ -212,12 +219,14 @@ class _StepLog:
         t, prof = self.t, self.prof
         pc = time.perf_counter
         t0 = pc()
-        arrays = to_device(t._prepare(batch, host), t.device)
+        host = t._prepare(batch, host)
+        cost = step_cost(t.cfg, host) if t._count_work else None
+        arrays = to_device(host, t.device)
         t1 = pc()
         t.state, m = t.train_step(t.state, arrays)
         m = stage_metrics(m)
         t2 = pc()
-        self.timer.dispatched(m, batch.num_rows)
+        self.timer.dispatched(m, batch.num_rows, cost)
         if prof is not None:
             t3 = pc()
             wait_end = self.timer.last_wait_end or t0
@@ -350,6 +359,8 @@ class Trainer:
         self.model = get_model(cfg.model.name)(cfg)
         self.optimizer = get_optimizer(cfg.optim.name)
         self._guarded = nonfinite_guard_on(cfg)  # validates train.nonfinite_guard
+        # each step's work count for the roofline gauges (one device only)
+        self._count_work = cfg.train.compile_metrics and mesh is None
         self.dedup = HostDedup(cfg)  # row-major batches; validates data.dedup
         if mesh is None:
             # batches ship as slot-sorted plans (the JAX trainer's
